@@ -1,0 +1,117 @@
+"""Philox4x32-10 in torch integer ops, and the Monte Carlo kernel's stream
+layout.
+
+This is the port's counterpart of the TPU's in-kernel hardware PRNG
+(``pltpu.prng_seed`` / ``prng_random_bits`` in
+``pyphysim_tpu/ops/mc_pallas.py``). TPU-PRNG streams cannot be reproduced
+off the TPU, so the port uses a counter-based generator instead: Philox4x32
+with 10 rounds (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+3", SC 2011; the Random123 reference values are in the tests). The same
+function is written in CUDA in ``ops/csrc/philox.cuh`` for the kernel, and
+the two produce the same bits.
+
+Words are carried in int64 tensors holding values in ``[0, 2**32)``: torch
+has almost no uint32 arithmetic. The 32x32 -> 64-bit multiply would
+overflow int64 (0xD2511F53 * 0xFFFFFFFF > 2**63), so one factor is split
+into 16-bit halves and the product's high and low words are recombined.
+
+Stream layout of ``MonteCarloOfdmTdl`` (``ops/mc_kernel.py``). ``seed`` is
+``kernel_stream_seed(base_seed, unpack_index)`` and ``attempt`` is the
+runner's 64-bit absolute attempt index (``start + r`` for row ``r`` of a
+call at ``start``):
+
+  * phase stream: key ``(seed, 0)``, counter
+    ``(il, 0, attempt_lo, attempt_hi)`` for (tap, ray) pair ``il``; output
+    words 0 / 1 are the bits of the ray angle phi / the ray phase psi. It
+    is keyed per attempt only, so every symbol tile of a repetition sees
+    the same rays and the channel stays continuous across tiles.
+  * symbol stream: key ``(seed, 1)``, counter
+    ``(s * used + u, tile, attempt_lo, attempt_hi)`` for symbol ``s`` of
+    symbol tile ``tile`` on used bin ``u``; output words 0 / 1 / 2 are the
+    data / real-noise / imaginary-noise bits.
+
+Every counter holds the absolute attempt, so the bits of attempt
+``start + i`` do not depend on ``start`` or on the chunk size: results are
+chunk-size invariant and checkpoint/resume is exact.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+
+__all__ = ["philox4x32_10", "to_int32_bits", "phase_stream_bits",
+           "symbol_stream_bits"]
+
+_MASK = 0xFFFFFFFF
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57     # round multipliers
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85     # Weyl key increments
+
+Word = Union[int, torch.Tensor]
+
+
+def _mulhilo(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit words of ``a * b`` for a 32-bit constant ``a``
+    and int64 ``b`` in [0, 2**32), without overflowing int64."""
+    x = a * (b & 0xFFFF)           # < 2**48
+    y = a * (b >> 16)              # < 2**48
+    hi = (y + (x >> 16)) >> 16
+    lo = (((y & 0xFFFF) << 16) + x) & _MASK
+    return hi, lo
+
+
+def philox4x32_10(c0: Word, c1: Word, c2: Word, c3: Word,
+                  k0: Word, k1: Word) -> Tuple[torch.Tensor, ...]:
+    """Philox4x32-10 of the counter ``(c0, c1, c2, c3)`` under the key
+    ``(k0, k1)``. Arguments are python ints or int64 tensors (broadcast
+    together) with values in [0, 2**32); returns four int64 tensors."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64)
+                      if not isinstance(c, torch.Tensor) else c
+                      for c in (c0, c1, c2, c3))
+    for i in range(10):
+        if i:
+            k0 = (k0 + _W0) & _MASK
+            k1 = (k1 + _W1) & _MASK
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def to_int32_bits(word: torch.Tensor) -> torch.Tensor:
+    """A 32-bit word in int64 as the int32 with the same bits (the signed
+    view that ``_u01`` / ``_u11`` scale, and the layout the kernel's bit
+    tensors use)."""
+    return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
+
+
+def _attempt_words(attempts: torch.Tensor):
+    a = attempts.to(torch.int64)
+    return a & _MASK, (a >> 32) & _MASK
+
+
+def phase_stream_bits(seed: int, attempts: torch.Tensor,
+                      TL: int) -> torch.Tensor:
+    """(reps, 2, TL) int32: the phi / psi bits of every (tap, ray) pair,
+    for each absolute attempt in the 1-D int64 tensor ``attempts``."""
+    lo, hi = _attempt_words(attempts[:, None])
+    il = torch.arange(TL, dtype=torch.int64, device=attempts.device)
+    x0, x1, _, _ = philox4x32_10(il[None, :], 0, lo, hi, int(seed), 0)
+    return to_int32_bits(torch.stack([x0, x1], dim=1))
+
+
+def symbol_stream_bits(seed: int, attempts: torch.Tensor, num_tiles: int,
+                       tile: int, used: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Data, real-noise and imaginary-noise bits, each (reps,
+    num_tiles * tile, used) int32, for each absolute attempt in the 1-D
+    int64 tensor ``attempts``."""
+    dev = attempts.device
+    lo, hi = _attempt_words(attempts[:, None, None])
+    su = torch.arange(tile * used, dtype=torch.int64, device=dev)
+    tiles = torch.arange(num_tiles, dtype=torch.int64, device=dev)
+    x0, x1, x2, _ = philox4x32_10(su[None, None, :], tiles[None, :, None],
+                                  lo, hi, int(seed), 1)
+    shape = (attempts.shape[0], num_tiles * tile, used)
+    return tuple(to_int32_bits(x).reshape(shape) for x in (x0, x1, x2))

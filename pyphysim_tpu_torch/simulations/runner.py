@@ -1,0 +1,719 @@
+"""The Monte Carlo simulation runner — the framework's engine.
+
+Counterpart of ``pyphysim_tpu/simulations/runner.py``: the template-method
+engine with lifecycle hooks, early stop via ``_keep_going``,
+``SkipThisOne`` skip-and-retry accounting, partial-results
+checkpoint/resume and progress tracking, with two execution paths:
+
+  * **Serial path** — subclasses implement
+    ``_run_simulation(current_parameters) -> SimulationResults`` and get
+    one Python call per repetition.
+
+  * **Bulk path** — subclasses implement ``_gen_bulk_kernel`` returning
+    ``fn(start, n)``, a function that simulates attempts
+    ``[start, start + n)`` in one call (``apps/ofdm/ofdm_mc_kernel_torch.py``
+    runs a whole chunk of repetitions in one CUDA kernel launch). The
+    runner keeps an absolute attempt cursor, accepts the first ``rep_max``
+    valid attempts (the reserved ``"__valid__"`` mask skips and retries),
+    sizes chunks from a 4-rung ladder when a stop criterion is set, and
+    double-buffers: chunk k+1 is enqueued on the device before chunk k's
+    tensors are fetched to the host.
+
+The JAX package's per-key vmapped path (``_gen_simulation_kernel``) and
+``simulate_in_parallel`` are not ported yet; a subclass that implements
+``_gen_simulation_kernel`` gets ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .parameters import SimulationParameters
+from .results import Result, SimulationResults
+
+__all__ = ["SimulationRunner", "SkipThisOne", "get_common_parser",
+           "get_partial_results_filename", "kernel_stream_seed"]
+
+
+def kernel_stream_seed(base_seed: int, unpack_index: int) -> int:
+    """Per-variation 31-bit seed of a bulk kernel's random streams (the
+    same formula as the JAX package, so a seed names the same variation
+    in both): attempt-level independence comes from the kernel's
+    absolute-attempt streams, variation-level independence from this."""
+    return (int(base_seed) * 1000003 + max(int(unpack_index), 0)) \
+        & 0x7FFFFFFF
+
+
+def get_partial_results_filename(
+        results_base_filename: str,
+        current_params: SimulationParameters,
+        partial_results_folder: Optional[str] = None) -> str:
+    """Name of the partial-results checkpoint file for one unpacked
+    variation: ``<base>_unpack_<i>.pickle`` with the index zero-padded to
+    the digit count of the total number of variations."""
+    total_unpacks = current_params.get_num_unpacked_variations()
+    num_digits = len(str(total_unpacks))
+    unpack_index_str = str(max(current_params.unpack_index, 0)).zfill(
+        num_digits)
+    filename = f"{results_base_filename}_unpack_{unpack_index_str}.pickle"
+    if partial_results_folder is not None:
+        filename = os.path.join(partial_results_folder, filename)
+    return filename
+
+
+class SkipThisOne(Exception):
+    """Raised inside ``_run_simulation`` to discard the current repetition
+    (e.g. a singular matrix was drawn); the repetition is retried and a
+    ``num_skipped_reps`` SUMTYPE result accounts for it."""
+
+    def __init__(self, msg: str = "") -> None:
+        super().__init__(msg)
+        self.msg = msg
+
+
+_common_parser: Optional[argparse.ArgumentParser] = None
+
+
+def get_common_parser() -> argparse.ArgumentParser:
+    """Singleton argparse parser with the shared simulation options."""
+    global _common_parser
+    if _common_parser is None:
+        parser = argparse.ArgumentParser(add_help=False)
+        group = parser.add_argument_group("Simulation options")
+        group.add_argument("-c", "--config", type=str, default=None,
+                           help="Config file with simulation parameters")
+        group.add_argument("-i", "--index", type=int, default=None,
+                           help="Run only the variation with this unpack "
+                                "index and save only its partial results")
+        group.add_argument("-n", "--number_variations", action="store_true",
+                           help="Print the number of unpacked variations "
+                                "and exit")
+        _common_parser = parser
+    return _common_parser
+
+
+class _HostCopy:
+    """A CUDA tensor's copy into pinned host memory, queued on its stream,
+    and the event that marks the copy done."""
+
+    def __init__(self, tensor) -> None:
+        import torch
+        self.host = torch.empty(tensor.shape, dtype=tensor.dtype,
+                                pin_memory=True)
+        self.host.copy_(tensor.detach(), non_blocking=True)
+        self.done = torch.cuda.Event()
+        self.done.record(torch.cuda.current_stream(tensor.device))
+
+
+def _start_fetch(value):
+    """Queue the host copy of one bulk-kernel output as soon as its chunk
+    is dispatched. On one CUDA stream, a copy queued after the NEXT chunk's
+    kernel would wait for that kernel too, and the host's accounting of
+    chunk k would never overlap the device's run of chunk k+1. A
+    ``(values, totals)`` pair is handled element-wise."""
+    if isinstance(value, tuple):
+        return tuple(_start_fetch(v) for v in value)
+    if getattr(value, "is_cuda", False):
+        return _HostCopy(value)
+    return value
+
+
+def _to_host(value):
+    """Fetch one bulk-kernel output to numpy; this is where the host waits
+    for that chunk (and only for it)."""
+    if isinstance(value, tuple):
+        return tuple(_to_host(v) for v in value)
+    if isinstance(value, _HostCopy):
+        value.done.synchronize()
+        return value.host.numpy()
+    if hasattr(value, "detach"):
+        return value.detach().cpu().numpy()
+    return np.asarray(value)
+
+
+class SimulationRunner:
+    """Monte Carlo engine: parameter sweep x repetitions -> typed results."""
+
+    def __init__(self, default_config_file: Optional[str] = None,
+                 config_spec=None, read_command_line_args: bool = True,
+                 save_parsed_file: bool = False) -> None:
+        self.rep_max = 1
+        self._elapsed_time = 0.0
+        self._runned_reps: List[int] = []
+        # serial-path attempt cursor (set by _serial_loop before every
+        # _run_simulation call; resume-safe — see _serial_loop)
+        self.serial_attempt = 0
+        self.params = SimulationParameters()
+        self.results = SimulationResults()
+
+        # Progress display
+        self.progressbar_message = "Progress"
+        self.update_progress_function_style: Optional[str] = "text1"
+        self.progress_output_type = "screen"  # or 'file'
+        self.progressbar_extra_args: Dict[str, Any] = {}
+
+        # Checkpointing
+        self.partial_results_folder = "partial_results"
+        self.delete_partial_results_bool = False
+        self.__results_base_filename: Optional[str] = None
+        self.__partial_files_to_delete: List[Path] = []
+        self.__last_checkpoint_time = time.time()
+        self.__last_checkpoint_rep = 0
+
+        # Bulk execution
+        self.batch_size: Optional[int] = None  # auto if None
+        self.batch_result_types: Dict[str, Any] = {}
+        self.base_seed = 1234
+        # Early stop: (result_name, limit) stops a variation once the
+        # ACCUMULATED raw value of that (SUMTYPE, or RATIOTYPE numerator)
+        # result crosses ``limit``; the bulk path then shrinks its chunks
+        # down a 4-rung ladder as the metric approaches the limit.
+        self.batch_stop_criterion: Optional[Tuple[str, float]] = None
+        # chunk sizes are rounded to a multiple of this while a stop
+        # criterion is set (the same rounding as the JAX runner, so both
+        # packages cut a sweep into the same chunks)
+        self.num_stop_subchunks = 8
+
+        # Command line integration
+        self.command_line_args = argparse.Namespace(
+            config=None, index=None, number_variations=False)
+        if read_command_line_args and not self._running_under_test():
+            parser = argparse.ArgumentParser(parents=[get_common_parser()])
+            self.command_line_args, _ = parser.parse_known_args()
+
+        config_file = self.command_line_args.config or default_config_file
+        if config_file is not None and os.path.exists(config_file):
+            self.params = SimulationParameters.load_from_config_file(
+                config_file, config_spec, save_parsed_file)
+
+    @staticmethod
+    def _running_under_test() -> bool:
+        return "pytest" in sys.modules or "unittest" in sys.modules
+
+    # ------------------------------------------------------------------
+    # Template methods (subclass API)
+    # ------------------------------------------------------------------
+
+    def _run_simulation(
+            self, current_parameters: SimulationParameters
+    ) -> SimulationResults:
+        """One repetition (serial path)."""
+        raise NotImplementedError(
+            "Implement either _run_simulation (serial path) or "
+            "_gen_bulk_kernel (bulk path)")
+
+    def _gen_bulk_kernel(
+            self, current_parameters: SimulationParameters
+    ) -> Optional[Callable]:
+        """Bulk path: return ``fn(start: int, n: int) -> {name: out}``
+        where every ``out`` has leading axis ``n`` (or is a
+        ``(values, totals)`` pair of such arrays for RATIOTYPE); declare
+        the Result types in ``self.batch_result_types``. Outputs may be
+        numpy arrays or torch tensors on any device; returning device
+        tensors without synchronising lets the runner enqueue chunk k+1
+        before it fetches chunk k. The reserved ``"__valid__"`` mask marks
+        attempts to skip and retry.
+
+        Contract: attempt ``start + i``'s randomness must depend only on
+        ``(base_seed, unpack_index, start + i)`` — that is what makes
+        results chunk-size invariant and checkpoint/resume exact. ``n`` is
+        the batch size without a stop criterion; with
+        ``batch_stop_criterion`` set it comes from the fixed 4-entry
+        ladder (batch, batch/2, /4, /8), so a kernel that caches one
+        compiled program per ``n`` builds at most 4. Return None (default)
+        to use the serial path."""
+        return None
+
+    # noinspection PyUnusedLocal
+    def _keep_going(self, current_params: SimulationParameters,
+                    current_sim_results: SimulationResults,
+                    current_rep: int) -> bool:
+        """Early-stop predicate, checked between repetitions (serial) or
+        chunks (bulk). Default: never stop early."""
+        return True
+
+    def _on_simulate_start(self) -> None:
+        """Hook called once at simulation start."""
+
+    def _on_simulate_finish(self) -> None:
+        """Hook called once at simulation end."""
+
+    def _on_simulate_current_params_start(
+            self, current_params: SimulationParameters) -> None:
+        """Hook called before each variation."""
+
+    def _on_simulate_current_params_finish(
+            self, current_params: SimulationParameters,
+            current_params_sim_results: SimulationResults) -> None:
+        """Hook called after each variation."""
+
+    # ------------------------------------------------------------------
+    # Properties
+    # ------------------------------------------------------------------
+
+    @property
+    def elapsed_time(self) -> str:
+        from ..utils.misc import pretty_time
+        return pretty_time(self._elapsed_time)
+
+    @property
+    def runned_reps(self) -> List[int]:
+        """Repetitions actually executed per variation."""
+        return self._runned_reps
+
+    @property
+    def results_base_filename(self) -> Optional[str]:
+        return self.__results_base_filename
+
+    @property
+    def results_filename(self) -> Optional[str]:
+        """Final results filename with ``{param}`` placeholders replaced."""
+        return self._get_results_filename()
+
+    def set_results_filename(self, filename: Optional[str] = None) -> None:
+        """Set the base filename for final and partial results
+        ( ``{param}`` templating supported)."""
+        self.__results_base_filename = filename
+
+    # ------------------------------------------------------------------
+    # Checkpointing
+    # ------------------------------------------------------------------
+
+    def _get_results_filename(self) -> Optional[str]:
+        if self.__results_base_filename is None:
+            return None
+        from ..utils.misc import replace_dict_values
+        return replace_dict_values(self.__results_base_filename,
+                                   self.params.parameters,
+                                   filename_mode=True)
+
+    def _get_partial_results_filename(
+            self, current_params: SimulationParameters) -> Optional[str]:
+        base = self._get_results_filename()
+        if base is None:
+            return None
+        folder = self.partial_results_folder
+        if folder and not os.path.isabs(folder):
+            # keep partials next to the results file
+            folder = os.path.join(os.path.dirname(base), folder)
+        return get_partial_results_filename(
+            os.path.basename(base), current_params,
+            folder or os.path.dirname(base))
+
+    @staticmethod
+    def _is_primary_host() -> bool:
+        """Only rank 0 of ``torch.distributed`` touches the filesystem
+        when a process group is initialized; a single process always
+        does."""
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_rank() == 0
+        return True
+
+    def _save_partial_results(self, current_rep: int,
+                              current_params: SimulationParameters,
+                              current_sim_results: SimulationResults) -> None:
+        if not self._is_primary_host():
+            return
+        filename = self._get_partial_results_filename(current_params)
+        if filename is None:
+            return
+        current_sim_results.set_parameters(current_params)
+        current_sim_results.current_rep = current_rep
+        folder = os.path.dirname(filename)
+        if folder:
+            os.makedirs(folder, exist_ok=True)
+        current_sim_results.save_to_file(filename)
+        self.__partial_files_to_delete.append(Path(filename).absolute())
+
+    def _save_partial_results_maybe(
+            self, current_rep: int, current_params: SimulationParameters,
+            current_sim_results: SimulationResults) -> None:
+        """Throttled checkpoint: every 500 reps or 300 s. The rep throttle
+        fires on CROSSING a multiple of 500, not on exact equality — chunks
+        whose size does not divide 500 would otherwise never trigger it."""
+        now = time.time()
+        if now - self.__last_checkpoint_time > 300 or \
+                current_rep // 500 > self.__last_checkpoint_rep // 500:
+            self._save_partial_results(current_rep, current_params,
+                                       current_sim_results)
+            self.__last_checkpoint_time = now
+            self.__last_checkpoint_rep = current_rep
+
+    def _load_partial_results(
+            self, current_params: SimulationParameters
+    ) -> Optional[SimulationResults]:
+        """Load+validate a partial-results checkpoint; raises ValueError on
+        parameter mismatch."""
+        filename = self._get_partial_results_filename(current_params)
+        if filename is None or not os.path.exists(filename):
+            return None
+        partial = SimulationResults.load_from_file(filename)
+        if not current_params == partial.params:
+            raise ValueError(
+                "Partial results loaded from file do not match current "
+                f"parameters.\nfile: '{filename}'\nDelete that file first "
+                "to simulate with a new configuration.")
+        return partial
+
+    def __delete_partial_results_maybe(self) -> None:
+        if self.delete_partial_results_bool and self._is_primary_host():
+            for f in self.__partial_files_to_delete:
+                try:
+                    f.unlink()
+                except OSError:
+                    pass
+            self.__partial_files_to_delete.clear()
+
+    # ------------------------------------------------------------------
+    # Progress helpers
+    # ------------------------------------------------------------------
+
+    def _get_progress_bar(self, variation_index: int, num_variations: int,
+                          rep_max: int, current_params=None):
+        from ..progressbar import (DummyProgressbar, ProgressbarText,
+                                   ProgressbarText2, ProgressbarText3)
+        styles = {"text1": ProgressbarText, "text2": ProgressbarText2,
+                  "text3": ProgressbarText3}
+        if self.update_progress_function_style not in styles or \
+                not self._is_primary_host():
+            return DummyProgressbar()
+        source = (current_params.parameters if current_params is not None
+                  else self.params.parameters)
+        try:
+            message = self.progressbar_message.format(**{
+                k: v for k, v in source.items()
+                if not isinstance(v, (list, np.ndarray))})
+        except (KeyError, IndexError):
+            message = self.progressbar_message
+        output = None
+        if self.progress_output_type == "file":
+            base = self._get_results_filename() or "simulation"
+            output = open(
+                f"{base}_progress_{variation_index + 1}_of_"
+                f"{num_variations}.txt", "w")
+        return styles[self.update_progress_function_style](
+            rep_max, message=message, output=output,
+            **self.progressbar_extra_args)
+
+    # ------------------------------------------------------------------
+    # Main entry point
+    # ------------------------------------------------------------------
+
+    def simulate(self,
+                 param_variation_index: Optional[int] = None) -> None:
+        """Run the full simulation (all variations), or exactly one
+        variation when ``param_variation_index`` (or the ``-i`` CLI arg)
+        is given — the cluster job-splitting mode that only writes that
+        variation's partial results file."""
+        if self.command_line_args.number_variations:
+            print(self.params.get_num_unpacked_variations())
+            return
+        if param_variation_index is None:
+            param_variation_index = self.command_line_args.index
+
+        tic = time.time()
+        self.__partial_files_to_delete.clear()
+        self.params.add("rep_max", self.rep_max)
+        self.results = SimulationResults()
+        self.results.set_parameters(self.params)
+        self._runned_reps = []
+        self._on_simulate_start()
+
+        unpacked = self.params.get_unpacked_params_list()
+        if param_variation_index is not None:
+            if not 0 <= param_variation_index < len(unpacked):
+                raise ValueError(
+                    f"Invalid variation index: {param_variation_index}")
+            unpacked = [unpacked[param_variation_index]]
+
+        for i, current_params in enumerate(unpacked):
+            if self.update_progress_function_style is not None and \
+                    self.progress_output_type == "screen" and \
+                    len(unpacked) > 1:
+                print(f"Current Variation: {i + 1}/{len(unpacked)}")
+            current_results, reps = self._simulate_for_current_params(
+                current_params, i, len(unpacked))
+            self._runned_reps.append(reps)
+            if param_variation_index is None:
+                self.results.append_all_results(current_results)
+
+        self._elapsed_time = time.time() - tic
+        self._on_simulate_finish()
+        self.results.runned_reps = list(self._runned_reps)
+
+        if param_variation_index is None:
+            self.simulate_common_cleaning()
+
+    def simulate_common_cleaning(self) -> None:
+        """Finalize a simulation: save final results and delete partials
+        if requested. Called automatically by :meth:`simulate`."""
+        filename = self._get_results_filename()
+        if filename is not None and self._is_primary_host():
+            self.results.save_to_file(filename)
+        self.__delete_partial_results_maybe()
+
+    # ------------------------------------------------------------------
+    # Per-variation execution
+    # ------------------------------------------------------------------
+
+    def _simulate_for_current_params(
+            self, current_params: SimulationParameters,
+            variation_index: int,
+            num_variations: int) -> Tuple[SimulationResults, int]:
+        self._on_simulate_current_params_start(current_params)
+
+        partial = self._load_partial_results(current_params)
+        if partial is not None:
+            current_results = partial
+            current_rep = partial.current_rep
+        else:
+            current_results = SimulationResults()
+            current_rep = 0
+        self.__last_checkpoint_rep = current_rep
+
+        pbar = self._get_progress_bar(variation_index, num_variations,
+                                      self.rep_max, current_params)
+
+        bulk = self._gen_bulk_kernel(current_params)
+        if bulk is not None:
+            current_rep = self._bulk_loop(bulk, current_params,
+                                          current_results, current_rep,
+                                          pbar)
+        elif hasattr(self, "_gen_simulation_kernel"):
+            raise NotImplementedError(
+                "The per-key vmapped path (_gen_simulation_kernel) is not "
+                "ported yet; implement _gen_bulk_kernel or _run_simulation")
+        else:
+            current_rep = self._serial_loop(current_params, current_results,
+                                            current_rep, pbar)
+        pbar.progress(self.rep_max)
+
+        self._on_simulate_current_params_finish(current_params,
+                                                current_results)
+        if current_rep > 0:
+            self._save_partial_results(current_rep, current_params,
+                                       current_results)
+        return current_results, current_rep
+
+    @staticmethod
+    def _skipped_before(current_results) -> int:
+        """Skips already merged into (resumed) results: the attempt cursor
+        resumes as accepted + skipped, because skipped attempts consumed
+        stream indices too."""
+        if "num_skipped_reps" in current_results and \
+                current_results["num_skipped_reps"]:
+            prior = current_results["num_skipped_reps"][-1]
+            if prior.num_updates > 0:
+                return int(prior.get_result())
+        return 0
+
+    # -- serial path -------------------------------------------------------
+
+    def _serial_loop(self, current_params, current_results, current_rep,
+                     pbar) -> int:
+        # ``serial_attempt`` is the serial path's analog of the bulk
+        # path's absolute attempt cursor: monotone within a variation
+        # (skipped attempts advance it, so retries get fresh randomness)
+        # and derived from the PERSISTED repetition AND skip counts, so a
+        # checkpoint-resume continues the attempt sequence instead of
+        # replaying realizations already accumulated — which is why every
+        # skip is merged into the results IMMEDIATELY. User
+        # ``_run_simulation`` code that seeds per-repetition randomness
+        # should key it on this (plus the variation's unpack_index).
+        attempt = current_rep + self._skipped_before(current_results)
+        while current_rep < self.rep_max and self._keep_going(
+                current_params, current_results, current_rep):
+            tic = time.time()
+            attempt += 1
+            self.serial_attempt = attempt
+            try:
+                rep_results = self._run_simulation(current_params)
+            except SkipThisOne:
+                self._merge_skip_count(current_results, 1)
+                continue
+            elapsed = time.time() - tic
+            rep_results.add_result(
+                Result.create("elapsed_time", Result.SUMTYPE, elapsed))
+            current_results.merge_all_results(rep_results)
+            current_rep += 1
+            pbar.progress(current_rep)
+            self._save_partial_results_maybe(current_rep, current_params,
+                                             current_results)
+        self._merge_skip_count(current_results, 0)  # ensure existence
+        return current_rep
+
+    @staticmethod
+    def _merge_skip_count(current_results, num_skipped: int) -> None:
+        skip = Result.create("num_skipped_reps", Result.SUMTYPE, num_skipped)
+        if "num_skipped_reps" in current_results:
+            current_results["num_skipped_reps"][-1].merge(skip)
+        else:
+            current_results.add_result(skip)
+
+    # -- bulk path ---------------------------------------------------------
+
+    def _default_batch_size(self) -> int:
+        if self.batch_size is not None:
+            bsize = int(self.batch_size)
+        else:
+            bsize = int(min(max(self.rep_max // 8, 1), 4096))
+        return self._round_chunk(bsize)
+
+    def _round_chunk(self, n: int) -> int:
+        q = 1
+        if self.batch_stop_criterion is not None:
+            q = max(int(self.num_stop_subchunks), 1)
+        return ((max(int(n), 1) + q - 1) // q) * q
+
+    def _stop_metric_value(self, current_results) -> float:
+        """Accumulated raw value of the stop-criterion result (SUMTYPE
+        value, or RATIOTYPE numerator)."""
+        name, _ = self.batch_stop_criterion
+        if name in current_results and current_results[name]:
+            r = current_results[name][-1]
+            if r.num_updates > 0:
+                return float(r._value)
+        return 0.0
+
+    def _stop_criterion_ok(self, current_results) -> bool:
+        if self.batch_stop_criterion is None:
+            return True
+        return self._stop_metric_value(current_results) < \
+            float(self.batch_stop_criterion[1])
+
+    def _consume_chunk(self, out, nk, needed, elapsed,
+                       current_results) -> Tuple[int, int, int]:
+        """Accept-prefix + skip accounting + Result merging for one chunk
+        of attempt outputs (host numpy arrays). Returns (n_accept,
+        consumed, n_skip)."""
+        valid = out.pop("__valid__", None)
+        if valid is None:
+            valid = np.ones(nk, dtype=bool)
+        else:
+            valid = np.asarray(valid).astype(bool)
+        cand_pos = np.flatnonzero(valid)
+        if len(cand_pos) >= needed:
+            last = int(cand_pos[needed - 1])
+            accept = valid & (np.arange(nk) <= last)
+            consumed = last + 1
+        else:
+            accept = valid
+            consumed = nk
+        n_accept = int(np.count_nonzero(accept))
+        n_skip = consumed - n_accept
+
+        chunk_results = SimulationResults()
+        for name, spec in self.batch_result_types.items():
+            if name not in out:
+                raise RuntimeError(
+                    f"Kernel did not produce declared result {name!r}")
+            type_code, choice_num = self._parse_type_spec(spec)
+            r = Result(name, type_code, choice_num=choice_num)
+            value = out[name]
+            if isinstance(value, tuple):
+                r.update_batch(value[0][accept], value[1][accept])
+            else:
+                r.update_batch(np.asarray(value)[accept])
+            chunk_results.add_result(r)
+        chunk_results.add_result(
+            Result.create("elapsed_time", Result.SUMTYPE, elapsed))
+        chunk_results.add_result(
+            Result.create("num_skipped_reps", Result.SUMTYPE, n_skip))
+        current_results.merge_all_results(chunk_results)
+        return n_accept, consumed, n_skip
+
+    def _bulk_loop(self, bulk, current_params, current_results,
+                   current_rep, pbar) -> int:
+        """Chunk loop for self-batched kernels (``_gen_bulk_kernel``): the
+        kernel owns its rep axis — the runner only hands it an absolute
+        attempt cursor and the chunk size."""
+        if not self.batch_result_types:
+            raise RuntimeError(
+                "The bulk path requires self.batch_result_types to "
+                "declare the Result type of every kernel output")
+
+        bsize = self._default_batch_size()
+        cursor = current_rep + self._skipped_before(current_results)
+
+        # Early stop at sub-chunk granularity: the kernel always receives a
+        # size from a FIXED 4-entry ladder (bsize, bsize/2, bsize/4,
+        # bsize/8 — rounded), so it builds at most 4 shapes; as the
+        # accumulated stop metric approaches the limit the runner picks
+        # the smallest rung that covers the EXPECTED remaining attempts
+        # (estimated from the accepted-rep metric rate), landing within
+        # ~bsize/8 of the threshold instead of overshooting by a chunk.
+        ladder = sorted({self._round_chunk(max(bsize // d, 1))
+                         for d in (8, 4, 2, 1)})
+
+        def pick_chunk(needed: int) -> int:
+            if self.batch_stop_criterion is None:
+                return bsize
+            nk = next((n for n in ladder if n >= needed), ladder[-1])
+            limit = float(self.batch_stop_criterion[1])
+            metric = self._stop_metric_value(current_results)
+            if current_rep > 0 and metric > 0:
+                rate = metric / current_rep
+                expected = (limit - metric) / rate
+                rung = ladder[0]
+                for n in ladder:
+                    if n <= expected:
+                        rung = n
+                nk = min(nk, rung)
+            return nk
+
+        # Double-buffered dispatch: when no stop criterion gates the work,
+        # chunk k+1 is enqueued before chunk k's outputs are fetched — the
+        # kernel returns device tensors without synchronising, and each
+        # chunk's host copy is queued right behind it (_start_fetch), so
+        # the device runs chunk k+1 while the host does chunk k's
+        # accounting. A mispredicted cursor (skips landed in chunk k)
+        # discards the speculative chunk and stops speculating.
+        def dispatch(start: int, n: int):
+            return {name: _start_fetch(v)
+                    for name, v in bulk(start, n).items()}
+
+        speculate = self.batch_stop_criterion is None
+        pending: Optional[Tuple[int, int, Any]] = None
+        while current_rep < self.rep_max and \
+                self._stop_criterion_ok(current_results) and \
+                self._keep_going(current_params, current_results,
+                                 current_rep):
+            tic = time.time()
+            needed = self.rep_max - current_rep
+            nk = pick_chunk(needed)
+            if pending is not None and pending[:2] == (cursor, nk):
+                out = pending[2]
+            else:
+                out = dispatch(cursor, nk)
+            pending = None
+            if speculate and needed > nk:
+                pending = (cursor + nk, bsize, dispatch(cursor + nk, bsize))
+            out = {name: _to_host(v) for name, v in out.items()}
+            elapsed = time.time() - tic
+            n_accept, consumed, n_skip = self._consume_chunk(
+                out, nk, needed, elapsed, current_results)
+            current_rep += n_accept
+            cursor += consumed
+            if consumed != nk:
+                speculate = False
+            pbar.progress(current_rep)
+            self._save_partial_results_maybe(current_rep, current_params,
+                                             current_results)
+            if n_accept == 0 and n_skip == 0:
+                break
+        self._merge_skip_count(current_results, 0)
+        return current_rep
+
+    @staticmethod
+    def _parse_type_spec(spec) -> Tuple[int, Optional[int]]:
+        if isinstance(spec, tuple):
+            return int(spec[0]), int(spec[1])
+        return int(spec), None

@@ -1,0 +1,211 @@
+"""Core numeric utilities used by the ported slice.
+
+Counterpart of the parts of ``pyphysim_tpu/utils/misc.py`` that the Monte
+Carlo path needs: bit counting on torch tensors, ``level2bits``, the Q
+function, confidence intervals, and the host-side formatting helpers the
+runner uses for file names and progress. The rest of that module waits for
+the slices that need it.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+__all__ = [
+    "count_bits",
+    "count_bit_errors",
+    "qfunc",
+    "level2bits",
+    "int2bits",
+    "calc_confidence_interval",
+    "pretty_time",
+    "get_range_representation",
+    "replace_dict_values",
+    "equal_dicts",
+]
+
+# ---------------------------------------------------------------------------
+# Bit twiddling / error counting
+# ---------------------------------------------------------------------------
+
+_M1 = 0x5555555555555555
+_M2 = 0x3333333333333333
+_M4 = 0x0F0F0F0F0F0F0F0F
+_H01 = 0x0101010101010101
+
+
+def count_bits(n):
+    """Popcount of non-negative integer(s).
+
+    Python ints give an int, numpy arrays an int64 array, and integer torch
+    tensors an int64 tensor on the same device (SWAR popcount in int64,
+    valid for values below 2**63).
+    """
+    if isinstance(n, (int, np.integer)):
+        return int(bin(int(n)).count("1"))
+    if isinstance(n, np.ndarray):
+        return count_bits(torch.from_numpy(n.astype(np.int64))).numpy()
+    x = n.to(torch.int64)
+    x = x - ((x >> 1) & _M1)
+    x = (x & _M2) + ((x >> 2) & _M2)
+    x = (x + (x >> 4)) & _M4
+    # the multiply wraps in int64; the count sits in the top byte
+    return ((x * _H01) >> 56) & 0xFF
+
+
+def count_bit_errors(first, second, axis=None):
+    """Number of differing bits between integer arrays:
+    ``sum(popcount(first ^ second))``. Numpy in, numpy out; tensors in,
+    an int64 tensor out."""
+    bits = count_bits(first ^ second)
+    if isinstance(bits, (int, np.integer, np.ndarray)):
+        return np.sum(bits, axis=axis)
+    return bits.sum() if axis is None else bits.sum(dim=axis)
+
+
+def level2bits(n: int) -> int:
+    """Bits needed to represent ``n`` symbols / levels.
+
+    Examples
+    --------
+    >>> [level2bits(m) for m in (2, 4, 16, 256)]
+    [1, 2, 4, 8]
+    """
+    if n < 1:
+        raise ValueError("level2bits: n must be a positive integer")
+    return int2bits(n - 1)
+
+
+def int2bits(n: int) -> int:
+    """Bits needed to represent the integer ``n`` itself:
+    int2bits(0) == 1, int2bits(1) == 1, int2bits(2) == 2."""
+    if n < 0:
+        raise ValueError("int2bits: n must be a non-negative integer")
+    if n == 0:
+        return 1
+    return int(n).bit_length()
+
+
+# ---------------------------------------------------------------------------
+# Q function & confidence intervals
+# ---------------------------------------------------------------------------
+
+
+def qfunc(x):
+    """Gaussian tail probability Q(x) = 0.5 erfc(x / sqrt(2)) on host
+    numbers/arrays or torch tensors."""
+    if isinstance(x, torch.Tensor):
+        return 0.5 * torch.special.erfc(x / np.sqrt(2.0))
+    import scipy.special
+    return 0.5 * scipy.special.erfc(np.asarray(x) / np.sqrt(2.0))
+
+
+def calc_confidence_interval(mean: float,
+                             std: float,
+                             n: int,
+                             P: float = 95.0) -> Tuple[float, float]:
+    """Normal-approximation confidence interval for a Monte Carlo mean.
+    ``std`` is the *sample* standard deviation; any coverage probability
+    ``P`` in (0, 100) is supported."""
+    import scipy.stats
+    if not 0.0 < P < 100.0:
+        raise ValueError("calc_confidence_interval: P must be in (0, 100)")
+    z = scipy.stats.norm.ppf(0.5 + P / 200.0)
+    norm = z * std / np.sqrt(n)
+    return mean - norm, mean + norm
+
+
+# ---------------------------------------------------------------------------
+# Host-side formatting helpers
+# ---------------------------------------------------------------------------
+
+
+def pretty_time(time_in_seconds: float) -> str:
+    """Human-readable elapsed time.
+
+    Examples
+    --------
+    >>> pretty_time(65)
+    '1m:05s'
+    >>> pretty_time(3723)
+    '1h:02m:03s'
+    """
+    seconds = float(time_in_seconds)
+    minutes = int(seconds // 60)
+    seconds_int = int(round(seconds % 60))
+    hours = minutes // 60
+    minutes %= 60
+    if hours > 0:
+        return f"{hours}h:{minutes:02d}m:{seconds_int:02d}s"
+    if minutes > 0:
+        return f"{minutes}m:{seconds_int:02d}s"
+    return f"{seconds:.2f}s"
+
+
+def get_range_representation(array: np.ndarray,
+                             filename_mode: bool = False) -> Optional[str]:
+    """Compact arithmetic-progression representation of an array:
+    ``[0, 5, 10, 15] -> '0:5:15'`` (or ``'0_(5)_15'`` in filename mode).
+    Returns None if not an arithmetic progression."""
+    array = np.asarray(array)
+    if not np.issubdtype(array.dtype, np.number):
+        return None  # string/object parameter sweeps have no range form
+    if array.size == 1:
+        return _fmt_num(array.flat[0])
+    steps = np.diff(array.astype(float))
+    if not np.allclose(steps, steps[0]):
+        return None
+    step = steps[0]
+    lo, hi = array.flat[0], array.flat[-1]
+    if filename_mode:
+        return f"{_fmt_num(lo)}_({_fmt_num(step)})_{_fmt_num(hi)}"
+    return f"{_fmt_num(lo)}:{_fmt_num(step)}:{_fmt_num(hi)}"
+
+
+def _fmt_num(x) -> str:
+    xf = float(x)
+    if xf == int(xf):
+        return str(int(xf))
+    return f"{xf:g}"
+
+
+def replace_dict_values(name: str,
+                        dictionary: Dict[str, Any],
+                        filename_mode: bool = False) -> str:
+    """Template substitution ``'results_{M}_{SNR}'`` with dict values, using
+    compact range representations for arrays."""
+    rep: Dict[str, Any] = {}
+    for k, v in dictionary.items():
+        if isinstance(v, np.ndarray):
+            r = get_range_representation(v, filename_mode)
+            if r is None:
+                numeric = np.issubdtype(v.dtype, np.number)
+                r = ",".join(_fmt_num(e) if numeric else str(e)
+                             for e in v.ravel())
+                if filename_mode:
+                    r = r.replace(",", "_")
+            rep[k] = f"[{r}]"
+        else:
+            rep[k] = v
+    return name.format(**rep)
+
+
+def equal_dicts(a: Dict[Any, Any],
+                b: Dict[Any, Any],
+                ignore_keys=()) -> bool:
+    """Dict equality ignoring some keys; array-aware."""
+    ka = set(a.keys()) - set(ignore_keys)
+    kb = set(b.keys()) - set(ignore_keys)
+    if ka != kb:
+        return False
+    for k in ka:
+        va, vb = a[k], b[k]
+        if isinstance(va, np.ndarray) or isinstance(vb, np.ndarray):
+            if not np.array_equal(np.asarray(va), np.asarray(vb)):
+                return False
+        elif va != vb:
+            return False
+    return True

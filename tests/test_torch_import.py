@@ -1,0 +1,113 @@
+"""The PyTorch port's import and device contracts.
+
+* ``import pyphysim_tpu_torch`` and every module of the ported slice leave
+  ``jax`` and ``triton`` out of ``sys.modules`` (checked in a fresh
+  interpreter, since this test process imports jax for the other tests).
+* The kernel module imports without nvcc: the CUDA library is built on the
+  first launch, never at import.
+* Asking for a CUDA device without one raises instead of falling back to
+  the CPU.
+"""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SLICE_MODULES = [
+    "pyphysim_tpu_torch._device",
+    "pyphysim_tpu_torch.utils.conversion",
+    "pyphysim_tpu_torch.utils.serialize",
+    "pyphysim_tpu_torch.utils.misc",
+    "pyphysim_tpu_torch.progressbar",
+    "pyphysim_tpu_torch.simulations.parameters",
+    "pyphysim_tpu_torch.simulations.configobjvalidation",
+    "pyphysim_tpu_torch.simulations.results",
+    "pyphysim_tpu_torch.simulations.runner",
+    "pyphysim_tpu_torch.simulations",
+    "pyphysim_tpu_torch.modulators.ofdm",
+    "pyphysim_tpu_torch.channels.fading_generators",
+    "pyphysim_tpu_torch.channels.fading",
+    "pyphysim_tpu_torch.ops.philox",
+    "pyphysim_tpu_torch.ops.mc_kernel",
+    "pyphysim_tpu_torch.ops._build",
+    "apps.ofdm.ofdm_mc_kernel_torch",
+]
+
+
+def _run(code: str) -> str:
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+def test_package_import_is_light():
+    out = _run("import sys, pyphysim_tpu_torch; "
+               "print(sorted(m for m in ('jax', 'triton', 'torch') "
+               "if m in sys.modules))")
+    assert out.strip() == "[]"
+
+
+def test_slice_modules_import_neither_jax_nor_triton():
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'triton', 'pyphysim_tpu'))\n"
+            "print(bad)\n")
+    assert _run(code).strip() == "[]"
+
+
+def test_kernel_module_imports_without_building():
+    from pyphysim_tpu_torch.ops import _build, mc_kernel  # noqa: F401
+    assert _build._lib is None
+    path = _build.library_path()
+    assert path.parent == _build.BUILD_DIR
+    assert path.name.startswith("libpyphysim_kernels_")
+    assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_cuda_request_raises_without_cuda(monkeypatch):
+    from apps.ofdm.ofdm_mc_kernel_torch import OfdmMcKernelSimulationRunner
+    from pyphysim_tpu_torch._device import require_cuda
+    from pyphysim_tpu_torch.channels import JakesSampleGenerator
+    from pyphysim_tpu_torch.modulators import OFDM
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert require_cuda("cpu") == torch.device("cpu")
+    assert require_cuda(None) == torch.device("cpu")
+    for make in (lambda: require_cuda("cuda"),
+                 lambda: require_cuda(torch.device("cuda", 0)),
+                 lambda: OFDM(64, 8, 32, device="cuda"),
+                 lambda: JakesSampleGenerator(device="cuda"),
+                 lambda: OfdmMcKernelSimulationRunner(
+                     device="cuda", read_command_line_args=False)):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+
+
+def test_cpu_builder_takes_the_plain_version():
+    from apps.ofdm.ofdm_mc_kernel_torch import OfdmMcKernelSimulationRunner
+    from pyphysim_tpu_torch.ops.mc_kernel import MonteCarloOfdmTdl
+    r = OfdmMcKernelSimulationRunner(read_command_line_args=False)
+    mc = MonteCarloOfdmTdl(r.ofdm, r.channel, M=16, tile=8)
+    out = mc.build(2, 1)(seed=3, snr_linear=10.0, start=0)
+    assert out.shape == (2, 1) and out.dtype == torch.int32
+    assert out.device.type == "cpu"
+    assert (mc.launch_count, mc.reference_count) == (0, 1)
+
+
+@pytest.mark.parametrize("name", [m for m in SLICE_MODULES
+                                  if m.startswith("pyphysim_tpu_torch")])
+def test_doctests(name):
+    import doctest
+    import importlib
+    results = doctest.testmod(importlib.import_module(name), verbose=False)
+    assert results.failed == 0, f"{results.failed} doctest failures"
