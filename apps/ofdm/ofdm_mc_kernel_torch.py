@@ -47,7 +47,7 @@ class OfdmMcKernelSimulationRunner(SimulationRunner):
     inject layout of :meth:`MonteCarloOfdmTdl.build_inject`.
     """
 
-    def __init__(self, device="cpu", read_command_line_args: bool = True):
+    def __init__(self, device="cuda", read_command_line_args: bool = True):
         super().__init__(read_command_line_args=read_command_line_args)
         self.device = require_cuda(device)
         self.params.add("SNR", np.arange(0.0, 31.0, 5.0))
@@ -111,7 +111,7 @@ class OfdmMcKernelSimulationRunner(SimulationRunner):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--device", default="cpu")
+    parser.add_argument("--device", default="cuda")
     args, _ = parser.parse_known_args()
     runner = OfdmMcKernelSimulationRunner(device=args.device)
     runner.simulate()

@@ -1,12 +1,20 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch / CUDA port on one NVIDIA card.
 
-Drives the port's main path — the flagship OFDM-over-TDL Monte Carlo BER
-sweep through ``SimulationRunner``'s bulk path and the hand-written CUDA
-kernel — at full width, and checks every kernel of that path against its
-plain PyTorch version on the card. One line per phase; any failure raises
-and the script exits non-zero. There is no CPU fallback: without a CUDA
-device it fails before printing any result.
+Drives the port's paths at full width and checks every kernel of them
+against its plain PyTorch version on the card:
+
+  * the flagship OFDM-over-TDL Monte Carlo BER sweep through
+    ``SimulationRunner``'s bulk path and the Monte Carlo CUDA kernel
+    (phases 1-7);
+  * the flagship chain's block-static time-domain route, whose block
+    convolution is the ``block_fir`` CUDA kernel, its fused diag route, and
+    the per-sample app ``apps/ofdm/ofdm_tdlchannel_torch.py``, each through
+    the runner's per-key path (phases 8-12).
+
+One line per phase; any failure raises and the script exits non-zero.
+There is no CPU fallback: without a CUDA device it fails before printing
+any result.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card, a few
 minutes including the nvcc build).
@@ -20,6 +28,13 @@ import time
 BER_CORNERS = {5.0: (0.08, 0.22), 15.0: (0.02, 0.06), 30.0: (2e-4, 6e-3)}
 TILE, NUM_TILES = 1024, 4           # flagship kernel shape
 REL_TOL = 2e-4                      # |kernel - plain| per cell / cell bits
+FIR_REL_TOL = 1e-5                  # block_fir: max |kernel - plain| / max |y|
+FIR_ROWS = (8192, 1000)             # time-domain step's rows; a ragged count
+TD_BATCH, TD_SYMBOLS = 256, 300 * 32    # bench.py's time-domain step
+FUSED_BATCH, FUSED_SYMBOLS = 512, 300 * 16  # bench.py's fused step
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
+F32_FLOP_PER_S = 67e12              # f32 outside the tensor cores
+MC_FLOP_PER_SYMBOL = 2048           # E @ G: 4 real products, 256 deep
 
 
 def phase(name, **fields):
@@ -44,6 +59,70 @@ def best_ms(fn, repeat=3, inner=1):
         stop.synchronize()
         best = min(best, start.elapsed_time(stop) / inner)
     return best
+
+
+def bound_ms(nbytes=0, flops=0):
+    """The least time the card could take: bytes over the memory rate or
+    f32 operations over the f32 rate, whichever is larger; and which."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_bers(name, snrs, bers):
+    for snr_db, ber in zip(snrs, bers):
+        lo, hi = BER_CORNERS[snr_db]
+        if not lo < ber < hi:
+            raise AssertionError(f"{name}: BER {ber} at {snr_db} dB outside "
+                                 f"({lo}, {hi})")
+
+
+def fir_geometry():
+    """(block_size, tap offsets) of the flagship block-static channel:
+    one OFDM(512, 52, 300) symbol, COST259-TU at Ts = 50 ns."""
+    from pyphysim_tpu_torch.channels import COST259_TUx
+    from pyphysim_tpu_torch.modulators import OFDM
+    ofdm = OFDM(512, 52, 300, device="cpu")
+    offsets = COST259_TUx.get_discretize_profile(1 / 20e6).tap_delays
+    return ofdm.samples_per_symbol, [int(d) for d in offsets]
+
+
+def fir_inputs(dev, rows, seed=5):
+    import torch
+    block_size, offsets = fir_geometry()
+    g = torch.Generator(device=dev).manual_seed(seed + rows)
+    x = torch.randn(rows, block_size, dtype=torch.complex64, device=dev,
+                    generator=g)
+    taps = torch.randn(rows, len(offsets), dtype=torch.complex64,
+                       device=dev, generator=g)
+    return x, taps, offsets, block_size
+
+
+def fir_bytes(rows, block_size, offsets):
+    """Bytes block_fir must move: read x and taps, write y (complex64)."""
+    return 8 * rows * (block_size + len(offsets) +
+                       block_size + offsets[-1])
+
+
+def chain_runner(dev, chain, snrs, rep_max, batch):
+    """The app's per-key runner around ``chain``, at ``snrs`` (dB)."""
+    import numpy as np
+    from apps.ofdm.ofdm_tdlchannel_torch import OfdmTdlSimulationRunner
+    r = OfdmTdlSimulationRunner(device=dev, read_command_line_args=False)
+    r.params.add("SNR", np.array(snrs, dtype=float))
+    r.params.set_unpack_parameter("SNR")
+    r.chain = chain
+    r.rep_max, r.batch_size = rep_max, batch
+    r.update_progress_function_style = None
+    return r
+
+
+def run_sweep(runner):
+    tic = time.time()
+    runner.simulate()
+    seconds = time.time() - tic
+    bers = [float(b) for b in runner.results.get_result_values_list("ber")]
+    return bers, seconds
 
 
 def check_cells(name, got, want, cell_bits):
@@ -175,11 +254,7 @@ def main() -> int:
           kernel_launches=launches,
           chunks=main_runner.chunks_dispatched,
           plain_calls=main_runner.mc.reference_count)
-    for snr_db, ber in zip((5.0, 15.0, 30.0), bers):
-        lo, hi = BER_CORNERS[snr_db]
-        if not lo < ber < hi:
-            raise AssertionError(f"BER {ber} at {snr_db} dB outside "
-                                 f"({lo}, {hi})")
+    check_bers("main_path", (5.0, 15.0, 30.0), bers)
     if launches != main_runner.chunks_dispatched or launches == 0 or \
             main_runner.mc.reference_count != 0:
         raise AssertionError("the main path did not run through the kernel")
@@ -199,7 +274,10 @@ def main() -> int:
           plain_ms=plain_ms, plain_sym_per_s=syms / plain_ms * 1e3,
           engine_ms=engine_ms, engine_sym_per_s=engine_syms / engine_ms * 1e3)
 
+    phases_8_to_12 = chain_phases(dev, smi)
+
     print(smi)
+    mc_bound, mc_bound_by = bound_ms(flops=MC_FLOP_PER_SYMBOL * syms)
     print(json.dumps({"kernels": [{
         "name": "mc_ofdm_tdl_prng",
         "route": "cuda",
@@ -209,11 +287,132 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-    }]}))
+        "bound_ms": mc_bound,
+        "bound_by": mc_bound_by,
+        "library_ms": None,
+    }, phases_8_to_12]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def chain_phases(dev, smi):
+    """Phases 8-12: block_fir against its plain version, the time-domain
+    and fused chains and the per-sample app through the per-key runner,
+    and their times. Returns block_fir's entry of the ``kernels`` line."""
+    import torch
+    from pyphysim_tpu_torch.chain import ChainStep
+    from pyphysim_tpu_torch.channels import fading
+    from pyphysim_tpu_torch.ops import fir
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+
+    # 8. block_fir against its plain version, at the time-domain step's
+    # rows and at a ragged row count
+    fir_err = 0.0
+    for rows in FIR_ROWS:
+        x, taps, offsets, block_size = fir_inputs(dev, rows)
+        y = fir.block_fir(x, taps, offsets, block_size)
+        ref = fir.block_fir_reference(x, taps, offsets, block_size)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        phase("fir_parity", rows=rows, block_size=block_size,
+              taps=len(offsets), out_len=y.shape[1], max_abs_diff=err,
+              rel=rel, limit=FIR_REL_TOL)
+        if not rel <= FIR_REL_TOL:
+            raise AssertionError(f"block_fir disagrees with its plain "
+                                 f"version at R={rows}: {rel}")
+        fir_err = max(fir_err, err)
+
+    # 9. the block-static time-domain chain through the per-key runner
+    snrs = [5.0, 15.0, 30.0]
+    if fading.BLOCK_CONV_IMPL not in ("auto", "kernel"):
+        raise AssertionError("the default block convolution is not the "
+                             "kernel")
+    td = ChainStep(TD_SYMBOLS, 512, 52, 300, block_static=True, device=dev)
+    runner = chain_runner(dev, td, snrs, 2 * TD_BATCH, TD_BATCH)
+    fir.block_fir.launch_count = 0
+    fir.block_fir.reference_count = 0
+    bers, seconds = run_sweep(runner)
+    fir_launches = fir.block_fir.launch_count
+    fir_plain = fir.block_fir.reference_count
+    phase("time_domain_path", snr_db=snrs, ber=bers,
+          runned_reps=runner.runned_reps, seconds=seconds,
+          chain_calls=runner.chunks_dispatched, block_fir_launches=fir_launches,
+          block_fir_plain_calls=fir_plain)
+    check_bers("time_domain_path", snrs, bers)
+    if fir_launches != runner.chunks_dispatched or fir_launches == 0 or \
+            fir_plain != 0:
+        raise AssertionError("the time-domain path did not run its block "
+                             "convolutions through the block_fir kernel")
+
+    # 10. the fused diag chain through the same runner
+    fused = ChainStep(FUSED_SYMBOLS, 512, 52, 300, block_static=True,
+                      fused=True, device=dev)
+    runner = chain_runner(dev, fused, snrs, 2 * FUSED_BATCH, FUSED_BATCH)
+    bers, seconds = run_sweep(runner)
+    phase("fused_path", snr_db=snrs, ber=bers,
+          runned_reps=runner.runned_reps, seconds=seconds,
+          chain_calls=runner.chunks_dispatched)
+    check_bers("fused_path", snrs, bers)
+
+    # 11. the per-sample app (apps/ofdm/ofdm_tdlchannel_torch.py)
+    from apps.ofdm.ofdm_tdlchannel_torch import OfdmTdlSimulationRunner
+    app = OfdmTdlSimulationRunner(device=dev, read_command_line_args=False)
+    app.rep_max, app.batch_size = 64, 16
+    app.update_progress_function_style = None
+    app_bers, seconds = run_sweep(app)
+    app_snrs = [float(v) for v in app.results.params["SNR"]]
+    phase("app", snr_db=app_snrs, ber=app_bers, runned_reps=app.runned_reps,
+          seconds=seconds, chain_calls=app.chunks_dispatched)
+    if any(b >= a for a, b in zip(app_bers, app_bers[1:])):
+        raise AssertionError("app: BER does not fall with SNR")
+    check_bers("app", [15.0], [app_bers[app_snrs.index(15.0)]])
+
+    # 12. times (CUDA events, best of 3 after a warm-up)
+    x, taps, offsets, block_size = fir_inputs(dev, FIR_ROWS[0])
+    args = (x, taps, offsets, block_size)
+    fir_ms = best_ms(lambda: fir.block_fir(*args), inner=10)
+    fir_plain_ms = best_ms(lambda: fir.block_fir_reference(*args))
+    fir_fft_ms = best_ms(lambda: fir.block_fir_fft(*args), inner=10)
+    fir_bound, fir_bound_by = bound_ms(
+        nbytes=fir_bytes(FIR_ROWS[0], block_size, offsets),
+        flops=8 * FIR_ROWS[0] * block_size * len(offsets))
+    snr = 10 ** 1.5
+
+    def step_ms(chain, batch):
+        streams = AttemptStreams.from_range(99, 0, batch, dev)
+        return best_ms(lambda: chain.step(streams, snr))
+
+    td_ms = step_ms(td, TD_BATCH)
+    fused_ms = step_ms(fused, FUSED_BATCH)
+    engine = chain_runner(dev, td, [15.0], 4 * TD_BATCH, TD_BATCH)
+    engine_ms = best_ms(engine.simulate)
+    phase("times", card=repr(smi), block_fir_rows=FIR_ROWS[0],
+          block_fir_ms=fir_ms, block_fir_bound_ms=fir_bound,
+          block_fir_bound_by=fir_bound_by,
+          block_fir_share_of_bound=fir_bound / fir_ms,
+          block_fir_plain_ms=fir_plain_ms, block_fir_fft_route_ms=fir_fft_ms,
+          time_domain_step_ms=td_ms,
+          time_domain_sym_per_s=TD_BATCH * TD_SYMBOLS / td_ms * 1e3,
+          fused_step_ms=fused_ms,
+          fused_sym_per_s=FUSED_BATCH * FUSED_SYMBOLS / fused_ms * 1e3,
+          per_key_engine_ms=engine_ms,
+          per_key_engine_sym_per_s=4 * TD_BATCH * TD_SYMBOLS / engine_ms * 1e3)
+    return {
+        "name": "block_fir",
+        "route": "cuda",
+        "source": "pyphysim_tpu_torch/ops/csrc/block_fir.cu",
+        "replaces": "pyphysim_tpu/ops/fir_pallas.py:52",
+        "launches": fir_launches,
+        "max_abs_err": fir_err,
+        "ms": fir_ms,
+        "plain_ms": fir_plain_ms,
+        "bound_ms": fir_bound,
+        "bound_by": fir_bound_by,
+        "library_ms": fir_fft_ms,
+    }
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Explicit device handling: a CUDA device that is asked for must exist.
 
-There is no silent CPU fallback anywhere in the port. A caller that asks
-for ``device="cuda"`` on a machine without a usable card gets an error at
-construction time, not a CPU run that looks like a GPU run.
+There is no silent CPU fallback anywhere in the port. Every constructor
+and entry point defaults to ``device="cuda"``; on a machine without a
+usable card it raises at construction time instead of giving a CPU run that
+looks like a GPU run. A caller who wants the CPU says ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ DeviceLike = Union[str, torch.device, None]
 __all__ = ["DeviceLike", "require_cuda"]
 
 
-def require_cuda(device: DeviceLike = "cpu") -> torch.device:
+def require_cuda(device: DeviceLike = "cuda") -> torch.device:
     """Return ``device`` as a :class:`torch.device`; raise ``RuntimeError``
     when it names a CUDA device and ``torch.cuda.is_available()`` is
     False (``None`` means the CPU)."""

@@ -1,5 +1,8 @@
-"""Fading channels: TDL profiles and the Jakes generator."""
+"""Fading channels: TDL profiles, impulse responses and channels; the
+Jakes and Rayleigh generators."""
 
 from .fading import (COST259_HTx, COST259_RAx, COST259_TUx,  # noqa: F401
-                     TdlChannel, TdlChannelProfile)
-from .fading_generators import JakesSampleGenerator, JakesState  # noqa: F401
+                     TdlChannel, TdlChannelProfile, TdlImpulseResponse)
+from .fading_generators import (JakesSampleGenerator,  # noqa: F401
+                                JakesState, RayleighSampleGenerator,
+                                RayleighState)

@@ -1,31 +1,47 @@
-"""Tapped-delay-line channel configuration.
+"""Tapped-delay-line (TDL) channels.
 
-Counterpart of the parts of ``pyphysim_tpu/channels/fading.py`` that the
-Monte Carlo kernel reads:
+Counterpart of ``pyphysim_tpu/channels/fading.py`` for SISO channels:
 
   * :class:`TdlChannelProfile` — tap powers/delays, mean excess delay, RMS
     delay spread, discretization to a sample grid (merge coincident taps,
     renormalize), and the COST259 standard profiles (3GPP TR 25.943).
     Host-side numpy: this is static configuration computed once.
-  * :class:`TdlChannel` — the constructor (profile discretization at the
-    Jakes generator's ``Ts``) and the properties ``channel_profile``,
-    ``num_taps`` and ``_fading_generator``.
+  * :class:`TdlImpulseResponse` — sparse tap values over time, the dense
+    view, the frequency response (frequency axis last).
+  * :class:`TdlChannel` — the functional API (``init_state``,
+    ``generate_impulse_response_f``, ``corrupt_data`` per-sample or
+    block-static, ``corrupt_data_in_freq_domain``) and the stateful
+    convenience form (``seed``, ``corrupt_data(signal)``,
+    ``get_last_impulse_response``).
+  * :func:`tdl_filter` (per-sample taps) and :func:`tdl_filter_block_fft`
+    (block-static taps, through ``ops/fir.py``; the backend is
+    :data:`BLOCK_CONV_IMPL`).
 
-``TdlChannel.corrupt_data`` and the block-FIR backends are not ported yet.
+Layout: tap values are ``batch + (T, num_samples)`` — the JAX package's
+``(T, num_samples)`` with any leading batch dimensions (one realization
+per row, where the JAX package would ``vmap``); signals are
+``batch + (num_samples,)``. The MIMO channel (``TdlMimoChannel``,
+``tdl_filter_block_fft_mimo``) waits for the ``mimo/`` slice.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from .._device import DeviceLike, require_cuda
+from ..ops.fir import block_fir, block_fir_fft
+from ..ops.sparse_dft import sparse_dft
 from ..utils.conversion import dB2Linear, linear2dB
-from .fading_generators import JakesSampleGenerator
+from .fading_generators import (JakesSampleGenerator, JakesState,
+                                RayleighSampleGenerator)
 
-__all__ = ["TdlChannelProfile", "TdlChannel", "COST259_TUx", "COST259_RAx",
-           "COST259_HTx"]
+__all__ = ["TdlChannelProfile", "TdlImpulseResponse", "TdlChannel",
+           "tdl_filter", "tdl_filter_block_fft", "BLOCK_CONV_IMPL",
+           "COST259_TUx", "COST259_RAx", "COST259_HTx"]
 
 
 class TdlChannelProfile:
@@ -147,32 +163,134 @@ COST259_HTx = TdlChannelProfile(
               17827., 17849., 18016.]) * 1e-9, "COST259_HT")
 
 
+class TdlImpulseResponse:
+    """Impulse response samples of a (discretized) TDL channel.
+
+    ``tap_values``: complex64 ``batch + (num_sparse_taps, num_samples)``;
+    the tap positions come from the (static) discretized profile.
+    """
+
+    def __init__(self, tap_values: torch.Tensor,
+                 channel_profile: TdlChannelProfile) -> None:
+        if not channel_profile.is_discretized:
+            raise RuntimeError("TdlImpulseResponse requires a discretized "
+                               "channel profile")
+        self._tap_values_sparse = tap_values
+        self._channel_profile = channel_profile
+
+    @classmethod
+    def from_numpy(cls, tap_values, profile: TdlChannelProfile,
+                   device: DeviceLike = "cuda") -> "TdlImpulseResponse":
+        """From numpy complex tap values, e.g. a JAX impulse response's
+        ``tap_values_sparse`` passed through ``np.asarray``."""
+        dev = require_cuda(device)
+        return cls(torch.as_tensor(np.asarray(tap_values, np.complex64),
+                                   device=dev), profile)
+
+    @property
+    def channel_profile(self) -> TdlChannelProfile:
+        return self._channel_profile
+
+    @property
+    def tap_values_sparse(self) -> torch.Tensor:
+        return self._tap_values_sparse
+
+    @property
+    def tap_indexes_sparse(self) -> np.ndarray:
+        """Static integer delay indexes of the nonzero taps."""
+        return self._channel_profile.tap_delays.astype(int)
+
+    @property
+    def tap_delays_sparse(self) -> np.ndarray:
+        """Tap delays in seconds (multiples of Ts)."""
+        return self.tap_indexes_sparse * self.Ts
+
+    @property
+    def Ts(self) -> Optional[float]:
+        return self._channel_profile.Ts
+
+    @property
+    def num_samples(self) -> int:
+        return self._tap_values_sparse.shape[-1]
+
+    @property
+    def tap_values(self) -> torch.Tensor:
+        """Dense tap values including the zero taps:
+        ``batch + (num_taps_with_padding, num_samples)``."""
+        sparse = self._tap_values_sparse
+        D = self._channel_profile.num_taps_with_padding
+        dense = sparse.new_zeros(sparse.shape[:-2] + (D, sparse.shape[-1]))
+        dense[..., self.tap_indexes_sparse, :] = sparse
+        return dense
+
+    def get_freq_response(self, fft_size: int) -> torch.Tensor:
+        """``batch + (num_samples, fft_size)``: the frequency axis last, as
+        in the JAX package. Taps at delays >= fft_size are dropped (numpy
+        FFT truncation)."""
+        taps = self._tap_values_sparse
+        w = sparse_dft(self.tap_indexes_sparse, range(fft_size), fft_size,
+                       taps.device)
+        return taps.transpose(-1, -2) @ w
+
+    def __mul__(self, value: float) -> "TdlImpulseResponse":
+        return TdlImpulseResponse(self._tap_values_sparse * value,
+                                  self._channel_profile)
+
+    __rmul__ = __mul__
+
+    @staticmethod
+    def concatenate_samples(
+            responses: List["TdlImpulseResponse"]) -> "TdlImpulseResponse":
+        """Concatenate along the sample (last) axis."""
+        if len(responses) == 1:
+            return responses[0]
+        return TdlImpulseResponse(
+            torch.cat([r.tap_values_sparse for r in responses], dim=-1),
+            responses[0].channel_profile)
+
+
 class TdlChannel:
     """Tapped-delay-line channel: a discretized power-delay profile driven
-    by a Jakes fading generator whose first shape axis is the (sparse)
-    tap count."""
+    by a fading generator (Jakes or Rayleigh) whose first shape axis is the
+    (sparse) tap count.
 
-    def __init__(self, fading_generator: JakesSampleGenerator,
-                 channel_profile: Optional[TdlChannelProfile] = None,
+    Functional API:
+      * ``state = channel.init_state(source)``
+      * ``ir, state = channel.generate_impulse_response_f(state, n)``
+      * ``out, ir, state = channel.corrupt_data(state, signal,
+        block_size=None)``
+      * ``out, ir, state = channel.corrupt_data_in_freq_domain(state,
+        signal, fft_size, carrier_indexes)``
+
+    Stateful convenience: ``corrupt_data(signal)`` (and the frequency-domain
+    form) with the signal alone threads an internal state, drawn from
+    :meth:`seed`'s generator, and returns only the output.
+    """
+
+    def __init__(self, fading_generator, channel_profile:
+                 Optional[TdlChannelProfile] = None,
                  tap_powers_dB: Optional[np.ndarray] = None,
                  tap_delays: Optional[np.ndarray] = None,
                  Ts: Optional[float] = None) -> None:
-        if not isinstance(fading_generator, JakesSampleGenerator):
-            raise TypeError("TdlChannel takes a JakesSampleGenerator (the "
-                            "Rayleigh generator is not ported yet)")
-        if Ts is None:
-            Ts = fading_generator.Ts
-        elif Ts != fading_generator.Ts:
-            raise RuntimeError(
-                "The provided sampling interval Ts is different from "
-                "the one in the Jakes sample generator.")
+        if isinstance(fading_generator, JakesSampleGenerator):
+            if Ts is None:
+                Ts = fading_generator.Ts
+            elif Ts != fading_generator.Ts:
+                raise RuntimeError(
+                    "The provided sampling interval Ts is different from "
+                    "the one in the Jakes sample generator.")
+        elif not isinstance(fading_generator, RayleighSampleGenerator):
+            raise TypeError("TdlChannel takes a JakesSampleGenerator or a "
+                            "RayleighSampleGenerator")
 
         if channel_profile is None:
             channel_profile = TdlChannelProfile(tap_powers_dB, tap_delays)
 
         if not channel_profile.is_discretized:
+            if Ts is None:   # only a Rayleigh generator carries no Ts
+                Ts = 1.0
             channel_profile = channel_profile.get_discretize_profile(Ts)
-        elif channel_profile.Ts != Ts:
+        elif Ts is not None and channel_profile.Ts != Ts:
             raise RuntimeError(
                 "Channel profile is already discretized, but it does not "
                 "agree with the provided Ts")
@@ -180,6 +298,9 @@ class TdlChannel:
         self._channel_profile = channel_profile
         self._fading_generator = fading_generator
         self._set_fading_generator_shape(fading_generator.shape)
+        self._last_impulse_response: Optional[TdlImpulseResponse] = None
+        self._state = None
+        self._seed = 0
 
     def _set_fading_generator_shape(self, shape) -> None:
         """The generator's first axis must be the (sparse) tap count;
@@ -195,6 +316,11 @@ class TdlChannel:
             raise ValueError(
                 f"Invalid fading generator shape {shape} for a channel "
                 f"with {n} taps: pass None (SISO) or (Nr, Nt) (MIMO)")
+        powers = np.sqrt(self._channel_profile.tap_powers_linear)
+        tail = (1,) * len(self._fading_generator.shape)
+        self._tap_scale = torch.tensor(
+            powers.reshape((n,) + tail), dtype=torch.float32,
+            device=self._fading_generator.device)
 
     @property
     def channel_profile(self) -> TdlChannelProfile:
@@ -204,3 +330,237 @@ class TdlChannel:
     def num_taps(self) -> int:
         """Number of NONZERO (sparse) taps."""
         return self._channel_profile.num_taps
+
+    @property
+    def num_taps_with_padding(self) -> int:
+        return self._channel_profile.num_taps_with_padding
+
+    @property
+    def device(self) -> torch.device:
+        return self._fading_generator.device
+
+    # -- functional API ----------------------------------------------------
+
+    def init_state(self, source):
+        """A fresh fading state from an explicit random source (a
+        ``torch.Generator``, or an ``AttemptStreams`` for one state per
+        attempt)."""
+        return self._fading_generator.init_state(source)
+
+    def generate_impulse_response_f(
+            self, state, num_samples: int = 1
+    ) -> Tuple[TdlImpulseResponse, object]:
+        """``num_samples`` per-sample impulse responses: fading samples
+        scaled by sqrt(tap power)."""
+        samples, state = self._fading_generator.generate(state, num_samples)
+        return TdlImpulseResponse(samples * self._tap_scale,
+                                  self._channel_profile), state
+
+    def _generate_strided_impulse_response(self, state, num_blocks: int,
+                                           stride: int):
+        """One impulse response per block, blocks ``stride`` samples apart
+        in channel time: the Jakes closed form evaluated once per block."""
+        gen = self._fading_generator
+        if not isinstance(gen, JakesSampleGenerator):
+            # Rayleigh is memoryless: the stride is irrelevant
+            return self.generate_impulse_response_f(state, num_blocks)
+        t0 = state.t0
+        ray_axis = t0.dim()
+        phi = state.phi_l[..., 0]                       # batch + (L, *shape)
+        w = 2.0 * np.pi * gen.Fd * torch.cos(phi)
+        t = t0.reshape(t0.shape + (1,) * (phi.dim() - ray_axis + 1)) + \
+            torch.arange(num_blocks, dtype=t0.dtype,
+                         device=t0.device) * (stride * gen.Ts)
+        phase = w[..., None] * t + state.psi_l[..., 0][..., None]
+        scale = math.sqrt(1.0 / gen.L)
+        samples = torch.complex(torch.cos(phase).sum(dim=ray_axis) * scale,
+                                torch.sin(phase).sum(dim=ray_axis) * scale)
+        new_state = JakesState(phi_l=state.phi_l, psi_l=state.psi_l,
+                               t0=t0 + num_blocks * stride * gen.Ts)
+        return TdlImpulseResponse(samples * self._tap_scale,
+                                  self._channel_profile), new_state
+
+    def _check_siso(self) -> None:
+        if len(self._fading_generator.shape) != 1:
+            raise NotImplementedError(
+                "the MIMO TDL channel is not ported yet")
+
+    def corrupt_data(self, state_or_signal, signal=None,
+                     block_size: Optional[int] = None):
+        """Time-domain transmission through the time-varying channel.
+
+        Functional form ``corrupt_data(state, signal)`` returns ``(output,
+        impulse_response, new_state)``; the convenience form
+        ``corrupt_data(signal)`` threads the internal state and returns the
+        output only. Signal ``batch + (N,)`` -> output ``batch + (N + D -
+        1,)``.
+
+        ``block_size``: hold the channel constant over blocks of that many
+        samples (one Jakes evaluation per block; the returned impulse
+        response then has one sample per block) and filter through
+        :func:`tdl_filter_block_fft`. ``None`` generates per-sample
+        responses and filters through :func:`tdl_filter`.
+        """
+        if signal is None or isinstance(signal, int):
+            if isinstance(signal, int):
+                block_size = signal
+            out, ir, self._state = self._corrupt_data_impl(
+                self._ensure_state(), state_or_signal, block_size)
+            self._last_impulse_response = ir
+            return out
+        return self._corrupt_data_impl(state_or_signal, signal, block_size)
+
+    def _as_signal(self, signal) -> torch.Tensor:
+        return torch.as_tensor(signal).to(self.device, torch.complex64)
+
+    def _corrupt_data_impl(self, state, signal, block_size: Optional[int]):
+        self._check_siso()
+        signal = self._as_signal(signal)
+        num_samples = signal.shape[-1]
+        if block_size is None:
+            ir, state = self.generate_impulse_response_f(state, num_samples)
+            return tdl_filter(ir, signal), ir, state
+        if num_samples % block_size != 0:
+            raise ValueError(
+                "block_size must divide the number of transmitted samples")
+        ir_block, state = self._generate_strided_impulse_response(
+            state, num_samples // block_size, stride=block_size)
+        out = tdl_filter_block_fft(ir_block, signal, block_size)
+        return out, ir_block, state
+
+    def corrupt_data_in_freq_domain(self, state_or_signal, signal=None,
+                                    fft_size: Optional[int] = None,
+                                    carrier_indexes=None):
+        """Block-static frequency-domain transmission: one impulse response
+        per block of ``fft_size`` channel samples, each block of the signal
+        (all ``fft_size`` carriers, or the ``carrier_indexes``) multiplied
+        by its frequency response at those carriers.
+
+        Functional form ``(state, signal, fft_size, carrier_indexes)`` ->
+        ``(output, impulse_response, state)``; convenience form
+        ``(signal, fft_size, carrier_indexes)`` -> output.
+        """
+        if signal is None or isinstance(signal, int):
+            if signal is not None:
+                fft_size, carrier_indexes = signal, fft_size
+            out, ir, self._state = self._corrupt_freq_impl(
+                self._ensure_state(), state_or_signal, fft_size,
+                carrier_indexes)
+            self._last_impulse_response = ir
+            return out
+        return self._corrupt_freq_impl(state_or_signal, signal, fft_size,
+                                       carrier_indexes)
+
+    def _corrupt_freq_impl(self, state, signal, fft_size: int,
+                           carrier_indexes):
+        self._check_siso()
+        signal = self._as_signal(signal)
+        num_samples = signal.shape[-1]
+        carriers = (np.arange(fft_size) if carrier_indexes is None
+                    else np.asarray(carrier_indexes))
+        block_size = carriers.size
+        if num_samples % block_size != 0:
+            raise ValueError(
+                "The number of elements in `signal` must be a multiple of "
+                "the number of sent elements per `fft_size`")
+        num_blocks = num_samples // block_size
+        ir, state = self._generate_strided_impulse_response(
+            state, num_blocks, stride=fft_size)
+        w = sparse_dft(ir.tap_indexes_sparse, carriers, fft_size,
+                       signal.device)
+        freq = ir.tap_values_sparse.transpose(-1, -2) @ w  # batch+(nb, Nc)
+        blocks = signal.reshape(signal.shape[:-1] + (num_blocks, block_size))
+        return (blocks * freq).reshape(signal.shape), ir, state
+
+    # -- stateful convenience ---------------------------------------------
+
+    def seed(self, seed: int) -> None:
+        """Seed the internal state of the stateful convenience API."""
+        self._seed = int(seed)
+        self._state = None
+
+    def _ensure_state(self):
+        if self._state is None:
+            gen = torch.Generator(device=self.device).manual_seed(self._seed)
+            self._state = self.init_state(gen)
+        return self._state
+
+    def generate_impulse_response(self, num_samples: int = 1) -> None:
+        """Stateful form: generate and keep the next impulse response."""
+        ir, self._state = self.generate_impulse_response_f(
+            self._ensure_state(), num_samples)
+        self._last_impulse_response = ir
+
+    def get_last_impulse_response(self) -> Optional[TdlImpulseResponse]:
+        return self._last_impulse_response
+
+
+# Block-convolution backend of tdl_filter_block_fft: "kernel" (the CUDA
+# kernel ops/csrc/block_fir.cu on CUDA tensors, its plain version on CPU
+# tensors), "fft" (per-block FFT convolution), or "auto" (= kernel). The JAX
+# package resolves "auto" to its FFT route from one TPU v5e measurement,
+# which says nothing of this card; chip_smoke.py times both routes here.
+BLOCK_CONV_IMPL = "auto"
+
+
+def tdl_filter_block_fft(ir_block: TdlImpulseResponse,
+                         signal: torch.Tensor,
+                         block_size: int) -> torch.Tensor:
+    """Block-static SISO TDL filtering: each block of ``block_size``
+    samples convolved with its own dense ``D``-tap kernel (the channel is
+    constant within a block), then overlap-added across block boundaries
+    (the ``D - 1``-sample halo). The same output as :func:`tdl_filter` with
+    per-block-constant taps.
+
+    ``ir_block``: taps ``batch + (T, num_blocks)``. ``signal``: ``batch +
+    (N,)``. Returns ``batch + (N + D - 1,)``. The per-block convolution
+    runs through :data:`BLOCK_CONV_IMPL`'s route.
+    """
+    idx = ir_block.tap_indexes_sparse
+    taps = ir_block.tap_values_sparse                     # batch + (T, nb)
+    D = int(idx[-1]) + 1
+    if block_size < D - 1:
+        raise ValueError("block_size must be at least the channel span")
+    n = signal.shape[-1]
+    if n % block_size != 0:
+        raise ValueError(
+            "block_size must divide the number of transmitted samples")
+    nb = n // block_size
+    batch = signal.shape[:-1]
+    if taps.shape != batch + (len(idx), nb):
+        raise ValueError(f"taps {tuple(taps.shape)} do not match the "
+                         f"signal: want {batch + (len(idx), nb)}")
+    x_rows = signal.reshape(-1, block_size)
+    t_rows = taps.transpose(-1, -2).reshape(-1, len(idx))
+    impl = "kernel" if BLOCK_CONV_IMPL == "auto" else BLOCK_CONV_IMPL
+    if impl == "kernel":
+        y = block_fir(x_rows, t_rows, idx, block_size)
+    elif impl == "fft":
+        y = block_fir_fft(x_rows, t_rows, idx, block_size)
+    else:
+        raise ValueError(f"unknown BLOCK_CONV_IMPL {BLOCK_CONV_IMPL!r}")
+    y = y.reshape(batch + (nb, block_size + D - 1))
+    main = y[..., :block_size]
+    tail = y[..., block_size:]
+    # block b's tail lands on the head of block b + 1 (disjoint views of y)
+    main[..., 1:, :D - 1] += tail[..., :-1, :]
+    return torch.cat([main.reshape(batch + (nb * block_size,)),
+                      tail[..., -1, :]], dim=-1)
+
+
+def tdl_filter(ir: TdlImpulseResponse, signal: torch.Tensor) -> torch.Tensor:
+    """Apply the time-varying sparse FIR of a per-sample impulse response:
+    ``out[m] = sum_i h_i[m - d_i] x[m - d_i]``, one shifted multiply-add
+    per tap. SISO: taps ``batch + (T, N)``, signal ``batch + (N,)`` ->
+    ``batch + (N + D - 1,)``."""
+    idx = ir.tap_indexes_sparse
+    taps = ir.tap_values_sparse
+    n = signal.shape[-1]
+    if taps.shape[-2:] != (len(idx), n):
+        raise ValueError(f"taps {tuple(taps.shape)} do not match "
+                         f"{len(idx)} taps x {n} samples")
+    prod = taps * signal[..., None, :]                    # batch + (T, N)
+    out = signal.new_zeros(prod.shape[:-2] + (n + int(idx[-1]),))
+    for i, d in enumerate(idx):
+        out[..., d:d + n] += prod[..., i, :]
+    return out

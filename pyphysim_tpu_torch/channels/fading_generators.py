@@ -1,16 +1,23 @@
-"""Jakes sum-of-sinusoids fading sample generator.
+"""Fading sample generators: iid Rayleigh and Jakes sum-of-sinusoids.
 
-Counterpart of ``JakesState`` / ``JakesSampleGenerator`` of
-``pyphysim_tpu/channels/fading_generators.py``. The state is the explicit
-``(phi_l, psi_l, t0)``: per-ray arrival angles and phases plus the current
-time. Time enters the Jakes closed form analytically, so any block of
-samples is generated independently from the state, and ``skip`` only
-advances ``t0`` (the block-static channel).
+Counterpart of ``RayleighSampleGenerator`` / ``JakesSampleGenerator`` and
+their states in ``pyphysim_tpu/channels/fading_generators.py``. The state
+is explicit and the generators are configuration (shape, device; Fd, Ts, L
+for Jakes):
 
-Samples are complex64 tensors of shape ``shape + (num_samples,)`` (sample
-axis last). The generator is configuration (Fd, Ts, L, shape, device); the
-per-realization randomness lives in the state, drawn from a caller-supplied
-``torch.Generator``.
+  * :class:`JakesState` is ``(phi_l, psi_l, t0)``: per-ray arrival angles
+    and phases plus the current time. Time enters the Jakes closed form
+    analytically, so any block of samples is generated independently from
+    the state, and ``skip`` only advances ``t0`` (the block-static channel).
+  * :class:`RayleighState` is a Philox key and a counter: each ``generate``
+    draws iid CN(0, 1) samples at the current counter and advances it.
+
+Samples are complex64 tensors of shape ``batch + shape + (num_samples,)``
+(sample axis last). A state may carry leading batch dimensions (one
+realization per row, as the JAX package's ``vmap`` does): ``t0`` and the
+Rayleigh counter have the batch shape. ``init_state`` draws from an
+explicit random source: a ``torch.Generator`` (no batch) or an
+``ops.streams.AttemptStreams`` (one row per attempt).
 """
 
 from __future__ import annotations
@@ -22,8 +29,10 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, require_cuda
+from ..ops import streams
 
-__all__ = ["JakesSampleGenerator", "JakesState"]
+__all__ = ["JakesSampleGenerator", "JakesState", "RayleighSampleGenerator",
+           "RayleighState"]
 
 Shape = Union[int, Tuple[int, ...]]
 
@@ -38,13 +47,13 @@ def _normalize_shape(shape: Optional[Shape]) -> Tuple[int, ...]:
 
 class JakesState(NamedTuple):
     """State of a Jakes generator: per-ray phases and the current time."""
-    phi_l: torch.Tensor   # (L,) + shape + (1,) — ray arrival angles
-    psi_l: torch.Tensor   # (L,) + shape + (1,) — ray phases
-    t0: torch.Tensor      # scalar — next sample time
+    phi_l: torch.Tensor   # batch + (L,) + shape + (1,) — ray angles
+    psi_l: torch.Tensor   # batch + (L,) + shape + (1,) — ray phases
+    t0: torch.Tensor      # batch — next sample time
 
     @classmethod
     def from_numpy(cls, phi_l, psi_l, t0,
-                   device: DeviceLike = "cpu") -> "JakesState":
+                   device: DeviceLike = "cuda") -> "JakesState":
         """State from numpy arrays (e.g. a JAX ``JakesState`` passed
         through ``np.asarray``), as float32 tensors on ``device``."""
         dev = require_cuda(device)
@@ -60,7 +69,7 @@ class JakesSampleGenerator:
 
     def __init__(self, Fd: float = 100.0, Ts: float = 1e-3, L: int = 8,
                  shape: Optional[Shape] = None,
-                 device: DeviceLike = "cpu") -> None:
+                 device: DeviceLike = "cuda") -> None:
         self._Fd = float(Fd)
         self._Ts = float(Ts)
         self._L = int(L)
@@ -88,28 +97,31 @@ class JakesSampleGenerator:
         self._shape = (_normalize_shape(new_shape)
                        if new_shape is not None else None)
 
-    def init_state(self, generator: torch.Generator) -> JakesState:
+    def init_state(self, source) -> JakesState:
         """Draw fresh ray angles and phases, uniform in [0, 2 pi), from
-        ``generator`` (which must live on ``self.device``)."""
+        an explicit random source on ``self.device``: a
+        ``torch.Generator`` gives one state, an ``AttemptStreams`` one
+        row per attempt; ``t0`` starts at 0."""
         shape = (self._L,) + (self._shape or ()) + (1,)
-        two_pi = 2.0 * np.pi
-        phi = torch.rand(shape, generator=generator,
-                         device=self.device) * two_pi
-        psi = torch.rand(shape, generator=generator,
-                         device=self.device) * two_pi
+        u = streams.uniform(source, (2,) + shape, self.device)
+        lead = u.dim() - len(shape) - 1
+        phi, psi = (v * (2.0 * np.pi) for v in u.unbind(dim=lead))
         return JakesState(phi_l=phi, psi_l=psi,
-                          t0=torch.zeros((), device=self.device))
+                          t0=torch.zeros(u.shape[:lead], device=u.device))
 
     def generate(self, state: JakesState,
                  num_samples: int = 1) -> Tuple[torch.Tensor, JakesState]:
         """``num_samples`` samples from ``state`` and the advanced state."""
-        t = state.t0 + torch.arange(num_samples, dtype=state.t0.dtype,
-                                    device=state.t0.device) * self._Ts
-        w = 2.0 * np.pi * self._Fd * torch.cos(state.phi_l)  # (L, *shape, 1)
-        phase = w * t + state.psi_l                          # (L, *shape, N)
+        t0 = state.t0
+        ray_axis = t0.dim()
+        t = t0.reshape(t0.shape + (1,) * (state.phi_l.dim() - ray_axis)) + \
+            torch.arange(num_samples, dtype=t0.dtype,
+                         device=t0.device) * self._Ts
+        w = 2.0 * np.pi * self._Fd * torch.cos(state.phi_l)
+        phase = w * t + state.psi_l               # batch + (L, *shape, N)
         scale = math.sqrt(1.0 / self._L)
-        samples = torch.complex(torch.cos(phase).sum(dim=0) * scale,
-                                torch.sin(phase).sum(dim=0) * scale)
+        samples = torch.complex(torch.cos(phase).sum(dim=ray_axis) * scale,
+                                torch.sin(phase).sum(dim=ray_axis) * scale)
         return samples, self.skip(state, num_samples)
 
     def skip(self, state: JakesState, num_samples: int) -> JakesState:
@@ -117,3 +129,71 @@ class JakesSampleGenerator:
         channel trick."""
         return JakesState(phi_l=state.phi_l, psi_l=state.psi_l,
                           t0=state.t0 + num_samples * self._Ts)
+
+
+class RayleighState(NamedTuple):
+    """State of a Rayleigh generator: a Philox key and a draw counter."""
+    key: torch.Tensor      # batch + (2,) int64 words in [0, 2**32)
+    counter: torch.Tensor  # batch, int64
+
+    @classmethod
+    def from_numpy(cls, key, counter=0,
+                   device: DeviceLike = "cuda") -> "RayleighState":
+        """State from numpy words, e.g. a JAX ``RayleighState`` passed
+        through ``np.asarray``: its uint32 key (batch + (2,)) becomes the
+        Philox key, so one JAX state names one port state. The numbers
+        drawn are the port's own, not ``jax.random``'s."""
+        dev = require_cuda(device)
+        k = torch.as_tensor(np.asarray(key, np.uint32).astype(np.int64),
+                            device=dev)
+        c = torch.as_tensor(np.broadcast_to(np.asarray(counter, np.int64),
+                                            k.shape[:-1]).copy(), device=dev)
+        return cls(k, c)
+
+
+class RayleighSampleGenerator:
+    """iid CN(0, 1) samples (memoryless: ``skip`` only moves the
+    counter, so later draws still differ)."""
+
+    def __init__(self, shape: Optional[Shape] = None,
+                 device: DeviceLike = "cuda") -> None:
+        self._shape = _normalize_shape(shape) if shape is not None else None
+        self.device = require_cuda(device)
+
+    @property
+    def shape(self):
+        return self._shape
+
+    @shape.setter
+    def shape(self, new_shape):
+        self._shape = (_normalize_shape(new_shape)
+                       if new_shape is not None else None)
+
+    def init_state(self, source) -> RayleighState:
+        """A fresh key drawn from an explicit random source (see
+        :meth:`JakesSampleGenerator.init_state`); the counter starts at
+        0."""
+        key = streams.bits(source, (2,), self.device)
+        return RayleighState(key, torch.zeros(key.shape[:-1],
+                                              dtype=torch.int64,
+                                              device=key.device))
+
+    def generate(self, state: RayleighState,
+                 num_samples: int = 1) -> Tuple[torch.Tensor, RayleighState]:
+        """``batch + shape + (num_samples,)`` CN(0, 1) samples: Philox
+        under the row's key at the counter ``(j, 0, counter, 1)``, turned
+        into normals by Box-Muller; the counter then advances by one."""
+        shape = (self._shape or ()) + (num_samples,)
+        m = 2 * math.prod(shape)
+        batch = state.counter.shape
+        key = state.key.reshape(-1, 2)
+        c = state.counter.reshape(-1)
+        words = streams.philox_words(key[:, 0], key[:, 1], c & 0xFFFFFFFF,
+                                     torch.ones_like(c), m)
+        z = streams.words_to_normal(words) * np.float32(np.sqrt(0.5))
+        samples = torch.complex(z[:, 0::2], z[:, 1::2]).reshape(batch + shape)
+        return samples, self.skip(state, num_samples)
+
+    def skip(self, state: RayleighState, num_samples: int) -> RayleighState:
+        del num_samples
+        return RayleighState(state.key, state.counter + 1)

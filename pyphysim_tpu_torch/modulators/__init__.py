@@ -1,3 +1,4 @@
-"""Modulators: OFDM."""
+"""Modulators: PSK / QPSK / BPSK / QAM, OFDM and its one-tap equalizer."""
 
-from .ofdm import OFDM  # noqa: F401
+from .fundamental import BPSK, PSK, QAM, QPSK, Modulator  # noqa: F401
+from .ofdm import OFDM, OfdmOneTapEqualizer  # noqa: F401

@@ -1,6 +1,8 @@
-"""OFDM modulation/demodulation on ``torch.fft`` in complex64.
+"""OFDM modulation/demodulation on ``torch.fft`` in complex64, and the
+one-tap equalizer.
 
-Counterpart of the ``OFDM`` class of ``pyphysim_tpu/modulators/ofdm.py``:
+Counterpart of ``OFDM`` and ``OfdmOneTapEqualizer`` of
+``pyphysim_tpu/modulators/ofdm.py``. ``OFDM`` has:
   * the same subcarrier mapping (used subcarriers centered on the spectrum,
     DC skipped, guard bands at the edges; data order is the
     negative-frequency bins first, then the positive ones),
@@ -22,8 +24,9 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, require_cuda
+from ..ops.sparse_dft import sparse_dft
 
-__all__ = ["OFDM"]
+__all__ = ["OFDM", "OfdmOneTapEqualizer"]
 
 
 class OFDM:
@@ -31,7 +34,7 @@ class OFDM:
 
     def __init__(self, fft_size: int, cp_size: int,
                  num_used_subcarriers: Optional[int] = None,
-                 device: DeviceLike = "cpu") -> None:
+                 device: DeviceLike = "cuda") -> None:
         self.device = require_cuda(device)
         self.set_parameters(fft_size, cp_size, num_used_subcarriers)
 
@@ -127,3 +130,47 @@ class OFDM:
             self._calculate_power_scale())
         data = freq[..., self._used_idx]
         return data.reshape(batch + (n_sym * self.num_used_subcarriers,))
+
+
+class OfdmOneTapEqualizer:
+    """Per-subcarrier division by the channel's mean frequency response
+    over each OFDM symbol: the standard OFDM one-tap equalizer."""
+
+    def __init__(self, ofdm_obj: OFDM) -> None:
+        self._ofdm_obj = ofdm_obj
+
+    def equalize_data(self, data: torch.Tensor,
+                      impulse_response) -> torch.Tensor:
+        """Equalize demodulated data (..., n_sym * num_used) with an
+        impulse response whose taps are (..., T, num_samples): per-sample
+        (``num_samples`` a multiple of n_sym) or block-static (one sample
+        per OFDM symbol). The taps are averaged per OFDM symbol before the
+        transform (the DFT is linear, so this equals the mean of the
+        per-sample responses). Anything else that has
+        ``get_freq_response(fft_size)`` -> (..., num_samples, fft_size)
+        is averaged in the frequency domain."""
+        o = self._ofdm_obj
+        used = o.num_used_subcarriers
+        batch = data.shape[:-1]
+        n_sym = data.shape[-1] // used
+        d = data.reshape(batch + (n_sym, used))
+        if hasattr(impulse_response, "tap_values_sparse") and \
+                impulse_response.num_samples % n_sym == 0:
+            taps = impulse_response.tap_values_sparse       # (..., T, N)
+            spb = taps.shape[-1] // n_sym
+            taps_mean = taps.reshape(taps.shape[:-1] + (n_sym, spb)) \
+                .mean(dim=-1)                                # (..., T, n_sym)
+            w = sparse_dft(impulse_response.tap_indexes_sparse,
+                           o.get_used_subcarrier_indexes() % o.fft_size,
+                           o.fft_size, taps.device)          # (T, used)
+            h = taps_mean.transpose(-1, -2).to(torch.complex64) @ w
+        else:
+            freq = impulse_response.get_freq_response(o.fft_size)
+            fshape = freq.shape
+            mean_freq = freq.reshape(
+                fshape[:-2] + (n_sym, fshape[-2] // n_sym, fshape[-1])
+            ).mean(dim=-2)
+            half = used // 2
+            h = torch.cat([mean_freq[..., o.fft_size - half:],
+                           mean_freq[..., 1:half + 1]], dim=-1)
+        return (d / h).reshape(batch + (n_sym * used,))

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "mc_ofdm_tdl_inject": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                            _i, _i, _f, _f, _f, _f, _ll, _ll, _ll, _ll, _vp],
     "philox_fill": [_vp, _vp, _vp, _ll, _vp],
+    "block_fir": [_vp, _vp, _vp, _i, _i, _i, _vp, _vp],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -100,7 +100,7 @@ class MonteCarloOfdmTdl:
     """
 
     def __init__(self, ofdm, channel, M: int = 16, tile: int = 256,
-                 device: DeviceLike = "cpu") -> None:
+                 device: DeviceLike = "cuda") -> None:
         profile = channel.channel_profile
         gen = channel._fading_generator
         if not hasattr(gen, "Fd"):
@@ -402,7 +402,7 @@ class MonteCarloOfdmTdl:
 
 
 def from_jax_arrays(d: Dict[str, object],
-                    device: DeviceLike = "cpu") -> MonteCarloOfdmTdl:
+                    device: DeviceLike = "cuda") -> MonteCarloOfdmTdl:
     """The port's builder from a JAX ``MonteCarloOfdmTdl``'s numpy state:
     ``g_re`` / ``g_im`` (``np.asarray(mc._g_re)``, padded to (TLp,
     used_p)), ``C``, ``noise_gain``, ``M``, ``tile``, ``used`` and ``TL``.

@@ -3,11 +3,20 @@
 Counterpart of ``pyphysim_tpu/simulations/runner.py``: the template-method
 engine with lifecycle hooks, early stop via ``_keep_going``,
 ``SkipThisOne`` skip-and-retry accounting, partial-results
-checkpoint/resume and progress tracking, with two execution paths:
+checkpoint/resume and progress tracking, with three execution paths:
 
   * **Serial path** — subclasses implement
     ``_run_simulation(current_parameters) -> SimulationResults`` and get
     one Python call per repetition.
+
+  * **Per-key path** — subclasses implement ``_gen_simulation_kernel``
+    returning ``kernel(streams)``: the batched counterpart of the JAX
+    package's vmapped ``kernel(key)``. ``streams`` is an
+    ``ops.streams.AttemptStreams`` over a chunk of absolute attempts, and
+    row ``i`` of every output belongs to attempt ``i`` of the chunk
+    (``apps/ofdm/ofdm_tdlchannel_torch.py``). A ``batch_stop_criterion``
+    gates whole sub-chunks of ``num_stop_subchunks``, with one host check
+    per sub-chunk.
 
   * **Bulk path** — subclasses implement ``_gen_bulk_kernel`` returning
     ``fn(start, n)``, a function that simulates attempts
@@ -19,9 +28,10 @@ checkpoint/resume and progress tracking, with two execution paths:
     double-buffers: chunk k+1 is enqueued on the device before chunk k's
     tensors are fetched to the host.
 
-The JAX package's per-key vmapped path (``_gen_simulation_kernel``) and
-``simulate_in_parallel`` are not ported yet; a subclass that implements
-``_gen_simulation_kernel`` gets ``NotImplementedError``.
+The per-key and bulk paths share the attempt cursor (accepted plus
+skipped attempts, so a resume continues the stream sequence), the
+``__valid__`` skip-and-retry and the Result accounting
+(``_consume_chunk``). ``simulate_in_parallel`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -138,6 +148,32 @@ def _to_host(value):
     return np.asarray(value)
 
 
+def _host_outputs(out, n: int):
+    """A chunk's outputs as host numpy arrays, each ``(n, ...)``: waits
+    for queued copies and broadcasts a scalar RATIOTYPE total."""
+    host = {}
+    for name, v in out.items():
+        if isinstance(v, tuple):
+            values, totals = _to_host(v)
+            totals = np.asarray(totals, np.float64)
+            if totals.ndim == 0:
+                totals = np.full(n, float(totals))
+            host[name] = (values, totals)
+        else:
+            host[name] = _to_host(v)
+    return host
+
+
+def _stack_rows(parts, n: int):
+    """Concatenate per-sub-chunk host outputs along rows and pad with zero
+    rows up to ``n`` (the rows of sub-chunks that did not run)."""
+    if isinstance(parts[0], tuple):
+        return tuple(_stack_rows(list(p), n) for p in zip(*parts))
+    a = np.concatenate([np.asarray(p) for p in parts])
+    return np.concatenate([a, np.zeros((n - len(a),) + a.shape[1:],
+                                       a.dtype)])
+
+
 class SimulationRunner:
     """Monte Carlo engine: parameter sweep x repetitions -> typed results."""
 
@@ -167,8 +203,11 @@ class SimulationRunner:
         self.__last_checkpoint_time = time.time()
         self.__last_checkpoint_rep = 0
 
-        # Bulk execution
+        # Bulk and per-key execution
         self.batch_size: Optional[int] = None  # auto if None
+        # the device the per-key path draws its attempt streams on (the
+        # apps set their own; the serial and bulk paths do not read it)
+        self.device: Any = "cuda"
         self.batch_result_types: Dict[str, Any] = {}
         self.base_seed = 1234
         # Early stop: (result_name, limit) stops a variation once the
@@ -208,6 +247,20 @@ class SimulationRunner:
         raise NotImplementedError(
             "Implement either _run_simulation (serial path) or "
             "_gen_bulk_kernel (bulk path)")
+
+    def _gen_simulation_kernel(
+            self, current_parameters: SimulationParameters
+    ) -> Optional[Callable]:
+        """Per-key path: return ``kernel(streams) -> {name: value}`` where
+        ``streams`` is an ``ops.streams.AttemptStreams`` over ``n``
+        absolute attempts (on ``self.device``) and every ``value`` is an
+        ``(n,)`` tensor or array, or a ``((n,) values, totals)`` pair for
+        RATIOTYPE (``totals`` may be one number). Declare the Result types
+        in ``self.batch_result_types``; the reserved ``"__valid__"`` mask
+        marks attempts to skip and retry. Row ``i`` must depend only on
+        attempt ``i``'s streams. Return None (default) for the serial
+        path."""
+        return None
 
     def _gen_bulk_kernel(
             self, current_parameters: SimulationParameters
@@ -483,14 +536,16 @@ class SimulationRunner:
                                       self.rep_max, current_params)
 
         bulk = self._gen_bulk_kernel(current_params)
+        kernel = (self._gen_simulation_kernel(current_params)
+                  if bulk is None else None)
         if bulk is not None:
             current_rep = self._bulk_loop(bulk, current_params,
                                           current_results, current_rep,
                                           pbar)
-        elif hasattr(self, "_gen_simulation_kernel"):
-            raise NotImplementedError(
-                "The per-key vmapped path (_gen_simulation_kernel) is not "
-                "ported yet; implement _gen_bulk_kernel or _run_simulation")
+        elif kernel is not None:
+            current_rep = self._batch_loop(kernel, current_params,
+                                           current_results, current_rep,
+                                           pbar)
         else:
             current_rep = self._serial_loop(current_params, current_results,
                                             current_rep, pbar)
@@ -558,7 +613,7 @@ class SimulationRunner:
         else:
             current_results.add_result(skip)
 
-    # -- bulk path ---------------------------------------------------------
+    # -- chunked paths (per-key and bulk) ------------------------------------
 
     def _default_batch_size(self) -> int:
         if self.batch_size is not None:
@@ -567,10 +622,15 @@ class SimulationRunner:
             bsize = int(min(max(self.rep_max // 8, 1), 4096))
         return self._round_chunk(bsize)
 
-    def _round_chunk(self, n: int) -> int:
-        q = 1
+    def _chunk_quantum(self) -> int:
+        """Chunk sizes are a multiple of this: the early-stop sub-chunk
+        count when a stop criterion is set (whole sub-chunks are gated)."""
         if self.batch_stop_criterion is not None:
-            q = max(int(self.num_stop_subchunks), 1)
+            return max(int(self.num_stop_subchunks), 1)
+        return 1
+
+    def _round_chunk(self, n: int) -> int:
+        q = self._chunk_quantum()
         return ((max(int(n), 1) + q - 1) // q) * q
 
     def _stop_metric_value(self, current_results) -> float:
@@ -589,24 +649,30 @@ class SimulationRunner:
         return self._stop_metric_value(current_results) < \
             float(self.batch_stop_criterion[1])
 
-    def _consume_chunk(self, out, nk, needed, elapsed,
-                       current_results) -> Tuple[int, int, int]:
+    def _consume_chunk(self, out, nk, needed, elapsed, current_results,
+                       active=None) -> Tuple[int, int, int]:
         """Accept-prefix + skip accounting + Result merging for one chunk
-        of attempt outputs (host numpy arrays). Returns (n_accept,
-        consumed, n_skip)."""
+        of attempt outputs (host numpy arrays), shared by the per-key and
+        bulk paths. ``active`` (None: all) is True on the prefix of the
+        chunk that ran (the per-key path's sub-chunk early stop); attempts
+        after it never ran and consume no stream indices. Returns
+        (n_accept, consumed, n_skip)."""
         valid = out.pop("__valid__", None)
         if valid is None:
             valid = np.ones(nk, dtype=bool)
         else:
             valid = np.asarray(valid).astype(bool)
-        cand_pos = np.flatnonzero(valid)
+        if active is None:
+            active = np.ones(nk, dtype=bool)
+        candidates = valid & active
+        cand_pos = np.flatnonzero(candidates)
         if len(cand_pos) >= needed:
             last = int(cand_pos[needed - 1])
-            accept = valid & (np.arange(nk) <= last)
+            accept = candidates & (np.arange(nk) <= last)
             consumed = last + 1
         else:
-            accept = valid
-            consumed = nk
+            accept = candidates
+            consumed = int(np.count_nonzero(active))
         n_accept = int(np.count_nonzero(accept))
         n_skip = consumed - n_accept
 
@@ -629,6 +695,122 @@ class SimulationRunner:
             Result.create("num_skipped_reps", Result.SUMTYPE, n_skip))
         current_results.merge_all_results(chunk_results)
         return n_accept, consumed, n_skip
+
+    # -- per-key path ------------------------------------------------------
+
+    def _make_chunk_executor(self, kernel, seed: int, device):
+        """Build ``executor(cursor, nk, prior_metric) -> (outputs,
+        active)`` for the per-key path. ``outputs`` maps each result name
+        to the kernel's per-attempt values, their host copies already
+        queued (``_to_host`` waits for them); ``active`` is None (every
+        attempt ran) or a bool mask over the chunk.
+
+        With ``batch_stop_criterion`` the chunk runs as
+        ``num_stop_subchunks`` sub-chunks, each only while the accumulated
+        stop metric (``prior_metric`` plus the valid attempts' metric so
+        far, summed in float32) is below the limit: the rule of the JAX
+        package's device ``scan``. Here the sum is read on the host after
+        each sub-chunk, one device synchronisation per sub-chunk; the rows
+        of sub-chunks that did not run are zeros and inactive."""
+        from ..ops.streams import AttemptStreams
+
+        def run(start: int, n: int):
+            return kernel(AttemptStreams.from_range(seed, start, n, device))
+
+        if self.batch_stop_criterion is None:
+            def executor(cursor, nk, prior_metric):
+                del prior_metric
+                return ({name: _start_fetch(v)
+                         for name, v in run(cursor, nk).items()}, None)
+
+            return executor
+
+        stop_name, limit = self.batch_stop_criterion
+        limit = np.float32(limit)
+        n_sub = max(int(self.num_stop_subchunks), 1)
+
+        def executor(cursor, nk, prior_metric):
+            sub = nk // n_sub   # nk is a _round_chunk multiple of n_sub
+            acc = np.float32(prior_metric)
+            parts = []
+            while len(parts) < n_sub and acc < limit:
+                out = run(cursor + len(parts) * sub, sub)
+                metric = out[stop_name]
+                if isinstance(metric, tuple):
+                    metric = metric[0]
+                metric = np.asarray(_to_host(metric), np.float64)
+                if "__valid__" in out:
+                    metric = np.where(_to_host(out["__valid__"]), metric, 0)
+                acc = np.float32(acc + np.float32(metric.sum()))
+                parts.append(_host_outputs(out, sub))
+            active = np.arange(nk) < len(parts) * sub
+            merged = {name: _stack_rows([p[name] for p in parts], nk)
+                      for name in parts[0]}
+            return merged, active
+
+        return executor
+
+    def _batch_loop(self, kernel, current_params, current_results,
+                    current_rep, pbar) -> int:
+        """Chunk loop of the per-key path: attempt ``a``'s streams depend
+        only on ``(base_seed, unpack_index, a)``, so any chunking and any
+        resume give the same accepted attempts (the first ``rep_max``
+        valid ones)."""
+        from .._device import require_cuda
+        if not self.batch_result_types:
+            raise RuntimeError(
+                "The per-key path requires self.batch_result_types to "
+                "declare the Result type of every kernel output")
+        seed = kernel_stream_seed(self.base_seed, current_params.unpack_index)
+        executor = self._make_chunk_executor(kernel, seed,
+                                             require_cuda(self.device))
+        bsize = self._default_batch_size()
+        cursor = current_rep + self._skipped_before(current_results)
+
+        def dispatch(cur: int, nk: int):
+            prior = (self._stop_metric_value(current_results)
+                     if self.batch_stop_criterion is not None else 0.0)
+            return executor(cur, nk, prior)
+
+        # Double-buffered dispatch, as in _bulk_loop: without a stop
+        # criterion chunk k+1 is enqueued before chunk k is fetched; a
+        # mispredicted cursor (skips in chunk k) discards it and stops
+        # speculating.
+        speculate = self.batch_stop_criterion is None
+        pending: Optional[Tuple[int, int, Any]] = None
+        while current_rep < self.rep_max and \
+                self._stop_criterion_ok(current_results) and \
+                self._keep_going(current_params, current_results,
+                                 current_rep):
+            tic = time.time()
+            needed = self.rep_max - current_rep
+            nk = min(bsize, self._round_chunk(needed))
+            if pending is not None and pending[:2] == (cursor, nk):
+                out, active = pending[2]
+            else:
+                out, active = dispatch(cursor, nk)
+            pending = None
+            if speculate and needed > nk:
+                nk_next = min(bsize, self._round_chunk(needed - nk))
+                pending = (cursor + nk, nk_next,
+                           dispatch(cursor + nk, nk_next))
+            out = _host_outputs(out, nk)
+            elapsed = time.time() - tic
+            n_accept, consumed, n_skip = self._consume_chunk(
+                out, nk, needed, elapsed, current_results, active)
+            current_rep += n_accept
+            cursor += consumed
+            if consumed != nk:
+                speculate = False
+            pbar.progress(current_rep)
+            self._save_partial_results_maybe(current_rep, current_params,
+                                             current_results)
+            if n_accept == 0 and n_skip == 0:
+                break    # the stop criterion gated the whole chunk off
+        self._merge_skip_count(current_results, 0)
+        return current_rep
+
+    # -- bulk path ---------------------------------------------------------
 
     def _bulk_loop(self, bulk, current_params, current_results,
                    current_rep, pbar) -> int:

@@ -1,8 +1,9 @@
 """Core numeric utilities used by the ported slice.
 
 Counterpart of the parts of ``pyphysim_tpu/utils/misc.py`` that the Monte
-Carlo path needs: bit counting on torch tensors, ``level2bits``, the Q
-function, confidence intervals, and the host-side formatting helpers the
+Carlo paths need: complex Gaussian samples and random symbols from an
+explicit random source, bit counting on torch tensors, ``level2bits``, the
+Q function, confidence intervals, and the host-side formatting helpers the
 runner uses for file names and progress. The rest of that module waits for
 the slices that need it.
 """
@@ -14,7 +15,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.streams import bits, normal
+
 __all__ = [
+    "randn_c",
+    "random_symbols",
     "count_bits",
     "count_bit_errors",
     "qfunc",
@@ -26,6 +31,43 @@ __all__ = [
     "replace_dict_values",
     "equal_dicts",
 ]
+
+# ---------------------------------------------------------------------------
+# Random draws from an explicit source
+# ---------------------------------------------------------------------------
+
+
+def randn_c(source, *shape: int) -> torch.Tensor:
+    """Circularly-symmetric complex normal samples CN(0, 1) as complex64:
+    real and imaginary parts iid N(0, 1/2), so ``E|x|^2 = 1``.
+
+    ``source`` is an explicit random source, never global state: an
+    ``ops.streams.AttemptStreams`` (the result is (n, *shape), row ``i``
+    from attempt ``i``'s stream) or a ``torch.Generator`` (the result is
+    ``shape`` on the generator's device). float32 only.
+    """
+    both = normal(source, (2,) + tuple(shape))
+    lead = both.dim() - len(shape) - 1       # 1 for streams, 0 otherwise
+    re, im = both.unbind(dim=lead)
+    return torch.complex(re, im) * np.float32(np.sqrt(0.5))
+
+
+def random_symbols(source, n: int, bits_per_symbol: int) -> torch.Tensor:
+    """``n`` uniform integers in [0, 2**bits_per_symbol) (int64), unpacked
+    from 32-bit random words, ``32 // bits_per_symbol`` symbols per word.
+    ``n`` must be a multiple of that count. ``source`` is as in
+    :func:`randn_c`."""
+    per_word = 32 // bits_per_symbol
+    if n % per_word != 0:
+        raise ValueError(
+            f"n must be a multiple of {per_word} for {bits_per_symbol}-bit "
+            "symbols")
+    words = bits(source, (n // per_word,))
+    shifts = torch.arange(per_word, dtype=torch.int64,
+                          device=words.device) * bits_per_symbol
+    sym = (words[..., None] >> shifts) & ((1 << bits_per_symbol) - 1)
+    return sym.reshape(words.shape[:-1] + (n,))
+
 
 # ---------------------------------------------------------------------------
 # Bit twiddling / error counting

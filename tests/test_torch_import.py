@@ -6,9 +6,11 @@
 * The kernel module imports without nvcc: the CUDA library is built on the
   first launch, never at import.
 * Asking for a CUDA device without one raises instead of falling back to
-  the CPU.
+  the CPU, and every public constructor and entry point asks for one
+  unless the caller says ``device="cpu"``.
 """
 
+import inspect
 import os
 import subprocess
 import sys
@@ -31,13 +33,22 @@ SLICE_MODULES = [
     "pyphysim_tpu_torch.simulations.results",
     "pyphysim_tpu_torch.simulations.runner",
     "pyphysim_tpu_torch.simulations",
+    "pyphysim_tpu_torch.modulators.fundamental",
     "pyphysim_tpu_torch.modulators.ofdm",
+    "pyphysim_tpu_torch.modulators",
     "pyphysim_tpu_torch.channels.fading_generators",
     "pyphysim_tpu_torch.channels.fading",
+    "pyphysim_tpu_torch.channels",
     "pyphysim_tpu_torch.ops.philox",
+    "pyphysim_tpu_torch.ops.streams",
+    "pyphysim_tpu_torch.ops.sparse_dft",
+    "pyphysim_tpu_torch.ops.fir",
+    "pyphysim_tpu_torch.ops.fused_ofdm_tdl",
     "pyphysim_tpu_torch.ops.mc_kernel",
     "pyphysim_tpu_torch.ops._build",
+    "pyphysim_tpu_torch.chain",
     "apps.ofdm.ofdm_mc_kernel_torch",
+    "apps.ofdm.ofdm_tdlchannel_torch",
 ]
 
 
@@ -93,11 +104,50 @@ def test_cuda_request_raises_without_cuda(monkeypatch):
             make()
 
 
+def test_default_ofdm_raises_without_a_card():
+    """No silent CPU fallback: a default-constructed object asks for the
+    card, and without one it raises."""
+    from pyphysim_tpu_torch.modulators import OFDM
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match="cuda"):
+        OFDM(512, 52, 300)
+
+
+def test_public_entry_points_default_to_the_card():
+    from apps.ofdm.ofdm_mc_kernel_torch import OfdmMcKernelSimulationRunner
+    from apps.ofdm.ofdm_tdlchannel_torch import OfdmTdlSimulationRunner
+    from pyphysim_tpu_torch import _device
+    from pyphysim_tpu_torch.chain import ChainStep
+    from pyphysim_tpu_torch.channels import (JakesSampleGenerator,
+                                             JakesState,
+                                             RayleighSampleGenerator,
+                                             RayleighState,
+                                             TdlImpulseResponse)
+    from pyphysim_tpu_torch.modulators import (BPSK, OFDM, PSK, QAM, QPSK,
+                                               Modulator)
+    from pyphysim_tpu_torch.ops import mc_kernel
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+    from pyphysim_tpu_torch.simulations import SimulationRunner
+    entry_points = [
+        _device.require_cuda, OFDM, Modulator, PSK, QPSK, BPSK, QAM,
+        JakesSampleGenerator, JakesState.from_numpy,
+        RayleighSampleGenerator, RayleighState.from_numpy,
+        TdlImpulseResponse.from_numpy, mc_kernel.MonteCarloOfdmTdl,
+        mc_kernel.from_jax_arrays, ChainStep, AttemptStreams.from_range,
+        OfdmMcKernelSimulationRunner, OfdmTdlSimulationRunner]
+    for fn in entry_points:
+        default = inspect.signature(fn).parameters["device"].default
+        assert default == "cuda", f"{fn.__qualname__} defaults to {default}"
+    assert SimulationRunner(read_command_line_args=False).device == "cuda"
+
+
 def test_cpu_builder_takes_the_plain_version():
     from apps.ofdm.ofdm_mc_kernel_torch import OfdmMcKernelSimulationRunner
     from pyphysim_tpu_torch.ops.mc_kernel import MonteCarloOfdmTdl
-    r = OfdmMcKernelSimulationRunner(read_command_line_args=False)
-    mc = MonteCarloOfdmTdl(r.ofdm, r.channel, M=16, tile=8)
+    r = OfdmMcKernelSimulationRunner(device="cpu",
+                                     read_command_line_args=False)
+    mc = MonteCarloOfdmTdl(r.ofdm, r.channel, M=16, tile=8, device="cpu")
     out = mc.build(2, 1)(seed=3, snr_linear=10.0, start=0)
     assert out.shape == (2, 1) and out.dtype == torch.int32
     assert out.device.type == "cpu"

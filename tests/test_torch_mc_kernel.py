@@ -96,7 +96,7 @@ def test_from_jax_arrays_gives_identical_counts():
     state = {"g_re": np.asarray(jmc._g_re), "g_im": np.asarray(jmc._g_im),
              "C": jmc._C, "noise_gain": jmc.noise_gain, "M": jmc._M,
              "tile": jmc._tile, "used": jmc._used, "TL": jmc._TL}
-    carried = from_jax_arrays(state)
+    carried = from_jax_arrays(state, device="cpu")
     mc = _port_mc(64)
     bits = _bits(4, mc, 2, 2)
     amp = _amp(mc, 10.0)
@@ -162,13 +162,14 @@ def test_constructor_checks():
              "noise_gain": mc.noise_gain, "M": 16, "tile": 16,
              "used": mc.used, "TL": mc.TL}
     with pytest.raises(ValueError, match="square power of 2"):
-        from_jax_arrays(dict(state, M=8))
+        from_jax_arrays(dict(state, M=8), device="cpu")
     with pytest.raises(ValueError, match="tile"):
-        from_jax_arrays(dict(state, tile=24))
-    short_cp = OFDM(512, 10, 300)
+        from_jax_arrays(dict(state, tile=24), device="cpu")
+    short_cp = OFDM(512, 10, 300, device="cpu")
     with pytest.raises(ValueError, match="cp_size"):
         MonteCarloOfdmTdl(short_cp, TdlChannel(
-            JakesSampleGenerator(Fd=30.0, Ts=TS, L=4), COST259_TUx))
+            JakesSampleGenerator(Fd=30.0, Ts=TS, L=4, device="cpu"),
+            COST259_TUx), device="cpu")
 
 
 @pytest.fixture

@@ -46,7 +46,7 @@ def test_ofdm_matches_jax(fft, cp, used, n):
     rng = np.random.default_rng(fft + cp + n)
     x = _symbols(rng, 2, n)
     j = J_OFDM(fft, cp, used)
-    mine = OFDM(fft, cp, used)
+    mine = OFDM(fft, cp, used, device="cpu")
     np.testing.assert_array_equal(mine.get_used_subcarrier_indexes(),
                                   j.get_used_subcarrier_indexes())
     assert mine.samples_per_symbol == j.samples_per_symbol
@@ -68,11 +68,11 @@ def test_ofdm_matches_jax(fft, cp, used, n):
 
 def test_ofdm_rejects_bad_geometry():
     with pytest.raises(ValueError):
-        OFDM(64, 8, 65)
+        OFDM(64, 8, 65, device="cpu")
     with pytest.raises(ValueError):
-        OFDM(64, 8, 31)
+        OFDM(64, 8, 31, device="cpu")
     with pytest.raises(ValueError):
-        OFDM(64, 65, 32)
+        OFDM(64, 65, 32, device="cpu")
 
 
 @pytest.mark.parametrize("shape,num_samples,t0", [
@@ -87,8 +87,9 @@ def test_jakes_matches_jax(shape, num_samples, t0):
     j = J_Jakes(Fd=30.0, Ts=TS, L=L, shape=shape)
     jstate = J_JakesState(phi_l=jnp.asarray(phi), psi_l=jnp.asarray(psi),
                           t0=jnp.asarray(np.float32(t0)))
-    mine = JakesSampleGenerator(Fd=30.0, Ts=TS, L=L, shape=shape)
-    state = JakesState.from_numpy(phi, psi, t0)
+    mine = JakesSampleGenerator(Fd=30.0, Ts=TS, L=L, shape=shape,
+                                device="cpu")
+    state = JakesState.from_numpy(phi, psi, t0, device="cpu")
 
     for _ in range(2):   # generate, then generate again from the new state
         samples_j, jstate = j.generate(jstate, num_samples)
@@ -103,7 +104,8 @@ def test_jakes_matches_jax(shape, num_samples, t0):
 
 
 def test_jakes_state_from_generator():
-    gen = JakesSampleGenerator(Fd=30.0, Ts=TS, L=8, shape=(4,))
+    gen = JakesSampleGenerator(Fd=30.0, Ts=TS, L=8, shape=(4,),
+                               device="cpu")
     a = gen.init_state(torch.Generator().manual_seed(3))
     b = gen.init_state(torch.Generator().manual_seed(3))
     assert a.phi_l.shape == (8, 4, 1) and float(a.t0) == 0.0
@@ -133,7 +135,7 @@ def test_discretized_profiles_match_jax(name):
 
 
 def test_tdl_channel_discretizes_cost259_tu():
-    jakes = JakesSampleGenerator(Fd=30.0, Ts=TS, L=16)
+    jakes = JakesSampleGenerator(Fd=30.0, Ts=TS, L=16, device="cpu")
     channel = TdlChannel(jakes, fading.COST259_TUx)
     j_channel = J_fading.TdlChannel(J_Jakes(Fd=30.0, Ts=TS, L=16),
                                     J_fading.COST259_TUx)

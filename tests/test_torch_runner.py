@@ -216,14 +216,21 @@ def test_results_json_crosses_packages(tmp_path, writer, reader):
 
 
 def test_per_key_path_is_not_ported():
+    """The per-key path refuses what its contract does not cover: a
+    runner without declared result types, and the default CUDA device on
+    a machine without one (no silent CPU run)."""
     class PerKey(T.SimulationRunner):
         def _gen_simulation_kernel(self, current_parameters):
-            return lambda key: {}
+            return lambda streams: {}
 
     r = PerKey(read_command_line_args=False)
     r.update_progress_function_style = None
-    with pytest.raises(NotImplementedError, match="per-key"):
+    with pytest.raises(RuntimeError, match="per-key path requires"):
         r.simulate()
+    r.batch_result_types = {"bit_errors": T.Result.SUMTYPE}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            r.simulate()
 
 
 def test_kernel_stream_seed_matches_jax():

@@ -76,8 +76,9 @@ def _configure(r, mc):
 
 
 def _torch_app(batch=BATCH):
-    r = TorchApp(read_command_line_args=False)
-    _configure(r, MonteCarloOfdmTdl(r.ofdm, r.channel, M=16, tile=TILE))
+    r = TorchApp(device="cpu", read_command_line_args=False)
+    _configure(r, MonteCarloOfdmTdl(r.ofdm, r.channel, M=16, tile=TILE,
+                                    device="cpu"))
     r.batch_size = batch
     return r
 
