@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's flagship chain steps, on one card.
+"""Where the time goes in the port's per-key chain steps, on one card.
 
-For the block-static time-domain step (256 x 9,600 16-QAM symbols, the
-shape ``bench.py`` times as ``value_time_domain``) and the fused diag step
-(512 x 4,800, ``value_xla_fused``):
+For the flagship block-static time-domain step (256 x 9,600 16-QAM
+symbols, the shape ``bench.py`` times as ``value_time_domain``), the fused
+diag step (512 x 4,800, ``value_xla_fused``), the Alamouti 2x1 chain step
+(1,024 x 2,048 QPSK symbols, ``bench.py``'s ``ala_step``) and the BD
+capacity step (4,096 joint 6x6 channels, K = 3, normalized, ``bd_step``):
 
   * the step split in two with CUDA events (best of 3 after a warm-up):
     drawing the inputs from the per-attempt streams, and ``forward``;
@@ -60,9 +62,51 @@ def kernel_time_us(event):
     return 0.0
 
 
-def profile_route(name, batch, num_symbols, fused, dev):
+def profile_step(name, batch, units, unit_name, draw, forward):
+    """Time ``forward(*draw())`` (one chain step of ``batch`` attempts doing
+    ``units`` units of work), its two halves, and trace 3 steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    inputs = draw()
+
+    def step():
+        return forward(*draw())
+
+    step_ms = best_ms(step)
+    draw_ms = best_ms(draw)
+    forward_ms = best_ms(lambda: forward(*inputs))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - tic) * 1e6
+    events = [(e.key, kernel_time_us(e), e.count)
+              for e in prof.key_averages()]
+    busy_us = sum(t for _, t, _ in events)
+    top = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])[:12]
+    out = {
+        "route": name, "batch": batch, "units_per_step": units,
+        "step_ms": step_ms, f"{unit_name}_per_s": units / step_ms * 1e3,
+        "draw_ms": draw_ms, "forward_ms": forward_ms,
+        "traced_wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "device_kernels_per_step": sum(c for _, t, c in events if t > 0) / 3,
+        "block_fir_ms_per_step": sum(t for k, t, _ in events
+                                     if "block_fir" in k) / 3e3,
+        "top_kernels": [{"kernel": k[:90], "ms_per_step": t / 3e3,
+                         "share_of_busy": t / busy_us, "calls": c}
+                        for k, t, c in top],
+    }
+    print(json.dumps(out, indent=1), flush=True)
+    return out
+
+
+def profile_route(name, batch, num_symbols, fused, dev):
     from pyphysim_tpu_torch.chain import ChainStep
     from pyphysim_tpu_torch.ops.streams import AttemptStreams
     from pyphysim_tpu_torch.utils.misc import randn_c, random_symbols
@@ -77,36 +121,29 @@ def profile_route(name, batch, num_symbols, fused, dev):
                 chain.channel.init_state(s_channel),
                 randn_c(s_noise, chain.noise_length))
 
-    inputs = draw()
-    step_ms = best_ms(lambda: chain.step(streams, SNR))
-    draw_ms = best_ms(draw)
-    forward_ms = best_ms(lambda: chain.forward(*inputs, SNR))
+    return profile_step(name, batch, batch * num_symbols, "sym", draw,
+                        lambda *x: chain.forward(*x, SNR))
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tic = time.perf_counter()
-        for _ in range(3):
-            chain.step(streams, SNR)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - tic) * 1e6
-    events = [(e.key, kernel_time_us(e), e.count)
-              for e in prof.key_averages()]
-    busy_us = sum(t for _, t, _ in events)
-    top = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])[:12]
-    out = {
-        "route": name, "batch": batch, "num_symbols": num_symbols,
-        "step_ms": step_ms, "sym_per_s": batch * num_symbols / step_ms * 1e3,
-        "draw_ms": draw_ms, "forward_ms": forward_ms,
-        "traced_wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
-        "device_busy_share": busy_us / wall_us,
-        "block_fir_ms_per_step": sum(t for k, t, _ in events
-                                     if "block_fir" in k) / 3e3,
-        "top_kernels": [{"kernel": k[:90], "ms_per_step": t / 3e3,
-                         "share_of_busy": t / busy_us, "calls": c}
-                        for k, t, c in top],
-    }
-    print(json.dumps(out, indent=1), flush=True)
+
+def profile_families(dev):
+    """The Alamouti 2x1 step at 10 dB and the BD capacity step at the bench
+    point, through the per-key apps' own draw and chain."""
+    from apps.comp_BD.batched_bd_capacity_torch import bd_capacity
+    from apps.mimo.simulate_mimo_torch import MimoSimulationRunner
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+    from pyphysim_tpu_torch.utils.misc import randn_c
+
+    ala = MimoSimulationRunner("alamouti", 1, device=dev,
+                               read_command_line_args=False)
+    ala.NSymbs = 2048
+    streams = AttemptStreams.from_range(7, 0, 1024, dev)
+    out = [profile_step("alamouti", 1024, 1024 * 2048, "sym",
+                        lambda: ala.draw(streams),
+                        lambda *x: ala.forward(*x, 10.0))]
+    streams = AttemptStreams.from_range(7, 0, 4096, dev)
+    out.append(profile_step(
+        "bd", 4096, 4096, "solves", lambda: (randn_c(streams, 6, 6),),
+        lambda H: bd_capacity(H, 3, 10.0 / 3, 1.0, "normalized")))
     return out
 
 
@@ -155,7 +192,8 @@ def main() -> int:
     print(card, flush=True)
     result = {"card": card,
               "routes": [profile_route(name, *shape, dev)
-                         for name, shape in ROUTES.items()],
+                         for name, shape in ROUTES.items()] +
+              profile_families(dev),
               "per_key_engine": engine_stop_cost(dev)}
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)

@@ -10,14 +10,17 @@ against its plain PyTorch version on the card:
   * the flagship chain's block-static time-domain route, whose block
     convolution is the ``block_fir`` CUDA kernel, its fused diag route, and
     the per-sample app ``apps/ofdm/ofdm_tdlchannel_torch.py``, each through
-    the runner's per-key path (phases 8-12).
+    the runner's per-key path (phases 8-12);
+  * the Alamouti 2x1 family through its CUDA kernel on the bulk path and
+    through its library chain on the per-key path, and the BD CoMP capacity
+    family the same way, at ``bench.py``'s widths (phases 13-19).
 
 One line per phase; any failure raises and the script exits non-zero.
 There is no CPU fallback: without a CUDA device it fails before printing
 any result.
 
 Run from the repository root: ``python3 chip_smoke.py`` (one card, a few
-minutes including the nvcc build).
+minutes including the nvcc builds, one per source, in parallel).
 """
 
 import json
@@ -35,11 +38,24 @@ FUSED_BATCH, FUSED_SYMBOLS = 512, 300 * 16  # bench.py's fused step
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12              # f32 outside the tensor cores
 MC_FLOP_PER_SYMBOL = 2048           # E @ G: 4 real products, 256 deep
+ALAMOUTI_BER_10DB = (0.008, 0.030)  # bench.py's bands
+BD_CAP_RANGE = (5.0, 16.0)
+ALA_TILE, ALA_LANE, ALA_TILES, ALA_CHUNK = 64, 256, 4, 512   # bench.py
+ALA_CHAIN_BATCH, ALA_CHAIN_SYMBOLS = 1024, 2048              # ala_step
+BD_TILE, BD_LANE, BD_TILES, BD_CHUNK = 8, 512, 4, 128        # bench.py
+BD_PARITY_TILE = 64                 # inject parity: 32,768 solves per cell
+BD_CHAIN_BATCH = 4096                                        # bd_step
+BD_REL_TOL = 2e-4                   # |kernel - plain| / |plain| per cell
 
 
 def phase(name, **fields):
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
+
+
+def compact(obj):
+    """``obj`` as JSON with no spaces, one field of a phase line."""
+    return json.dumps(obj, separators=(",", ":"))
 
 
 def best_ms(fn, repeat=3, inner=1):
@@ -61,12 +77,27 @@ def best_ms(fn, repeat=3, inner=1):
     return best
 
 
-def bound_ms(nbytes=0, flops=0):
-    """The least time the card could take: bytes over the memory rate or
-    f32 operations over the f32 rate, whichever is larger; and which."""
+def bound_ms(nbytes=0, flops=0, issue_ms=0.0):
+    """The least time the card could take: bytes over the memory rate, f32
+    operations over the f32 rate, or the instructions' time on their
+    busiest pipe (``issue_ms``, see :func:`sass_bound`), whichever is
+    largest; and which ("bytes" or "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = max(flops / F32_FLOP_PER_S * 1e3, issue_ms)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sass_bound(profile, nbytes):
+    """The bound of a PRNG-mode kernel from the SASS of the library built
+    in this run (``ops/sass.py``): (per-thread instructions by pipe,
+    bound ms, "bytes" or "operations", the pipe that sets it)."""
+    from pyphysim_tpu_torch.ops import _build, sass
+    listing = sass.function_sass(_build.library_path(), profile["pattern"])
+    counts = sass.pipe_counts(listing, profile["loop_trips"],
+                              profile["loops"])
+    issue_ms, pipe = sass.issue_bound_ms(counts, profile["threads"])
+    ms, by = bound_ms(nbytes=nbytes, issue_ms=issue_ms)
+    return counts, ms, by, pipe
 
 
 def check_bers(name, snrs, bers):
@@ -117,12 +148,18 @@ def chain_runner(dev, chain, snrs, rep_max, batch):
     return r
 
 
-def run_sweep(runner):
+def run_sweep_values(runner, name):
+    """Run ``runner``'s sweep; its result ``name`` per point and the
+    seconds it took."""
     tic = time.time()
     runner.simulate()
     seconds = time.time() - tic
-    bers = [float(b) for b in runner.results.get_result_values_list("ber")]
-    return bers, seconds
+    return ([float(v) for v in runner.results.get_result_values_list(name)],
+            seconds)
+
+
+def run_sweep(runner):
+    return run_sweep_values(runner, "ber")
 
 
 def check_cells(name, got, want, cell_bits):
@@ -171,7 +208,8 @@ def main() -> int:
           library=lib_path.name)
     log = lib_path.with_suffix(".log")
     for line in log.read_text().splitlines() if log.exists() else []:
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or \
+                "spill" in line:
             print("  ptxas:", line.strip())
 
     # 3. Philox on the device, bit for bit
@@ -275,6 +313,7 @@ def main() -> int:
           engine_ms=engine_ms, engine_sym_per_s=engine_syms / engine_ms * 1e3)
 
     phases_8_to_12 = chain_phases(dev, smi)
+    phases_13_to_19 = mimo_bd_phases(dev, smi)
 
     print(smi)
     mc_bound, mc_bound_by = bound_ms(flops=MC_FLOP_PER_SYMBOL * syms)
@@ -290,7 +329,7 @@ def main() -> int:
         "bound_ms": mc_bound,
         "bound_by": mc_bound_by,
         "library_ms": None,
-    }, phases_8_to_12]}))
+    }, phases_8_to_12, *phases_13_to_19]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -413,6 +452,280 @@ def chain_phases(dev, smi):
         "bound_by": fir_bound_by,
         "library_ms": fir_fft_ms,
     }
+
+
+def sweep_runner(runner, name, values, rep_max, batch):
+    """``runner`` set up to sweep its parameter ``name`` over ``values``."""
+    import numpy as np
+    runner.params.add(name, np.array(values, dtype=float))
+    runner.params.set_unpack_parameter(name)
+    runner.rep_max, runner.batch_size = rep_max, batch
+    runner.update_progress_function_style = None
+    return runner
+
+
+def check_launches(name, launches, chunks, plain_calls):
+    if launches != chunks or launches == 0 or plain_calls != 0:
+        raise AssertionError(f"{name}: {launches} kernel launches for "
+                             f"{chunks} chunks and {plain_calls} plain calls")
+
+
+def check_range(name, value, band):
+    if not band[0] < value < band[1]:
+        raise AssertionError(f"{name}: {value} outside {band}")
+
+
+def mimo_bd_phases(dev, smi):
+    """Phases 13-19: the Alamouti and BD kernels against their plain
+    versions, both families through the bulk path (kernel) and the per-key
+    path (library chain), and their times. Returns the two kernels'
+    entries of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from apps.comp_BD.batched_bd_capacity_torch import (
+        BatchedBDCapacityRunner, BDKernelCapacityRunner)
+    from apps.mimo.alamouti_mc_kernel_torch import \
+        AlamoutiMcKernelSimulationRunner
+    from apps.mimo.simulate_mimo_torch import MimoSimulationRunner
+    from pyphysim_tpu_torch.ops import bd_kernel
+    from pyphysim_tpu_torch.ops.alamouti_kernel import MonteCarloAlamouti
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+    from pyphysim_tpu_torch.simulations import kernel_stream_seed
+
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def bits(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                             device=dev, generator=g)
+
+    # 13. Alamouti: inject parity, PRNG parity at the main path's chunk,
+    # chunk invariance
+    mca = MonteCarloAlamouti(tile=ALA_TILE, lane=ALA_LANE, device=dev)
+    cell_bits = ALA_TILE * ALA_LANE * 4
+    ala_bits = [bits(4, 8, ALA_LANE)] + [
+        bits(4, ALA_TILES * ALA_TILE, ALA_LANE) for _ in range(5)]
+    amp = mca.amp(10.0)
+    got = mca.build_inject(4, ALA_TILES)(*ala_bits, amp)
+    want = mca.simulate_block_reference(*ala_bits, amp)
+    torch.cuda.synchronize()
+    check_cells("alamouti_inject_parity", got, want, cell_bits)
+    seed, snr = 4242, 10.0
+    k_main = mca.build(ALA_CHUNK, ALA_TILES)(seed, snr, 0)
+    p_main = mca.prng_reference(ALA_CHUNK, ALA_TILES, seed, amp, 0)
+    ala_err = check_cells("alamouti_prng_parity", k_main, p_main, cell_bits)
+    k4 = mca.build(4, ALA_TILES)(seed, snr, 4)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(k_main[4:8], k4))
+    phase("alamouti_chunk_invariance", rows_4_to_7_equal_start_4=same)
+    if not same:
+        raise AssertionError("Alamouti kernel results depend on the "
+                             "chunking")
+
+    # 14. A1: the Alamouti kernel through the bulk runner
+    def ala_runner(snrs, rep_max):
+        r = AlamoutiMcKernelSimulationRunner(
+            tile=ALA_TILE, lane=ALA_LANE, num_tiles=ALA_TILES, device=dev,
+            read_command_line_args=False)
+        return sweep_runner(r, "SNR", snrs, rep_max, ALA_CHUNK)
+
+    snrs = [0.0, 10.0, 20.0]
+    runner = ala_runner(snrs, ALA_CHUNK)
+    runner.mc.launch_count = 0
+    runner.mc.reference_count = 0
+    bers, seconds = run_sweep(runner)
+    ala_launches = runner.mc.launch_count
+    phase("alamouti_path", snr_db=snrs, ber=bers,
+          runned_reps=runner.runned_reps, seconds=seconds,
+          kernel_launches=ala_launches, chunks=runner.chunks_dispatched,
+          plain_calls=runner.mc.reference_count)
+    if not bers[0] > bers[1] > bers[2]:
+        raise AssertionError("alamouti_path: BER does not fall with SNR")
+    check_range("alamouti_path BER at 10 dB", bers[1], ALAMOUTI_BER_10DB)
+    check_launches("alamouti_path", ala_launches, runner.chunks_dispatched,
+                   runner.mc.reference_count)
+
+    # 15. A2: the Alamouti library chain through the per-key runner
+    def ala_chain_runner(rep_max):
+        r = MimoSimulationRunner("alamouti", 1, device=dev,
+                                 read_command_line_args=False)
+        r.NSymbs, r.max_bit_errors = ALA_CHAIN_SYMBOLS, 10 ** 12
+        return sweep_runner(r, "SNR", [10.0], rep_max, ALA_CHAIN_BATCH)
+
+    runner = ala_chain_runner(2 * ALA_CHAIN_BATCH)
+    chain_bers, seconds = run_sweep(runner)
+    phase("alamouti_chain_path", snr_db=[10.0], ber=chain_bers,
+          runned_reps=runner.runned_reps, seconds=seconds,
+          chain_calls=runner.chunks_dispatched)
+    check_range("alamouti_chain_path BER at 10 dB", chain_bers[0],
+                ALAMOUTI_BER_10DB)
+
+    # 16. BD: inject parity over the menu and modes; PRNG parity, bitwise
+    # chunk invariance and a bitwise rerun at (3, 2) normalized
+    def check_caps(name, got, want, **fields):
+        rel = float(((got - want).abs() / want.abs()).max())
+        err = float((got - want).abs().max())
+        phase(name, max_rel_cell_diff=rel, max_abs_cell_diff=err,
+              limit=BD_REL_TOL, total_cap=float(want.sum()), **fields)
+        if not rel <= BD_REL_TOL:
+            raise AssertionError(f"{name}: kernel and plain version differ "
+                                 f"by {rel} relative")
+        return err
+
+    # The guard zeroes a draw whose smaller gain is within float32 rounding
+    # of 0, so the kernel and the plain version may disagree on such a
+    # draw (~1e-6 of the draws); at 4,096 solves per cell one disagreement
+    # is ~2e-4 of the cell, at 32,768 it is below 3e-5.
+    for K, NR in bd_kernel.MENU:
+        for mode in bd_kernel.MODES:
+            mc = bd_kernel.MonteCarloBD(tile=BD_PARITY_TILE, lane=BD_LANE,
+                                        K=K, Nr_u=NR, mode=mode, device=dev)
+            ch = bits(2, 2 * BD_PARITY_TILE, mc.num_planes * BD_LANE)
+            got = mc.build_inject(2, 2)(ch)
+            want = mc.simulate_block_reference(ch)
+            torch.cuda.synchronize()
+            check_caps(f"bd_inject_parity K={K} Nr_u={NR} {mode}", got,
+                       want)
+    # PRNG parity over the main path's whole chunk (2.1e6 solves), where
+    # such a draw is likely and moves its 4,096-solve cell by ~2.4e-4: the
+    # chunk is held per repetition (16,384 solves, ~6e-5 a draw), and the
+    # cells' own differences are printed beside it.
+    mcb = bd_kernel.MonteCarloBD(tile=BD_TILE, lane=BD_LANE, device=dev)
+    k_main = mcb.build(BD_CHUNK, BD_TILES)(seed, 0)
+    p_main = mcb.prng_reference(BD_CHUNK, BD_TILES, seed, 0)
+    cell_rel = (k_main - p_main).abs() / p_main.abs()
+    bd_err = check_caps(
+        "bd_prng_parity per rep", k_main.sum(dim=1), p_main.sum(dim=1),
+        reps=BD_CHUNK, max_rel_diff_4096_solve_cell=float(cell_rel.max()),
+        cells_over_limit=int((cell_rel > BD_REL_TOL).sum()))
+    k4 = mcb.build(4, BD_TILES)(seed, 4)
+    again = mcb.build(BD_CHUNK, BD_TILES)(seed, 0)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(k_main[4:8], k4))
+    rerun = bool(torch.equal(k_main, again))
+    phase("bd_chunk_invariance", rows_4_to_7_equal_start_4=same,
+          rerun_bitwise_equal=rerun)
+    if not (same and rerun):
+        raise AssertionError("BD kernel results are not bitwise "
+                             "reproducible")
+
+    # 17. B1: the BD kernel through the bulk runner at the bench point
+    pu_db = [float(10 * np.log10(10.0 / 3))]
+
+    def bd_runner(rep_max):
+        r = BDKernelCapacityRunner(K=3, nr_u=2, tile=BD_TILE, lane=BD_LANE,
+                                   num_tiles=BD_TILES, device=dev,
+                                   read_command_line_args=False)
+        return sweep_runner(r, "Pu_dB", pu_db, rep_max, BD_CHUNK)
+
+    runner = bd_runner(2 * BD_CHUNK)
+    runner.mc.launch_count = 0
+    runner.mc.reference_count = 0
+    caps, seconds = run_sweep_values(runner, "sum_capacity")
+    bd_launches = runner.mc.launch_count
+    phase("bd_path", pu_db=pu_db, mean_sum_capacity=caps,
+          runned_reps=runner.runned_reps, seconds=seconds,
+          kernel_launches=bd_launches, chunks=runner.chunks_dispatched,
+          plain_calls=runner.mc.reference_count)
+    check_range("bd_path mean capacity", caps[0], BD_CAP_RANGE)
+    check_launches("bd_path", bd_launches, runner.chunks_dispatched,
+                   runner.mc.reference_count)
+
+    # 18. B2: the BD library chain through the per-key runner
+    def bd_chain_runner(rep_max):
+        r = BatchedBDCapacityRunner("normalized", K=3, nr_u=2, device=dev,
+                                    read_command_line_args=False)
+        return sweep_runner(r, "Pu_dB", pu_db, rep_max, BD_CHAIN_BATCH)
+
+    runner = bd_chain_runner(2 * BD_CHAIN_BATCH)
+    chain_caps, seconds = run_sweep_values(runner, "sum_capacity")
+    skipped = runner.results.get_result_values_list("num_skipped_reps")
+    phase("bd_chain_path", pu_db=pu_db, mean_sum_capacity=chain_caps,
+          runned_reps=runner.runned_reps, skipped_attempts=skipped,
+          seconds=seconds, chain_calls=runner.chunks_dispatched)
+    check_range("bd_chain_path mean capacity", chain_caps[0], BD_CAP_RANGE)
+
+    # 19. times (CUDA events, best of 3 after a warm-up)
+    run_a = mca.build(ALA_CHUNK, ALA_TILES)
+    ala_ms = best_ms(lambda: run_a(seed, snr, 0), inner=10)
+    ala_plain_ms = best_ms(lambda: mca.prng_reference(
+        ALA_CHUNK, ALA_TILES, seed, amp, 0))
+    ala_syms = ALA_CHUNK * ALA_TILES * mca.symbols_per_grid_step
+    # outputs only: nothing is read per element in PRNG mode
+    ala_sass, ala_bound, ala_bound_by, ala_pipe = sass_bound(
+        mca.prng_kernel_profile(ALA_CHUNK, ALA_TILES),
+        nbytes=4 * ALA_CHUNK * ALA_TILES)
+    run_b = mcb.build(BD_CHUNK, BD_TILES)
+    bd_ms = best_ms(lambda: run_b(seed, 0), inner=10)
+    bd_plain_ms = best_ms(lambda: mcb.prng_reference(BD_CHUNK, BD_TILES,
+                                                     seed, 0))
+    bd_solves = BD_CHUNK * BD_TILES * mcb.solves_per_grid_step
+    bd_sass, bd_bound, bd_bound_by, bd_pipe = sass_bound(
+        mcb.prng_kernel_profile(BD_CHUNK, BD_TILES),
+        nbytes=4 * BD_CHUNK * BD_TILES)
+
+    def step_ms(runner, batch):
+        """One chain call of the per-key runner's kernel on ``batch``
+        attempts of its first variation."""
+        params = runner.params.get_unpacked_params_list()[0]
+        kernel = runner._gen_simulation_kernel(params)
+        streams = AttemptStreams.from_range(
+            kernel_stream_seed(runner.base_seed, 0), 0, batch, dev)
+        return best_ms(lambda: kernel(streams))
+
+    ala_chain_ms = step_ms(ala_chain_runner(ALA_CHAIN_BATCH), ALA_CHAIN_BATCH)
+    bd_chain_ms = step_ms(bd_chain_runner(BD_CHAIN_BATCH), BD_CHAIN_BATCH)
+    ala_engine_ms = best_ms(ala_runner([10.0], 4 * ALA_CHUNK).simulate)
+    bd_engine_ms = best_ms(bd_runner(4 * BD_CHUNK).simulate)
+    phase("times", card=repr(smi),
+          alamouti_shape=f"reps={ALA_CHUNK},tiles={ALA_TILES},"
+          f"tile={ALA_TILE},lane={ALA_LANE}",
+          alamouti_kernel_ms=ala_ms,
+          alamouti_kernel_sym_per_s=ala_syms / ala_ms * 1e3,
+          alamouti_bound_ms=ala_bound, alamouti_bound_by=ala_bound_by,
+          alamouti_bound_pipe=ala_pipe,
+          alamouti_sass_per_thread=compact(ala_sass),
+          alamouti_share_of_bound=ala_bound / ala_ms,
+          alamouti_plain_ms=ala_plain_ms,
+          bd_shape=f"reps={BD_CHUNK},tiles={BD_TILES},tile={BD_TILE},"
+          f"lane={BD_LANE},K=3,Nr_u=2,normalized",
+          bd_kernel_ms=bd_ms, bd_kernel_solves_per_s=bd_solves / bd_ms * 1e3,
+          bd_bound_ms=bd_bound, bd_bound_by=bd_bound_by,
+          bd_bound_pipe=bd_pipe, bd_sass_per_thread=compact(bd_sass),
+          bd_share_of_bound=bd_bound / bd_ms, bd_plain_ms=bd_plain_ms,
+          alamouti_chain_step_ms=ala_chain_ms,
+          alamouti_chain_sym_per_s=ALA_CHAIN_BATCH * ALA_CHAIN_SYMBOLS /
+          ala_chain_ms * 1e3,
+          bd_chain_step_ms=bd_chain_ms,
+          bd_chain_solves_per_s=BD_CHAIN_BATCH / bd_chain_ms * 1e3,
+          alamouti_engine_ms=ala_engine_ms,
+          alamouti_engine_sym_per_s=4 * ala_syms / ala_engine_ms * 1e3,
+          bd_engine_ms=bd_engine_ms,
+          bd_engine_solves_per_s=4 * bd_solves / bd_engine_ms * 1e3)
+    return [{
+        "name": "mc_alamouti_prng",
+        "route": "cuda",
+        "source": "pyphysim_tpu_torch/ops/csrc/mc_alamouti.cu",
+        "replaces": "pyphysim_tpu/ops/alamouti_pallas.py:180",
+        "launches": ala_launches,
+        "max_abs_err": ala_err,
+        "ms": ala_ms,
+        "plain_ms": ala_plain_ms,
+        "bound_ms": ala_bound,
+        "bound_by": ala_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "mc_bd_prng",
+        "route": "cuda",
+        "source": "pyphysim_tpu_torch/ops/csrc/mc_bd.cu",
+        "replaces": "pyphysim_tpu/ops/bd_pallas.py:282",
+        "launches": bd_launches,
+        "max_abs_err": bd_err,
+        "ms": bd_ms,
+        "plain_ms": bd_plain_ms,
+        "bound_ms": bd_bound,
+        "bound_by": bd_bound_by,
+        "library_ms": None,
+    }]
 
 
 if __name__ == "__main__":

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Every ``ops/csrc/*.cu`` is compiled by ``nvcc`` into ONE shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a
-build takes seconds, not minutes, and needs no ``ninja``). The library's
-name carries a hash of the sources and flags, so the first use after a
-change rebuilds it; builds go to ``ops/_build/`` (git-ignored).
+Every ``ops/csrc/*.cu`` is compiled by its own ``nvcc`` process, all
+started together, and the objects are linked into ONE shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds, not minutes, and needs no ``ninja``). The library's name
+carries a hash of the sources and flags, so the first use after a change
+rebuilds it; builds go to ``ops/_build/`` (git-ignored).
 
 Nothing here runs at import time: :func:`load` is called by a kernel
 wrapper the first time it launches.
@@ -33,8 +34,11 @@ _OPS_DIR = Path(__file__).resolve().parent
 SRC_DIR = _OPS_DIR / "csrc"
 BUILD_DIR = _OPS_DIR / "_build"
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# -split-compile=0: nvcc optimizes a source's kernels in parallel threads
+# (mc_bd.cu instantiates 30 large kernels)
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v", "-split-compile=0"]
 
 _vp, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_float)
@@ -45,6 +49,14 @@ _SIGNATURES = {
                            _i, _i, _f, _f, _f, _f, _ll, _ll, _ll, _ll, _vp],
     "philox_fill": [_vp, _vp, _vp, _ll, _vp],
     "block_fir": [_vp, _vp, _vp, _i, _i, _i, _vp, _vp],
+    "mc_alamouti_prng": [_vp, _i, _i, _i, _i, _f, ctypes.c_uint, _ll, _vp],
+    "mc_alamouti_inject": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
+                           _f, _ll, _ll, _ll, _ll, _vp],
+    "mc_bd_num_parts": [_i, _i],
+    "mc_bd_prng": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _f,
+                   ctypes.c_uint, _ll, _vp],
+    "mc_bd_inject": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _f, _ll,
+                     _ll, _vp],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -78,25 +90,47 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources unless the library for them already exists;
-    returns its path. The compiler's output (with ``-Xptxas -v``: each
-    kernel's registers, shared memory and spills) is kept beside it as
+    returns its path. One ``nvcc -c`` per source runs in parallel, then
+    one link. The compilers' output (with ``-Xptxas -v``: each kernel's
+    registers, shared memory and spills) is kept beside the library as
     ``.log``. Raises ``RuntimeError`` with nvcc's output on failure."""
     global build_seconds
     lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp),
-           *(str(s) for s in sorted(SRC_DIR.glob("*.cu")))]
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.{os.getpid()}"
     tic = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        log = obj.with_suffix(".log")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-I", str(SRC_DIR), "-o", str(obj),
+               str(src)]
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        jobs.append((cmd, obj, log, proc))
+    text, failed = [], False
+    for cmd, obj, log, proc in jobs:
+        rc = proc.wait()
+        text.append(f"$ {' '.join(cmd)}\n{log.read_text()}")
+        log.unlink()
+        failed |= rc != 0
+    objs = [str(obj) for _, obj, _, _ in jobs]
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        text.append(f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        failed = proc.returncode != 0
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
     build_seconds = time.time() - tic
-    if proc.returncode != 0:
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(text))
+    lib.with_suffix(".log").write_text("\n".join(text))
     os.replace(tmp, lib)  # atomic: a concurrent process sees all or nothing
     return lib
 

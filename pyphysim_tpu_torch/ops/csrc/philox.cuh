@@ -22,3 +22,15 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
   }
   return ctr;
 }
+
+// A 32-bit word as a uniform in [-1, 1): the signed view times 2^-31, as the
+// JAX kernels' _u11 (mc_pallas.py).
+__device__ __forceinline__ float bits_u11(uint32_t bits) {
+  return (float)(int)bits * 4.656612873077393e-10f;
+}
+
+// erfinv of that uniform with both tails clamped (so it never sees +-1):
+// N(0, 1/2); times sqrt(2) it is N(0, 1).
+__device__ __forceinline__ float bits_half_normal(uint32_t bits) {
+  return erfinvf(fminf(fmaxf(bits_u11(bits), -0.99999994f), 0.99999994f));
+}

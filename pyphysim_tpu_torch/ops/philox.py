@@ -30,9 +30,33 @@ call at ``start``):
     symbol tile ``tile`` on used bin ``u``; output words 0 / 1 / 2 are the
     data / real-noise / imaginary-noise bits.
 
-Every counter holds the absolute attempt, so the bits of attempt
-``start + i`` do not depend on ``start`` or on the chunk size: results are
-chunk-size invariant and checkpoint/resume is exact.
+Stream layout of ``MonteCarloAlamouti`` (``ops/alamouti_kernel.py``), for
+repetition ``attempt``, symbol tile ``tile``, codeword row ``r`` of the
+tile and lane ``l`` (lanes are independent channel streams):
+
+  * channel stream: key ``(seed, 2)``, counter ``(l, 0, attempt_lo,
+    attempt_hi)``; words 0-3 are the bits of h1.re, h1.im, h2.re, h2.im.
+    It does not depend on the tile, so every tile of a repetition sees the
+    lane's one channel draw.
+  * noise stream: key ``(seed, 3)``, counter ``(r * lane + l, tile,
+    attempt_lo, attempt_hi)``; words 0-3 are the bits of n1.re, n1.im,
+    n2.re, n2.im.
+  * data stream: key ``(seed, 4)``, counter ``(g * lane + l, tile,
+    attempt_lo, attempt_hi)`` for the group ``g = r >> 5`` of 32 rows; row
+    ``r``'s two QPSK indices are the 4-bit nibble ``r & 7`` of word
+    ``(r >> 3) & 3``.
+
+Stream layout of ``MonteCarloBD`` (``ops/bd_kernel.py``): key ``(seed, 5)``,
+counter ``(r * lane + l, tile * G + j, attempt_lo, attempt_hi)`` for
+element ``(r, l)`` of tile ``tile`` and ``j < G = ceil(num_planes / 4)``;
+word ``w`` of call ``j`` is the bit plane ``4 j + w`` (plane ``2 (i NT +
+c)`` is H[i, c].re, the next one its imaginary part).
+
+The key words 2-5 are used by nothing else: ``ops/streams.py`` keys its
+streams by a salt of 0 or a Philox word of a salt. Every counter holds the
+absolute attempt, so the bits of attempt ``start + i`` do not depend on
+``start`` or on the chunk size: results are chunk-size invariant and
+checkpoint/resume is exact.
 """
 
 from __future__ import annotations
@@ -42,7 +66,12 @@ from typing import Tuple, Union
 import torch
 
 __all__ = ["philox4x32_10", "to_int32_bits", "phase_stream_bits",
-           "symbol_stream_bits"]
+           "symbol_stream_bits", "alamouti_stream_bits", "bd_stream_bits",
+           "ALAMOUTI_CHANNEL_KEY", "ALAMOUTI_NOISE_KEY", "ALAMOUTI_DATA_KEY",
+           "BD_CHANNEL_KEY"]
+
+ALAMOUTI_CHANNEL_KEY, ALAMOUTI_NOISE_KEY, ALAMOUTI_DATA_KEY = 2, 3, 4
+BD_CHANNEL_KEY = 5
 
 _MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57     # round multipliers
@@ -115,3 +144,57 @@ def symbol_stream_bits(seed: int, attempts: torch.Tensor, num_tiles: int,
                                   lo, hi, int(seed), 1)
     shape = (attempts.shape[0], num_tiles * tile, used)
     return tuple(to_int32_bits(x).reshape(shape) for x in (x0, x1, x2))
+
+
+def alamouti_stream_bits(seed: int, attempts: torch.Tensor, num_tiles: int,
+                         tile: int, lane: int) -> Tuple[torch.Tensor, ...]:
+    """The Alamouti kernel's bits for each absolute attempt in the 1-D
+    int64 tensor ``attempts``: channel bits (reps, 4, lane) and the data
+    nibbles and noise bits n1.re, n1.im, n2.re, n2.im, each
+    (reps, num_tiles * tile, lane), all int32."""
+    dev = attempts.device
+    reps = attempts.shape[0]
+    lo, hi = _attempt_words(attempts[:, None])
+    lanes = torch.arange(lane, dtype=torch.int64, device=dev)
+    ch = torch.stack(philox4x32_10(lanes[None, :], 0, lo, hi, int(seed),
+                                   ALAMOUTI_CHANNEL_KEY), dim=1)
+    lo, hi = _attempt_words(attempts[:, None, None])
+    tiles = torch.arange(num_tiles, dtype=torch.int64, device=dev)[None, :,
+                                                                   None]
+    rl = torch.arange(tile * lane, dtype=torch.int64, device=dev)
+    noise = philox4x32_10(rl[None, None, :], tiles, lo, hi, int(seed),
+                          ALAMOUTI_NOISE_KEY)
+    shape = (reps, num_tiles * tile, lane)
+    noise = [to_int32_bits(x).reshape(shape) for x in noise]
+    groups = (tile + 31) // 32
+    gl = torch.arange(groups * lane, dtype=torch.int64, device=dev)
+    words = torch.stack(philox4x32_10(gl[None, None, :], tiles, lo, hi,
+                                      int(seed), ALAMOUTI_DATA_KEY), dim=2)
+    # (reps, nt, 4, groups * lane) -> word q = 4 g + j of row r is q = r >> 3
+    words = words.reshape(reps, num_tiles, 4, groups, lane).transpose(2, 3)
+    words = words.reshape(reps, num_tiles, groups * 4, lane)
+    r = torch.arange(tile, dtype=torch.int64, device=dev)
+    d = (words[:, :, r >> 3, :] >> (4 * (r & 7))[None, None, :, None]) & 15
+    return (to_int32_bits(ch), d.to(torch.int32).reshape(shape), *noise)
+
+
+def bd_stream_bits(seed: int, attempts: torch.Tensor, num_tiles: int,
+                   tile: int, lane: int, num_planes: int) -> torch.Tensor:
+    """The BD kernel's channel bits for each absolute attempt in the 1-D
+    int64 tensor ``attempts``, in the inject layout: (reps,
+    num_tiles * tile, num_planes * lane) int32, plane ``p`` at lanes
+    ``[p * lane, (p + 1) * lane)``."""
+    dev = attempts.device
+    reps = attempts.shape[0]
+    calls = (num_planes + 3) // 4
+    lo, hi = _attempt_words(attempts[:, None, None, None])
+    c1 = (torch.arange(num_tiles, dtype=torch.int64, device=dev)[:, None] *
+          calls + torch.arange(calls, dtype=torch.int64, device=dev))
+    rl = torch.arange(tile * lane, dtype=torch.int64, device=dev)
+    words = torch.stack(philox4x32_10(rl, c1[None, :, :, None], lo, hi,
+                                      int(seed), BD_CHANNEL_KEY), dim=3)
+    # (reps, nt, calls, 4, tile * lane) -> planes (reps, nt, P, tile, lane)
+    planes = words.reshape(reps, num_tiles, calls * 4, tile, lane)
+    planes = planes[:, :, :num_planes].permute(0, 1, 3, 2, 4)
+    return to_int32_bits(planes.reshape(reps, num_tiles * tile,
+                                        num_planes * lane))

@@ -3,9 +3,10 @@
 Counterpart of the parts of ``pyphysim_tpu/utils/misc.py`` that the Monte
 Carlo paths need: complex Gaussian samples and random symbols from an
 explicit random source, bit counting on torch tensors, ``level2bits``, the
-Q function, confidence intervals, and the host-side formatting helpers the
-runner uses for file names and progress. The rest of that module waits for
-the slices that need it.
+Q function, confidence intervals, the host-side geometric mean
+decomposition (``gmd``, for ``mimo.GMDMimo``), and the host-side
+formatting helpers the runner uses for file names and progress. The rest of
+that module waits for the slices that need it.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ __all__ = [
     "level2bits",
     "int2bits",
     "calc_confidence_interval",
+    "gmd",
     "pretty_time",
     "get_range_representation",
     "replace_dict_values",
@@ -158,6 +160,88 @@ def calc_confidence_interval(mean: float,
     z = scipy.stats.norm.ppf(0.5 + P / 200.0)
     norm = z * std / np.sqrt(n)
     return mean - norm, mean + norm
+
+
+# ---------------------------------------------------------------------------
+# Linear algebra (host, numpy)
+# ---------------------------------------------------------------------------
+
+
+def gmd(U: np.ndarray,
+        S: np.ndarray,
+        V_H: np.ndarray,
+        tol: float = 0.0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Geometric Mean Decomposition of one matrix, on the host.
+
+    Given an SVD ``A = U @ diag(S) @ V_H``, return ``(Q, R, P)`` with
+    ``A = Q @ R @ P.conj().T``, ``Q`` / ``P`` with orthonormal columns and
+    ``R`` upper triangular with every diagonal entry equal to the geometric
+    mean of the kept singular values (Jiang, Hager and Li, 2005): each step
+    brings a pair straddling the mean onto the diagonal, mixes it with a
+    right Givens rotation and re-triangularizes with a left one.
+
+    >>> A = np.array([[2.0, 1.0], [0.5, 3.0]])
+    >>> Q, R, P = gmd(*np.linalg.svd(A))
+    >>> np.allclose(Q @ R @ P.conj().T, A)
+    True
+    >>> bool(np.isclose(R[0, 0].real, R[1, 1].real))
+    True
+    """
+    S = np.asarray(S, dtype=float)
+    keep = S > tol * S[0] if tol > 0 else slice(None)
+    S = S[keep]
+    K = S.shape[0]
+    Q = np.array(U[:, :K] if U.shape[1] >= K else U, dtype=complex)
+    P = np.array(V_H.conj().T[:, :K], dtype=complex)
+    R = np.diag(S).astype(complex)
+    sigma_bar = float(np.exp(np.mean(np.log(S))))
+
+    d = S.copy()
+    for k in range(K - 1):
+        # a (>= mean, <= mean) pair into positions (k, k + 1)
+        rest = d[k:]
+        if d[k] >= sigma_bar:
+            cand = np.nonzero(rest <= sigma_bar)[0]
+            j = k + (int(cand[0]) if cand.size else int(np.argmin(rest)))
+        else:
+            cand = np.nonzero(rest >= sigma_bar)[0]
+            j = k + (int(cand[0]) if cand.size else int(np.argmax(rest)))
+        if j != k + 1:
+            _gmd_swap(R, Q, P, d, k + 1, j)
+
+        d1, d2 = d[k], d[k + 1]
+        if abs(d1 - d2) < 1e-12 * max(abs(d1), 1.0):
+            c, s = 1.0, 0.0
+        else:
+            c2 = (sigma_bar ** 2 - d2 ** 2) / (d1 ** 2 - d2 ** 2)
+            c2 = min(max(c2, 0.0), 1.0)
+            c = np.sqrt(c2)
+            s = np.sqrt(1.0 - c2)
+        # right rotation of columns (k, k + 1) of R and P
+        G1 = np.array([[c, -s], [s, c]])
+        R[:, [k, k + 1]] = R[:, [k, k + 1]] @ G1
+        P[:, [k, k + 1]] = P[:, [k, k + 1]] @ G1
+        # left rotation zeroing R[k + 1, k]
+        a, b = R[k, k], R[k + 1, k]
+        nrm = np.hypot(abs(a), abs(b))
+        cl = (a / nrm).conj() if nrm > 0 else 1.0
+        sl = (b / nrm).conj() if nrm > 0 else 0.0
+        G2 = np.array([[cl, sl], [-np.conj(sl), np.conj(cl)]])
+        R[[k, k + 1], :] = G2 @ R[[k, k + 1], :]
+        Q[:, [k, k + 1]] = Q[:, [k, k + 1]] @ G2.conj().T
+        R[k + 1, k] = 0.0
+        d[k] = np.real(R[k, k])
+        d[k + 1] = np.real(R[k + 1, k + 1])
+
+    return Q, R, P
+
+
+def _gmd_swap(R, Q, P, d, i, j):
+    R[:, [i, j]] = R[:, [j, i]]
+    R[[i, j], :] = R[[j, i], :]
+    Q[:, [i, j]] = Q[:, [j, i]]
+    P[:, [i, j]] = P[:, [j, i]]
+    d[[i, j]] = d[[j, i]]
 
 
 # ---------------------------------------------------------------------------

@@ -47,8 +47,20 @@ SLICE_MODULES = [
     "pyphysim_tpu_torch.ops.mc_kernel",
     "pyphysim_tpu_torch.ops._build",
     "pyphysim_tpu_torch.chain",
+    "pyphysim_tpu_torch.mimo.mimo",
+    "pyphysim_tpu_torch.mimo",
+    "pyphysim_tpu_torch.comm.waterfilling",
+    "pyphysim_tpu_torch.comm.batched",
+    "pyphysim_tpu_torch.comm",
+    "pyphysim_tpu_torch.ops.planes",
+    "pyphysim_tpu_torch.ops.alamouti_kernel",
+    "pyphysim_tpu_torch.ops.bd_kernel",
+    "pyphysim_tpu_torch.ops.sass",
     "apps.ofdm.ofdm_mc_kernel_torch",
     "apps.ofdm.ofdm_tdlchannel_torch",
+    "apps.mimo.alamouti_mc_kernel_torch",
+    "apps.mimo.simulate_mimo_torch",
+    "apps.comp_BD.batched_bd_capacity_torch",
 ]
 
 
@@ -77,7 +89,8 @@ def test_slice_modules_import_neither_jax_nor_triton():
 
 
 def test_kernel_module_imports_without_building():
-    from pyphysim_tpu_torch.ops import _build, mc_kernel  # noqa: F401
+    from pyphysim_tpu_torch.ops import (_build, alamouti_kernel,  # noqa: F401
+                                        bd_kernel, mc_kernel)
     assert _build._lib is None
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
@@ -86,20 +99,34 @@ def test_kernel_module_imports_without_building():
 
 
 def test_cuda_request_raises_without_cuda(monkeypatch):
+    from apps.comp_BD.batched_bd_capacity_torch import (
+        BatchedBDCapacityRunner, BDKernelCapacityRunner)
+    from apps.mimo.alamouti_mc_kernel_torch import \
+        AlamoutiMcKernelSimulationRunner
+    from apps.mimo.simulate_mimo_torch import MimoSimulationRunner
     from apps.ofdm.ofdm_mc_kernel_torch import OfdmMcKernelSimulationRunner
     from pyphysim_tpu_torch._device import require_cuda
     from pyphysim_tpu_torch.channels import JakesSampleGenerator
+    from pyphysim_tpu_torch.mimo import Alamouti
     from pyphysim_tpu_torch.modulators import OFDM
+    from pyphysim_tpu_torch.ops.alamouti_kernel import MonteCarloAlamouti
+    from pyphysim_tpu_torch.ops.bd_kernel import MonteCarloBD
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert require_cuda("cpu") == torch.device("cpu")
     assert require_cuda(None) == torch.device("cpu")
+    runners = (OfdmMcKernelSimulationRunner, AlamoutiMcKernelSimulationRunner,
+               MimoSimulationRunner, BatchedBDCapacityRunner,
+               BDKernelCapacityRunner)
     for make in (lambda: require_cuda("cuda"),
                  lambda: require_cuda(torch.device("cuda", 0)),
                  lambda: OFDM(64, 8, 32, device="cuda"),
                  lambda: JakesSampleGenerator(device="cuda"),
-                 lambda: OfdmMcKernelSimulationRunner(
-                     device="cuda", read_command_line_args=False)):
+                 lambda: Alamouti(),
+                 lambda: MonteCarloAlamouti(),
+                 lambda: MonteCarloBD(),
+                 *(lambda cls=cls: cls(read_command_line_args=False)
+                   for cls in runners)):
         with pytest.raises(RuntimeError, match="cuda"):
             make()
 
@@ -115,9 +142,14 @@ def test_default_ofdm_raises_without_a_card():
 
 
 def test_public_entry_points_default_to_the_card():
+    from apps.comp_BD.batched_bd_capacity_torch import (
+        BatchedBDCapacityRunner, BDKernelCapacityRunner)
+    from apps.mimo.alamouti_mc_kernel_torch import \
+        AlamoutiMcKernelSimulationRunner
+    from apps.mimo.simulate_mimo_torch import MimoSimulationRunner
     from apps.ofdm.ofdm_mc_kernel_torch import OfdmMcKernelSimulationRunner
     from apps.ofdm.ofdm_tdlchannel_torch import OfdmTdlSimulationRunner
-    from pyphysim_tpu_torch import _device
+    from pyphysim_tpu_torch import _device, mimo
     from pyphysim_tpu_torch.chain import ChainStep
     from pyphysim_tpu_torch.channels import (JakesSampleGenerator,
                                              JakesState,
@@ -126,7 +158,7 @@ def test_public_entry_points_default_to_the_card():
                                              TdlImpulseResponse)
     from pyphysim_tpu_torch.modulators import (BPSK, OFDM, PSK, QAM, QPSK,
                                                Modulator)
-    from pyphysim_tpu_torch.ops import mc_kernel
+    from pyphysim_tpu_torch.ops import alamouti_kernel, bd_kernel, mc_kernel
     from pyphysim_tpu_torch.ops.streams import AttemptStreams
     from pyphysim_tpu_torch.simulations import SimulationRunner
     entry_points = [
@@ -135,7 +167,13 @@ def test_public_entry_points_default_to_the_card():
         RayleighSampleGenerator, RayleighState.from_numpy,
         TdlImpulseResponse.from_numpy, mc_kernel.MonteCarloOfdmTdl,
         mc_kernel.from_jax_arrays, ChainStep, AttemptStreams.from_range,
-        OfdmMcKernelSimulationRunner, OfdmTdlSimulationRunner]
+        OfdmMcKernelSimulationRunner, OfdmTdlSimulationRunner,
+        mimo.MimoBase, mimo.Blast, mimo.MRT, mimo.MRC, mimo.SVDMimo,
+        mimo.GMDMimo, mimo.Alamouti, alamouti_kernel.MonteCarloAlamouti,
+        alamouti_kernel.from_jax_attrs, bd_kernel.MonteCarloBD,
+        bd_kernel.from_jax_attrs, AlamoutiMcKernelSimulationRunner,
+        MimoSimulationRunner, BatchedBDCapacityRunner,
+        BDKernelCapacityRunner]
     for fn in entry_points:
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", f"{fn.__qualname__} defaults to {default}"
