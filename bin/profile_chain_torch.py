@@ -4,8 +4,10 @@
 For the flagship block-static time-domain step (256 x 9,600 16-QAM
 symbols, the shape ``bench.py`` times as ``value_time_domain``), the fused
 diag step (512 x 4,800, ``value_xla_fused``), the Alamouti 2x1 chain step
-(1,024 x 2,048 QPSK symbols, ``bench.py``'s ``ala_step``) and the BD
-capacity step (4,096 joint 6x6 channels, K = 3, normalized, ``bd_step``):
+(1,024 x 2,048 QPSK symbols, ``bench.py``'s ``ala_step``), the BD
+capacity step (4,096 joint 6x6 channels, K = 3, normalized, ``bd_step``)
+and the Max-SINR IA step (4,096 K = 3, 2x2 channels, 'svd' init, 10
+iterations, noise 0.1, ``ia_step``):
 
   * the step split in two with CUDA events (best of 3 after a warm-up):
     drawing the inputs from the per-attempt streams, and ``forward``;
@@ -126,10 +128,12 @@ def profile_route(name, batch, num_symbols, fused, dev):
 
 
 def profile_families(dev):
-    """The Alamouti 2x1 step at 10 dB and the BD capacity step at the bench
-    point, through the per-key apps' own draw and chain."""
+    """The Alamouti 2x1 step at 10 dB, and the BD and Max-SINR IA capacity
+    steps at the bench points, through the per-key apps' own draw and
+    chain."""
     from apps.comp_BD.batched_bd_capacity_torch import bd_capacity
     from apps.mimo.simulate_mimo_torch import MimoSimulationRunner
+    from chip_smoke import ia_capacity
     from pyphysim_tpu_torch.ops.streams import AttemptStreams
     from pyphysim_tpu_torch.utils.misc import randn_c
 
@@ -144,6 +148,9 @@ def profile_families(dev):
     out.append(profile_step(
         "bd", 4096, 4096, "solves", lambda: (randn_c(streams, 6, 6),),
         lambda H: bd_capacity(H, 3, 10.0 / 3, 1.0, "normalized")))
+    out.append(profile_step(
+        "ia", 4096, 4096, "solves",
+        lambda: (randn_c(streams, 3, 3, 2, 2),), ia_capacity))
     return out
 
 

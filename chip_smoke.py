@@ -13,7 +13,11 @@ against its plain PyTorch version on the card:
     the runner's per-key path (phases 8-12);
   * the Alamouti 2x1 family through its CUDA kernel on the bulk path and
     through its library chain on the per-key path, and the BD CoMP capacity
-    family the same way, at ``bench.py``'s widths (phases 13-19).
+    family the same way, at ``bench.py``'s widths (phases 13-19);
+  * the Max-SINR interference-alignment family: its CUDA kernel against its
+    plain version at every point of the kernel's menu and at the bench
+    widths, the bulk app and the batched chain (``ia_step``), the per-key
+    stream-selection app, and their times (phases 20-26).
 
 One line per phase; any failure raises and the script exits non-zero.
 There is no CPU fallback: without a CUDA device it fails before printing
@@ -46,6 +50,13 @@ BD_TILE, BD_LANE, BD_TILES, BD_CHUNK = 8, 512, 4, 128        # bench.py
 BD_PARITY_TILE = 64                 # inject parity: 32,768 solves per cell
 BD_CHAIN_BATCH = 4096                                        # bd_step
 BD_REL_TOL = 2e-4                   # |kernel - plain| / |plain| per cell
+IA_CAP_RANGE = (6.0, 16.0)          # bench.py: K=3, 2x2, Ns=1, noise 0.1
+IA_TILE, IA_LANE, IA_TILES, IA_CHUNK = 8, 512, 4, 128        # bench.py
+IA_ITERS, IA_NV = 10, 0.1
+IA_PARITY_TILE = 64                 # inject parity: 32,768 solves per cell
+IA_PLAIN_SLICE = 32                 # reps per plain-version call
+IA_CHAIN_BATCH = 4096                                        # ia_step
+IA_REL_TOL = 2e-4                   # |kernel - plain| / |plain| per cell
 
 
 def phase(name, **fields):
@@ -314,6 +325,7 @@ def main() -> int:
 
     phases_8_to_12 = chain_phases(dev, smi)
     phases_13_to_19 = mimo_bd_phases(dev, smi)
+    phases_20_to_26 = ia_phases(dev, smi)
 
     print(smi)
     mc_bound, mc_bound_by = bound_ms(flops=MC_FLOP_PER_SYMBOL * syms)
@@ -329,7 +341,7 @@ def main() -> int:
         "bound_ms": mc_bound,
         "bound_by": mc_bound_by,
         "library_ms": None,
-    }, phases_8_to_12, *phases_13_to_19]}))
+    }, phases_8_to_12, *phases_13_to_19, phases_20_to_26]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -726,6 +738,234 @@ def mimo_bd_phases(dev, smi):
         "bound_by": bd_bound_by,
         "library_ms": None,
     }]
+
+
+def ia_capacity(H):
+    """``bench.py``'s ``ia_step`` after its draw, on the port: Max-SINR from
+    the 'svd' init on a batch of K=3, 2x2 channels ``H`` and each one's sum
+    capacity."""
+    from pyphysim_tpu_torch.ia.batched import (calc_sinrs, max_sinr_solve,
+                                               sum_capacity)
+    F, U = max_sinr_solve(H, None, Ns=1, noise_var=IA_NV,
+                          iterations=IA_ITERS, init="svd")
+    return sum_capacity(calc_sinrs(H, F, U, IA_NV, 1.0))
+
+
+def ia_step(streams):
+    """``bench.py``'s ``ia_step``, batched over the attempts of
+    ``streams``: each attempt's channel from its stream, then
+    :func:`ia_capacity`."""
+    from pyphysim_tpu_torch.utils.misc import randn_c
+    return ia_capacity(randn_c(streams, 3, 3, 2, 2))
+
+
+def ia_plain(mc, reps, num_tiles, seed, start=0):
+    """The IA kernel's plain version over a chunk in slices of
+    ``IA_PLAIN_SLICE`` reps (bounds its memory): (reps, num_tiles)."""
+    import torch
+    return torch.cat([
+        mc.prng_reference(min(IA_PLAIN_SLICE, reps - r), num_tiles, seed,
+                          IA_NV, start + r)
+        for r in range(0, reps, IA_PLAIN_SLICE)])
+
+
+def ia_ptxas():
+    """``{instance: "registers, spill stores / loads"}`` of the IA kernel's
+    instances in the built library, from the build log's ``-Xptxas -v``
+    lines."""
+    import re
+    from pyphysim_tpu_torch.ops import _build
+    log = _build.library_path().with_suffix(".log")
+    lines = log.read_text().splitlines() if log.exists() else []
+    out, name = {}, None
+    for line in lines:
+        if "entry function" in line:
+            m = re.search(r"\d(mc_ia_(?:closed|general)_kernelI\w*?)EEvNS",
+                          line)
+            name = m.group(1) if m else None
+        elif name and "spill" in line:
+            out[name] = re.sub(r"\s+", " ", line.strip())
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            out[name] = f"{regs} registers, {out.get(name, '')}"
+            name = None
+    return out
+
+
+def ia_phases(dev, smi):
+    """Phases 20-26: the Max-SINR IA kernel's build, its inject parity at
+    every menu point and PRNG parity at the bench widths, the physics of
+    the kernel and of the batched chain, the bulk app (the main path) and
+    the per-key stream-selection app, and their times. Returns the kernel's
+    entry of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from apps.ia.batched_stream_selection_torch import StreamSelectionRunner
+    from apps.ia.ia_mc_kernel_torch import IaMcKernelSimulationRunner
+    from pyphysim_tpu_torch.ops import ia_kernel
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+
+    # 20. the kernel instances the build made (phase 2 built the library)
+    instances = ia_ptxas()
+    for name, regs in instances.items():
+        phase("ia_build", instance=name, ptxas=repr(regs))
+    if len(instances) != 2 * len(ia_kernel.MENU):
+        raise AssertionError(f"ia_build: {len(instances)} mc_ia instances, "
+                             f"expected {2 * len(ia_kernel.MENU)}")
+
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def check_caps(name, got, want, **fields):
+        rel = (got - want).abs() / want.abs()
+        worst = int(rel.argmax())
+        err = float((got - want).abs().max())
+        phase(name, max_rel_cell_diff=float(rel.max()),
+              worst_cell=worst, worst_got=float(got.flatten()[worst]),
+              worst_plain=float(want.flatten()[worst]),
+              max_abs_cell_diff=err, limit=IA_REL_TOL,
+              total_cap=float(want.sum()), **fields)
+        if not float(rel.max()) <= IA_REL_TOL:
+            raise AssertionError(f"{name}: kernel and plain version differ "
+                                 f"by {float(rel.max())} relative")
+        return err
+
+    # 21. inject parity at every menu point, 32,768 solves per cell
+    for K, N, Ns in ia_kernel.MENU:
+        mc = ia_kernel.MonteCarloMaxSinr(tile=IA_PARITY_TILE, lane=IA_LANE,
+                                         iterations=IA_ITERS, K=K, N=N,
+                                         Ns=Ns, device=dev)
+        ch = torch.randint(-2 ** 31, 2 ** 31,
+                           (2, 2 * IA_PARITY_TILE, mc.num_planes * IA_LANE),
+                           dtype=torch.int32, device=dev, generator=g)
+        got = mc.build_inject(2, 2)(ch, IA_NV)
+        want = mc.simulate_block_reference(ch, IA_NV)
+        torch.cuda.synchronize()
+        check_caps(f"ia_inject_parity K={K} N={N} Ns={Ns}", got, want)
+
+    # 22. PRNG parity over the bench chunk (2.1e6 solves), held per rep
+    # (16,384 solves), the 4,096-solve cells printed beside it; bitwise
+    # chunk invariance and rerun
+    seed = 777
+    mci = ia_kernel.MonteCarloMaxSinr(tile=IA_TILE, lane=IA_LANE,
+                                      iterations=IA_ITERS, device=dev)
+    k_main = mci.build(IA_CHUNK, IA_TILES)(seed, IA_NV, 0)
+    p_main = ia_plain(mci, IA_CHUNK, IA_TILES, seed)
+    cell_rel = (k_main - p_main).abs() / p_main.abs()
+    ia_err = check_caps(
+        "ia_prng_parity per rep", k_main.sum(dim=1), p_main.sum(dim=1),
+        reps=IA_CHUNK, max_rel_diff_4096_solve_cell=float(cell_rel.max()),
+        cells_over_limit=int((cell_rel > IA_REL_TOL).sum()))
+    k4 = mci.build(4, IA_TILES)(seed, IA_NV, 4)
+    again = mci.build(IA_CHUNK, IA_TILES)(seed, IA_NV, 0)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(k_main[4:8], k4))
+    rerun = bool(torch.equal(k_main, again))
+    phase("ia_chunk_invariance", rows_4_to_7_equal_start_4=same,
+          rerun_bitwise_equal=rerun)
+    if not (same and rerun):
+        raise AssertionError("IA kernel results are not bitwise "
+                             "reproducible")
+
+    # 23. physics: the kernel's and the batched chain's mean sum capacity
+    solves = IA_CHUNK * IA_TILES * mci.solves_per_grid_step
+    kernel_mean = float(k_main.sum()) / solves
+    chain_caps = ia_step(AttemptStreams.from_range(99, 0, IA_CHAIN_BATCH,
+                                                   dev))
+    chain_mean = float(chain_caps.mean())
+    phase("ia_physics", kernel_mean_sum_capacity=kernel_mean,
+          kernel_solves=solves, chain_mean_sum_capacity=chain_mean,
+          chain_solves=IA_CHAIN_BATCH,
+          chain_finite=bool(torch.isfinite(chain_caps).all()))
+    check_range("ia kernel mean capacity", kernel_mean, IA_CAP_RANGE)
+    check_range("ia chain mean capacity", chain_mean, IA_CAP_RANGE)
+
+    # 24. the main path: the bulk app through the runner, on the kernel
+    def ia_runner(snrs, rep_max, batch):
+        r = IaMcKernelSimulationRunner(K=3, tile=IA_TILE, lane=IA_LANE,
+                                       num_tiles=IA_TILES,
+                                       iterations=IA_ITERS, device=dev,
+                                       read_command_line_args=False)
+        return sweep_runner(r, "SNR", snrs, rep_max, batch)
+
+    snrs = [0.0, 10.0, 20.0]
+    runner = ia_runner(snrs, 2 * IA_CHUNK, IA_CHUNK)
+    runner.mc.launch_count = 0
+    runner.mc.reference_count = 0
+    caps, seconds = run_sweep_values(runner, "sum_capacity")
+    ia_launches = runner.mc.launch_count
+    half = ia_runner(snrs, 2 * IA_CHUNK, IA_CHUNK // 2)
+    half_caps, _ = run_sweep_values(half, "sum_capacity")
+    phase("ia_path", snr_db=snrs, mean_sum_capacity=caps,
+          runned_reps=runner.runned_reps, seconds=seconds,
+          kernel_launches=ia_launches, chunks=runner.chunks_dispatched,
+          plain_calls=runner.mc.reference_count,
+          half_chunks_bitwise_equal=caps == half_caps)
+    if not caps[0] < caps[1] < caps[2]:
+        raise AssertionError("ia_path: capacity does not rise with SNR")
+    check_range("ia_path mean capacity at 10 dB", caps[1], IA_CAP_RANGE)
+    check_launches("ia_path", ia_launches, runner.chunks_dispatched,
+                   runner.mc.reference_count)
+    if caps != half_caps:
+        raise AssertionError("ia_path: results depend on the chunk size")
+
+    # 25. the per-key path: the stream-selection app (brute force and
+    # greedy searches, batched)
+    sel = StreamSelectionRunner(reps=256, iters=12, device=dev)
+    sel.batch_size = 128
+    tic = time.time()
+    sel.simulate()
+    seconds = time.time() - tic
+    sel_caps = [float(v) for v in
+                sel.results.get_result_values_list("sum_capacity")]
+    ratios = [float(v) for v in
+              sel.results.get_result_values_list("greedy_capacity_ratio")]
+    hist = [[round(float(h), 4) for h in r.get_result()]
+            for r in sel.results["stream_choice"]]
+    phase("ia_stream_selection_path", snr_db=[0.0, 10.0, 20.0],
+          brute_mean_capacity=sel_caps, greedy_over_brute=ratios,
+          choice_histograms=compact(hist), runned_reps=sel.runned_reps,
+          seconds=seconds, chain_calls=sel.chunks_dispatched)
+    if not sel_caps[0] < sel_caps[1] < sel_caps[2]:
+        raise AssertionError("stream selection: capacity does not rise "
+                             "with SNR")
+    if not all(0.5 < x <= 1.0 + 1e-6 for x in ratios):
+        raise AssertionError(f"stream selection: greedy / brute {ratios}")
+
+    # 26. times (CUDA events, best of 3 after a warm-up)
+    run_i = mci.build(IA_CHUNK, IA_TILES)
+    ia_ms = best_ms(lambda: run_i(seed, IA_NV, 0), inner=10)
+    ia_plain_ms = best_ms(lambda: ia_plain(mci, IA_CHUNK, IA_TILES, seed))
+    # outputs only: nothing is read per element in PRNG mode
+    ia_sass, ia_bound, ia_bound_by, ia_pipe = sass_bound(
+        mci.prng_kernel_profile(IA_CHUNK, IA_TILES),
+        nbytes=4 * IA_CHUNK * IA_TILES)
+    engine_ms = best_ms(ia_runner([10.0], 4 * IA_CHUNK, IA_CHUNK).simulate)
+    streams = AttemptStreams.from_range(99, 0, IA_CHAIN_BATCH, dev)
+    chain_ms = best_ms(lambda: ia_step(streams))
+    phase("times", card=repr(smi),
+          ia_shape=f"reps={IA_CHUNK},tiles={IA_TILES},tile={IA_TILE},"
+          f"lane={IA_LANE},K=3,N=2,Ns=1,iterations={IA_ITERS}",
+          ia_kernel_ms=ia_ms, ia_kernel_solves_per_s=solves / ia_ms * 1e3,
+          ia_bound_ms=ia_bound, ia_bound_by=ia_bound_by,
+          ia_bound_pipe=ia_pipe, ia_sass_per_thread=compact(ia_sass),
+          ia_share_of_bound=ia_bound / ia_ms, ia_plain_ms=ia_plain_ms,
+          ia_engine_ms=engine_ms,
+          ia_engine_solves_per_s=4 * solves / engine_ms * 1e3,
+          ia_chain_step_ms=chain_ms,
+          ia_chain_solves_per_s=IA_CHAIN_BATCH / chain_ms * 1e3)
+    return {
+        "name": "mc_maxsinr_prng",
+        "route": "cuda",
+        "source": "pyphysim_tpu_torch/ops/csrc/mc_ia.cu",
+        "replaces": "pyphysim_tpu/ops/ia_pallas.py:480",
+        "launches": ia_launches,
+        "max_abs_err": ia_err,
+        "ms": ia_ms,
+        "plain_ms": ia_plain_ms,
+        "bound_ms": ia_bound,
+        "bound_by": ia_bound_by,
+        "library_ms": None,
+    }
 
 
 if __name__ == "__main__":

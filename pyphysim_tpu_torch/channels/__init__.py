@@ -1,8 +1,9 @@
 """Fading channels: TDL profiles, impulse responses and channels; the
-Jakes and Rayleigh generators."""
+Jakes and Rayleigh generators; the flat-fading multiuser channel matrix."""
 
 from .fading import (COST259_HTx, COST259_RAx, COST259_TUx,  # noqa: F401
                      TdlChannel, TdlChannelProfile, TdlImpulseResponse)
 from .fading_generators import (JakesSampleGenerator,  # noqa: F401
                                 JakesState, RayleighSampleGenerator,
                                 RayleighState)
+from .multiuser import MultiUserChannelMatrix  # noqa: F401

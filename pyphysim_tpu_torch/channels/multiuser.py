@@ -1,0 +1,360 @@
+"""Flat-fading multiuser MIMO interference channel as one block matrix.
+
+Counterpart of ``MultiUserChannelMatrix`` in
+``pyphysim_tpu/channels/multiuser.py``: the channel is ONE dense complex64
+tensor ``big_H`` of shape (sum(Nr), sum(Nt)) with per-user antenna counts,
+block ``(k, l)`` the link from transmitter ``l`` to receiver ``k``;
+interference covariances (``calc_Q`` / ``calc_JP_Q``), per-stream Bkl
+matrices and SINRs (Cadambe2008 eq. 28), post receive filters, and a
+``torch.Generator`` each for the channel and the noise draws.
+
+The TDL grids (``MuChannel``, ``MuMimoChannel``) and the external
+interference variant wait for a later slice.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .._device import DeviceLike, require_cuda
+from ..utils.misc import randn_c
+
+__all__ = ["MultiUserChannelMatrix"]
+
+IntArray = Union[int, np.ndarray]
+
+
+def _host_like(out, like):
+    """``out`` as numpy when ``like`` was numpy (or a list of numpy
+    arrays), else as it is."""
+    host = isinstance(like, np.ndarray) or (
+        isinstance(like, (list, tuple)) and len(like) > 0 and
+        isinstance(like[0], np.ndarray))
+    if not host:
+        return out
+    if isinstance(out, list):
+        return [o.cpu().numpy() for o in out]
+    return out.cpu().numpy()
+
+
+class MultiUserChannelMatrix:
+    """Flat-fading MIMO interference channel as one dense block matrix on
+    ``device``. The channel and noise generators are seeded 0 and 1 until
+    :meth:`set_channel_seed` / :meth:`set_noise_seed` say otherwise."""
+
+    def __init__(self, device: DeviceLike = "cuda") -> None:
+        self.device = require_cuda(device)
+        self._big_H: Optional[torch.Tensor] = None
+        self._Nr = np.array([], dtype=int)
+        self._Nt = np.array([], dtype=int)
+        self._K = 0
+        self._pathloss_matrix: Optional[np.ndarray] = None
+        self._W: Optional[List[torch.Tensor]] = None
+        self.noise_var: Optional[float] = None
+        self._last_noise: Optional[torch.Tensor] = None
+        self._channel_gen = self._generator(0)
+        self._noise_gen = self._generator(1)
+
+    def _generator(self, seed: Optional[int]) -> torch.Generator:
+        if seed is None:
+            seed = int(np.random.randint(0, 2 ** 31 - 1))
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    def _tensor(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=torch.complex64)
+        return torch.as_tensor(np.asarray(x, dtype=np.complex64),
+                               device=self.device)
+
+    # -- seeding -----------------------------------------------------------
+
+    def set_channel_seed(self, seed: Optional[int] = None) -> None:
+        """Seed the channel generator; None draws a fresh random seed."""
+        self._channel_gen = self._generator(seed)
+
+    def set_noise_seed(self, seed: Optional[int] = None) -> None:
+        """Seed the noise generator; None draws a fresh random seed."""
+        self._noise_gen = self._generator(seed)
+
+    def re_seed(self) -> None:
+        """Fresh random seeds for both generators, so that parallel workers
+        do not share streams."""
+        self.set_channel_seed(None)
+        self.set_noise_seed(None)
+
+    # -- properties --------------------------------------------------------
+
+    @property
+    def K(self) -> int:
+        return self._K
+
+    @property
+    def Nr(self) -> np.ndarray:
+        return self._Nr
+
+    @property
+    def Nt(self) -> np.ndarray:
+        return self._Nt
+
+    @property
+    def big_H(self) -> Optional[torch.Tensor]:
+        return self._apply_pathloss(self._big_H)
+
+    @property
+    def H(self):
+        """Block view: with uniform antenna counts a (K, K, Nr, Nt) tensor,
+        otherwise a (K, K) object array of per-block tensors."""
+        bh = self.big_H
+        if bh is None:
+            return None
+        if len(set(self._Nr.tolist())) == 1 and \
+                len(set(self._Nt.tolist())) == 1:
+            K = self._K
+            nr, nt = int(self._Nr[0]), int(self._Nt[0])
+            return bh.reshape(K, nr, K, nt).transpose(1, 2)
+        out = np.empty((self._K, self._K), dtype=object)
+        for k in range(self._K):
+            for l in range(self._K):
+                out[k, l] = self.get_Hkl(k, l)
+        return out
+
+    @property
+    def pathloss(self) -> Optional[np.ndarray]:
+        return self._pathloss_matrix
+
+    @property
+    def last_noise(self) -> Optional[torch.Tensor]:
+        return self._last_noise
+
+    @property
+    def W(self) -> Optional[List[torch.Tensor]]:
+        return self._W
+
+    @property
+    def big_W(self) -> Optional[torch.Tensor]:
+        """Block-diagonal stack of the per-user post receive filters."""
+        if self._W is None:
+            return None
+        return torch.block_diag(*self._W)
+
+    def set_post_filter(self, filters: Sequence) -> None:
+        """Per-user post receive filters applied by ``corrupt_*_data``."""
+        self._W = [self._tensor(f) for f in filters]
+
+    # -- construction ------------------------------------------------------
+
+    def _setup_counts(self, Nr: IntArray, Nt: IntArray, K: int) -> None:
+        Nr = np.full(K, Nr, dtype=int) if np.isscalar(Nr) else \
+            np.asarray(Nr, dtype=int)
+        Nt = np.full(K, Nt, dtype=int) if np.isscalar(Nt) else \
+            np.asarray(Nt, dtype=int)
+        if Nr.size != K or Nt.size != K:
+            raise ValueError("Nr and Nt must have a value for each of "
+                             "the K users")
+        self._Nr, self._Nt, self._K = Nr, Nt, int(K)
+        self._rx_off = np.concatenate(([0], np.cumsum(Nr)))
+        self._tx_off = np.concatenate(([0], np.cumsum(Nt)))
+
+    def randomize(self, Nr: IntArray, Nt: IntArray, K: int,
+                  generator: Optional[torch.Generator] = None) -> None:
+        """Draw a new iid CN(0, 1) block channel from ``generator`` (the
+        channel generator by default)."""
+        self._setup_counts(Nr, Nt, K)
+        gen = self._channel_gen if generator is None else generator
+        self._big_H = randn_c(gen, int(self._Nr.sum()), int(self._Nt.sum()))
+
+    def init_from_channel_matrix(self, channel_matrix, Nr: IntArray,
+                                 Nt: IntArray, K: int) -> None:
+        """Install a given (sum Nr, sum Nt) matrix."""
+        self._setup_counts(Nr, Nt, K)
+        cm = self._tensor(channel_matrix)
+        if tuple(cm.shape[-2:]) != (int(self._Nr.sum()),
+                                    int(self._Nt.sum())):
+            raise ValueError(
+                "Channel matrix dimensions must match sum(Nr) x sum(Nt)")
+        self._big_H = cm
+
+    # -- views -------------------------------------------------------------
+
+    def _apply_pathloss(self, bh: Optional[torch.Tensor]
+                        ) -> Optional[torch.Tensor]:
+        if bh is None or self._pathloss_matrix is None:
+            return bh
+        scale = np.ones((int(self._Nr.sum()), int(self._Nt.sum())))
+        for k in range(self._K):
+            for l in range(self._K):
+                scale[self._rx_off[k]:self._rx_off[k + 1],
+                      self._tx_off[l]:self._tx_off[l + 1]] = \
+                    math.sqrt(self._pathloss_matrix[k, l])
+        return bh * torch.as_tensor(scale, dtype=torch.float32,
+                                    device=bh.device)
+
+    def get_Hkl(self, k: int, l: int) -> torch.Tensor:
+        """Channel block from transmitter ``l`` to receiver ``k``."""
+        return self.big_H[..., self._rx_off[k]:self._rx_off[k + 1],
+                          self._tx_off[l]:self._tx_off[l + 1]]
+
+    def get_Hk(self, k: int) -> torch.Tensor:
+        """Channel from all transmitters to receiver ``k``."""
+        return self.big_H[..., self._rx_off[k]:self._rx_off[k + 1], :]
+
+    def set_pathloss(self,
+                     pathloss_matrix: Optional[np.ndarray] = None) -> None:
+        self._pathloss_matrix = pathloss_matrix
+
+    # -- transmission ------------------------------------------------------
+
+    def corrupt_concatenated_data(self, data,
+                                  generator: Optional[torch.Generator] = None):
+        """``big_H @ data + noise`` (then the block-diagonal post filter,
+        if one is set). ``data``: (sum Nt, n); numpy in, numpy out."""
+        out = self.big_H @ self._tensor(data)
+        if self.noise_var is not None and self.noise_var > 0:
+            gen = self._noise_gen if generator is None else generator
+            noise = randn_c(gen, *out.shape) * math.sqrt(self.noise_var)
+            self._last_noise = noise
+            out = out + noise
+        else:
+            self._last_noise = None
+        if self._W is not None:
+            out = self.big_W @ out
+        return _host_like(out, data)
+
+    def corrupt_data(self, data, generator: Optional[torch.Generator] = None):
+        """Per-user variant: ``data`` a list of (Nt_k, n) arrays; returns a
+        list of per-receiver outputs (after the post filter, if set)."""
+        concat = torch.cat([self._tensor(d) for d in data], dim=-2)
+        big_out = self.corrupt_concatenated_data(concat, generator)
+        out = [big_out[..., self._rx_off[k]:self._rx_off[k + 1], :]
+               for k in range(self._K)]
+        return _host_like(out, data)
+
+    # -- covariances and SINRs (Cadambe2008 eq. 28) ------------------------
+
+    def calc_Q(self, k: int, F_all_users: Sequence) -> torch.Tensor:
+        """Interference covariance at receiver k, noise included:
+        ``sum_{j != k} H_kj F_j F_j^H H_kj^H + noise_var I``."""
+        return self._calc_Q_impl(k, F_all_users) + self._noise_eye(k)
+
+    def _noise_eye(self, k: int) -> torch.Tensor:
+        nv = self.noise_var or 0.0
+        return nv * torch.eye(int(self._Nr[k]), dtype=torch.complex64,
+                              device=self.device)
+
+    def _calc_Q_impl(self, k: int, F_all_users: Sequence) -> torch.Tensor:
+        nr = int(self._Nr[k])
+        q = torch.zeros((nr, nr), dtype=torch.complex64, device=self.device)
+        for j in range(self._K):
+            if j == k:
+                continue
+            hf = self.get_Hkl(k, j) @ self._tensor(F_all_users[j])
+            q = q + hf @ hf.mH
+        return q
+
+    def calc_JP_Q(self, k: int, F_all_users: Sequence) -> torch.Tensor:
+        """Joint-processing variant: the full row ``H_k``."""
+        return self._calc_JP_Q_impl(k, F_all_users) + self._noise_eye(k)
+
+    def _calc_JP_Q_impl(self, k: int, F_all_users: Sequence) -> torch.Tensor:
+        nr = int(self._Nr[k])
+        q = torch.zeros((nr, nr), dtype=torch.complex64, device=self.device)
+        hk = self.get_Hk(k)
+        for j in range(self._K):
+            if j == k:
+                continue
+            hf = hk @ self._tensor(F_all_users[j])
+            q = q + hf @ hf.mH
+        return q
+
+    def _as_Rek(self, N0_or_Rek, nr: int) -> torch.Tensor:
+        if N0_or_Rek is None:
+            N0_or_Rek = 0.0
+        if isinstance(N0_or_Rek, torch.Tensor) or (
+                isinstance(N0_or_Rek, np.ndarray) and N0_or_Rek.ndim >= 2):
+            return self._tensor(N0_or_Rek)
+        return float(N0_or_Rek) * torch.eye(nr, dtype=torch.complex64,
+                                            device=self.device)
+
+    def _calc_Bkl_cov_matrix_first_part(self, F_all_users: Sequence, k: int,
+                                        N0_or_Rek=0.0) -> torch.Tensor:
+        first = self._as_Rek(N0_or_Rek, int(self._Nr[k]))
+        for j in range(self._K):
+            hv = self.get_Hkl(k, j) @ self._tensor(F_all_users[j])
+            first = first + hv @ hv.mH
+        return first
+
+    def _calc_Bkl_cov_matrix_second_part(self, Fk, k: int,
+                                         l: int) -> torch.Tensor:
+        hv = self.get_Hkl(k, k) @ self._tensor(Fk)[..., :, l:l + 1]
+        return hv @ hv.mH
+
+    def _calc_Bkl_cov_matrix_all_l(self, F_all_users: Sequence, k: int,
+                                   N0_or_Rek=0.0) -> List[torch.Tensor]:
+        first = self._calc_Bkl_cov_matrix_first_part(F_all_users, k,
+                                                     N0_or_Rek)
+        ns_k = self._tensor(F_all_users[k]).shape[-1]
+        return [first - self._calc_Bkl_cov_matrix_second_part(
+            F_all_users[k], k, l) for l in range(ns_k)]
+
+    def _sinr_impl(self, Hk: torch.Tensor, Fk, Uk,
+                   Bkl_all_l) -> torch.Tensor:
+        fk, uk = self._tensor(Fk), self._tensor(Uk)
+        sinrs = []
+        for l in range(fk.shape[-1]):
+            ukl = uk[..., :, l:l + 1]
+            aux = ukl.mH @ (Hk @ fk[..., :, l:l + 1])
+            num = (aux.real ** 2 + aux.imag ** 2)[..., 0, 0]
+            den = (ukl.mH @ (Bkl_all_l[l] @ ukl)).real[..., 0, 0]
+            sinrs.append(num / den.abs())
+        return torch.stack(sinrs, dim=-1)
+
+    def _calc_SINR_k(self, k: int, Fk, Uk, Bkl_all_l) -> torch.Tensor:
+        return self._sinr_impl(self.get_Hkl(k, k), Fk, Uk, Bkl_all_l)
+
+    def calc_SINR(self, F: Sequence, U: Sequence) -> List[torch.Tensor]:
+        """Per-stream SINRs of every user (linear)."""
+        out = []
+        for k in range(self._K):
+            bkl = self._calc_Bkl_cov_matrix_all_l(F, k, self.noise_var or 0.0)
+            out.append(self._calc_SINR_k(k, F[k], U[k], bkl))
+        return out
+
+    # -- joint-processing variants ----------------------------------------
+
+    def _calc_JP_Bkl_cov_matrix_first_part(self, F_all_users: Sequence,
+                                           k: int, noise_power: float = 0.0):
+        first = self._as_Rek(noise_power, int(self._Nr[k]))
+        hk = self.get_Hk(k)
+        for j in range(self._K):
+            hv = hk @ self._tensor(F_all_users[j])
+            first = first + hv @ hv.mH
+        return first
+
+    def _calc_JP_Bkl_cov_matrix_second_part(self, Fk, k: int,
+                                            l: int) -> torch.Tensor:
+        hv = self.get_Hk(k) @ self._tensor(Fk)[..., :, l:l + 1]
+        return hv @ hv.mH
+
+    def _calc_JP_Bkl_cov_matrix_all_l(self, F_all_users: Sequence, k: int,
+                                      noise_power: float = 0.0):
+        first = self._calc_JP_Bkl_cov_matrix_first_part(F_all_users, k,
+                                                        noise_power)
+        ns_k = self._tensor(F_all_users[k]).shape[-1]
+        return [first - self._calc_JP_Bkl_cov_matrix_second_part(
+            F_all_users[k], k, l) for l in range(ns_k)]
+
+    def _calc_JP_SINR_k(self, k: int, Fk, Uk, Bkl_all_l) -> torch.Tensor:
+        return self._sinr_impl(self.get_Hk(k), Fk, Uk, Bkl_all_l)
+
+    def calc_JP_SINR(self, F: Sequence, U: Sequence) -> List[torch.Tensor]:
+        """Per-stream SINRs under joint processing (the full row H_k)."""
+        out = []
+        for k in range(self._K):
+            bkl = self._calc_JP_Bkl_cov_matrix_all_l(F, k,
+                                                     self.noise_var or 0.0)
+            out.append(self._calc_JP_SINR_k(k, F[k], U[k], bkl))
+        return out

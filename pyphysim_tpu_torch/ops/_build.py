@@ -36,7 +36,7 @@ BUILD_DIR = _OPS_DIR / "_build"
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -split-compile=0: nvcc optimizes a source's kernels in parallel threads
-# (mc_bd.cu instantiates 30 large kernels)
+# (mc_bd.cu instantiates 30 large kernels, mc_ia.cu 10)
 NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v", "-split-compile=0"]
 
@@ -57,6 +57,11 @@ _SIGNATURES = {
                    ctypes.c_uint, _ll, _vp],
     "mc_bd_inject": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _f, _ll,
                      _ll, _vp],
+    "mc_ia_num_parts": [_i, _i, _i, _i],
+    "mc_ia_prng": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f,
+                   ctypes.c_uint, _ll, _vp],
+    "mc_ia_inject": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f,
+                     _f, _ll, _ll, _vp],
 }
 
 _lib: Optional[ctypes.CDLL] = None

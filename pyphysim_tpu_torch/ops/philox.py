@@ -52,7 +52,7 @@ element ``(r, l)`` of tile ``tile`` and ``j < G = ceil(num_planes / 4)``;
 word ``w`` of call ``j`` is the bit plane ``4 j + w`` (plane ``2 (i NT +
 c)`` is H[i, c].re, the next one its imaginary part).
 
-The key words 2-5 are used by nothing else: ``ops/streams.py`` keys its
+The key words 2-6 are used by nothing else: ``ops/streams.py`` keys its
 streams by a salt of 0 or a Philox word of a salt. Every counter holds the
 absolute attempt, so the bits of attempt ``start + i`` do not depend on
 ``start`` or on the chunk size: results are chunk-size invariant and
@@ -67,11 +67,12 @@ import torch
 
 __all__ = ["philox4x32_10", "to_int32_bits", "phase_stream_bits",
            "symbol_stream_bits", "alamouti_stream_bits", "bd_stream_bits",
-           "ALAMOUTI_CHANNEL_KEY", "ALAMOUTI_NOISE_KEY", "ALAMOUTI_DATA_KEY",
-           "BD_CHANNEL_KEY"]
+           "ia_stream_bits", "ALAMOUTI_CHANNEL_KEY", "ALAMOUTI_NOISE_KEY",
+           "ALAMOUTI_DATA_KEY", "BD_CHANNEL_KEY", "IA_CHANNEL_KEY"]
 
 ALAMOUTI_CHANNEL_KEY, ALAMOUTI_NOISE_KEY, ALAMOUTI_DATA_KEY = 2, 3, 4
 BD_CHANNEL_KEY = 5
+IA_CHANNEL_KEY = 6
 
 _MASK = 0xFFFFFFFF
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57     # round multipliers
@@ -184,6 +185,21 @@ def bd_stream_bits(seed: int, attempts: torch.Tensor, num_tiles: int,
     int64 tensor ``attempts``, in the inject layout: (reps,
     num_tiles * tile, num_planes * lane) int32, plane ``p`` at lanes
     ``[p * lane, (p + 1) * lane)``."""
+    return _plane_stream_bits(BD_CHANNEL_KEY, seed, attempts, num_tiles, tile,
+                              lane, num_planes)
+
+
+def ia_stream_bits(seed: int, attempts: torch.Tensor, num_tiles: int,
+                   tile: int, lane: int, num_planes: int) -> torch.Tensor:
+    """The Max-SINR IA kernel's channel bits, laid out as
+    :func:`bd_stream_bits` and drawn under ``IA_CHANNEL_KEY``."""
+    return _plane_stream_bits(IA_CHANNEL_KEY, seed, attempts, num_tiles, tile,
+                              lane, num_planes)
+
+
+def _plane_stream_bits(stream_key: int, seed: int, attempts: torch.Tensor,
+                       num_tiles: int, tile: int, lane: int,
+                       num_planes: int) -> torch.Tensor:
     dev = attempts.device
     reps = attempts.shape[0]
     calls = (num_planes + 3) // 4
@@ -192,7 +208,7 @@ def bd_stream_bits(seed: int, attempts: torch.Tensor, num_tiles: int,
           calls + torch.arange(calls, dtype=torch.int64, device=dev))
     rl = torch.arange(tile * lane, dtype=torch.int64, device=dev)
     words = torch.stack(philox4x32_10(rl, c1[None, :, :, None], lo, hi,
-                                      int(seed), BD_CHANNEL_KEY), dim=3)
+                                      int(seed), stream_key), dim=3)
     # (reps, nt, calls, 4, tile * lane) -> planes (reps, nt, P, tile, lane)
     planes = words.reshape(reps, num_tiles, calls * 4, tile, lane)
     planes = planes[:, :, :num_planes].permute(0, 1, 3, 2, 4)

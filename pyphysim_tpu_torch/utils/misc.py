@@ -4,9 +4,11 @@ Counterpart of the parts of ``pyphysim_tpu/utils/misc.py`` that the Monte
 Carlo paths need: complex Gaussian samples and random symbols from an
 explicit random source, bit counting on torch tensors, ``level2bits``, the
 Q function, confidence intervals, the host-side geometric mean
-decomposition (``gmd``, for ``mimo.GMDMimo``), and the host-side
-formatting helpers the runner uses for file names and progress. The rest of
-that module waits for the slices that need it.
+decomposition (``gmd``, for ``mimo.GMDMimo``), the host-side numpy helpers
+of the interference-alignment solvers (``randn_c_RS``, ``peig`` / ``leig``,
+``update_inv_sum_diag``, ``get_principal_component_matrix``), and the
+host-side formatting helpers the runner uses for file names and progress.
+The rest of that module waits for the slices that need it.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from ..ops.streams import bits, normal
 
 __all__ = [
     "randn_c",
+    "randn_c_RS",
     "random_symbols",
     "count_bits",
     "count_bit_errors",
@@ -28,6 +31,10 @@ __all__ = [
     "int2bits",
     "calc_confidence_interval",
     "gmd",
+    "peig",
+    "leig",
+    "update_inv_sum_diag",
+    "get_principal_component_matrix",
     "pretty_time",
     "get_range_representation",
     "replace_dict_values",
@@ -52,6 +59,17 @@ def randn_c(source, *shape: int) -> torch.Tensor:
     lead = both.dim() - len(shape) - 1       # 1 for streams, 0 otherwise
     re, im = both.unbind(dim=lead)
     return torch.complex(re, im) * np.float32(np.sqrt(0.5))
+
+
+def randn_c_RS(rs: np.random.RandomState, *shape: int) -> np.ndarray:
+    """Host-side CN(0, 1) samples (complex64) from a numpy RandomState, for
+    the host solvers and tools.
+
+    >>> randn_c_RS(np.random.RandomState(0), 2, 3).shape
+    (2, 3)
+    """
+    return (np.sqrt(0.5) *
+            (rs.randn(*shape) + 1j * rs.randn(*shape))).astype(np.complex64)
 
 
 def random_symbols(source, n: int, bits_per_symbol: int) -> torch.Tensor:
@@ -242,6 +260,72 @@ def _gmd_swap(R, Q, P, d, i, j):
     Q[:, [i, j]] = Q[:, [j, i]]
     P[:, [i, j]] = P[:, [j, i]]
     d[[i, j]] = d[[j, i]]
+
+
+def peig(A: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The ``n`` eigenvectors of ``A`` of largest |eigenvalue| and their
+    eigenvalues, largest first (any square matrix, on the host).
+
+    >>> V, D = peig(np.diag([1.0, 3.0, 2.0]), 2)
+    >>> D.real.tolist()
+    [3.0, 2.0]
+    """
+    V, D = _sorted_eig(A)
+    return V[:, :n], D[:n]
+
+
+def leig(A: np.ndarray, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The ``n`` eigenvectors of ``A`` of smallest |eigenvalue|, in the
+    order of :func:`peig` (the smallest last).
+
+    >>> V, D = leig(np.diag([1.0, 3.0, 2.0]), 2)
+    >>> D.real.tolist()
+    [2.0, 1.0]
+    """
+    V, D = _sorted_eig(A)
+    return V[:, -n:], D[-n:]
+
+
+def _sorted_eig(A: np.ndarray):
+    D, V = np.linalg.eig(np.asarray(A))
+    order = np.argsort(np.abs(D))[::-1]
+    return V[:, order], D[order]
+
+
+def update_inv_sum_diag(invA: np.ndarray, diagonal) -> np.ndarray:
+    """``inv(A + diag(diagonal))`` from ``inv(A)`` by one Sherman-Morrison
+    update per diagonal entry (on the host).
+
+    >>> A = np.array([[2.0, 1.0], [1.0, 3.0]])
+    >>> bool(np.allclose(update_inv_sum_diag(np.linalg.inv(A), [1.0, 2.0]),
+    ...                  np.linalg.inv(A + np.diag([1.0, 2.0]))))
+    True
+    """
+    inv = invA
+    diagonal = np.asarray(diagonal)
+    for p in range(invA.shape[-1]):
+        d = diagonal[..., p]
+        col = inv[..., :, p]
+        row = inv[..., p, :]
+        denom = 1.0 + d * inv[..., p, p]
+        inv = inv - (d / denom)[..., None, None] * (
+            col[..., :, None] * row[..., None, :])
+    return inv
+
+
+def get_principal_component_matrix(A: np.ndarray,
+                                   num_components: int) -> np.ndarray:
+    """The matrix of the ``num_components`` most significant components
+    of ``A``, with the dead dimensions removed: ``U S V^H`` cut to
+    ``num_components`` singular values and columns (on the host).
+
+    >>> A = np.array([[3.0, 0.0], [0.0, 1e-9]])
+    >>> get_principal_component_matrix(A, 1).shape
+    (2, 1)
+    """
+    u, s, vh = np.linalg.svd(A, full_matrices=False)
+    n = num_components
+    return (u[..., :n] * s[..., None, :n]) @ vh[..., :n, :n]
 
 
 # ---------------------------------------------------------------------------

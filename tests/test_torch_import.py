@@ -63,6 +63,20 @@ SLICE_MODULES = [
     "apps.comp_BD.batched_bd_capacity_torch",
 ]
 
+IA_MODULES = [
+    "pyphysim_tpu_torch.ops.ia_kernel",
+    "pyphysim_tpu_torch.channels.multiuser",
+    "pyphysim_tpu_torch.ia.iabase",
+    "pyphysim_tpu_torch.ia.algorithms",
+    "pyphysim_tpu_torch.ia.batched",
+    "pyphysim_tpu_torch.ia",
+    "apps.ia.ia_mc_kernel_torch",
+    "apps.ia.batched_stream_selection_torch",
+    "apps.ia.simple_ia_torch",
+    "apps.ia.ia_SINRs_and_capacity_torch",
+]
+SLICE_MODULES += IA_MODULES
+
 
 def _run(code: str) -> str:
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -88,9 +102,28 @@ def test_slice_modules_import_neither_jax_nor_triton():
     assert _run(code).strip() == "[]"
 
 
+@pytest.mark.parametrize("name", IA_MODULES)
+def test_ia_module_names_neither_jax_nor_the_jax_package(name):
+    """The IA slice's sources import nothing of jax or pyphysim_tpu (the
+    interpreter-level check is test_slice_modules_import_neither_jax_nor_
+    triton)."""
+    import ast
+    import importlib.util
+    path = importlib.util.find_spec(name).origin
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "pyphysim_tpu", "triton"}, roots
+
+
 def test_kernel_module_imports_without_building():
     from pyphysim_tpu_torch.ops import (_build, alamouti_kernel,  # noqa: F401
-                                        bd_kernel, mc_kernel)
+                                        bd_kernel, ia_kernel, mc_kernel)
     assert _build._lib is None
     path = _build.library_path()
     assert path.parent == _build.BUILD_DIR
@@ -110,14 +143,19 @@ def test_cuda_request_raises_without_cuda(monkeypatch):
     from pyphysim_tpu_torch.mimo import Alamouti
     from pyphysim_tpu_torch.modulators import OFDM
     from pyphysim_tpu_torch.ops.alamouti_kernel import MonteCarloAlamouti
+    from apps.ia.batched_stream_selection_torch import StreamSelectionRunner
+    from apps.ia.ia_mc_kernel_torch import IaMcKernelSimulationRunner
+    from pyphysim_tpu_torch.channels import MultiUserChannelMatrix
     from pyphysim_tpu_torch.ops.bd_kernel import MonteCarloBD
+    from pyphysim_tpu_torch.ops.ia_kernel import MonteCarloMaxSinr
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert require_cuda("cpu") == torch.device("cpu")
     assert require_cuda(None) == torch.device("cpu")
     runners = (OfdmMcKernelSimulationRunner, AlamoutiMcKernelSimulationRunner,
                MimoSimulationRunner, BatchedBDCapacityRunner,
-               BDKernelCapacityRunner)
+               BDKernelCapacityRunner, IaMcKernelSimulationRunner,
+               StreamSelectionRunner)
     for make in (lambda: require_cuda("cuda"),
                  lambda: require_cuda(torch.device("cuda", 0)),
                  lambda: OFDM(64, 8, 32, device="cuda"),
@@ -125,6 +163,8 @@ def test_cuda_request_raises_without_cuda(monkeypatch):
                  lambda: Alamouti(),
                  lambda: MonteCarloAlamouti(),
                  lambda: MonteCarloBD(),
+                 lambda: MonteCarloMaxSinr(),
+                 lambda: MultiUserChannelMatrix(),
                  *(lambda cls=cls: cls(read_command_line_args=False)
                    for cls in runners)):
         with pytest.raises(RuntimeError, match="cuda"):
@@ -158,7 +198,13 @@ def test_public_entry_points_default_to_the_card():
                                              TdlImpulseResponse)
     from pyphysim_tpu_torch.modulators import (BPSK, OFDM, PSK, QAM, QPSK,
                                                Modulator)
-    from pyphysim_tpu_torch.ops import alamouti_kernel, bd_kernel, mc_kernel
+    from apps.ia.batched_stream_selection_torch import StreamSelectionRunner
+    from apps.ia.ia_mc_kernel_torch import IaMcKernelSimulationRunner
+    from apps.ia.ia_SINRs_and_capacity_torch import solve_all
+    from apps.ia.simple_ia_torch import run as simple_ia_run
+    from pyphysim_tpu_torch.channels import MultiUserChannelMatrix
+    from pyphysim_tpu_torch.ops import (alamouti_kernel, bd_kernel,
+                                        ia_kernel, mc_kernel)
     from pyphysim_tpu_torch.ops.streams import AttemptStreams
     from pyphysim_tpu_torch.simulations import SimulationRunner
     entry_points = [
@@ -173,7 +219,10 @@ def test_public_entry_points_default_to_the_card():
         alamouti_kernel.from_jax_attrs, bd_kernel.MonteCarloBD,
         bd_kernel.from_jax_attrs, AlamoutiMcKernelSimulationRunner,
         MimoSimulationRunner, BatchedBDCapacityRunner,
-        BDKernelCapacityRunner]
+        BDKernelCapacityRunner, ia_kernel.MonteCarloMaxSinr,
+        ia_kernel.from_jax_attrs, MultiUserChannelMatrix,
+        IaMcKernelSimulationRunner, StreamSelectionRunner, solve_all,
+        simple_ia_run]
     for fn in entry_points:
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", f"{fn.__qualname__} defaults to {default}"
