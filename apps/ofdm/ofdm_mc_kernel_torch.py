@@ -13,9 +13,12 @@ On ``device="cuda"`` the kernel draws its bits from Philox streams keyed by
 on ``device="cpu"`` the plain PyTorch version runs on the same Philox bits.
 Setting ``bit_source`` instead supplies the bits of each attempt from the
 host (inject mode), which is how the tests hold the port against the JAX
-app on identical bits.
+app on identical bits. ``matmul_dtype="bfloat16"`` runs the kernel's bf16
+channel-product mode (the JAX option ``matmul_dtype=jnp.bfloat16`` that
+``bench.py`` times).
 
-Run: ``python apps/ofdm/ofdm_mc_kernel_torch.py [--device cuda]``.
+Run: ``python apps/ofdm/ofdm_mc_kernel_torch.py [--device cuda]
+[--matmul-dtype bfloat16]``.
 """
 
 import argparse
@@ -47,7 +50,8 @@ class OfdmMcKernelSimulationRunner(SimulationRunner):
     inject layout of :meth:`MonteCarloOfdmTdl.build_inject`.
     """
 
-    def __init__(self, device="cuda", read_command_line_args: bool = True):
+    def __init__(self, device="cuda", read_command_line_args: bool = True,
+                 matmul_dtype="float32"):
         super().__init__(read_command_line_args=read_command_line_args)
         self.device = require_cuda(device)
         self.params.add("SNR", np.arange(0.0, 31.0, 5.0))
@@ -63,7 +67,8 @@ class OfdmMcKernelSimulationRunner(SimulationRunner):
                                           device=self.device)
         self.channel = TdlChannel(self.jakes, COST259_TUx)
         self.mc = MonteCarloOfdmTdl(self.ofdm, self.channel, M=16,
-                                    tile=self.tile, device=self.device)
+                                    tile=self.tile, matmul_dtype=matmul_dtype,
+                                    device=self.device)
         self.batch_result_types = {
             "bit_errors": Result.SUMTYPE,
             "ber": Result.RATIOTYPE,
@@ -112,8 +117,11 @@ class OfdmMcKernelSimulationRunner(SimulationRunner):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--matmul-dtype", default="float32",
+                        choices=("float32", "bfloat16"))
     args, _ = parser.parse_known_args()
-    runner = OfdmMcKernelSimulationRunner(device=args.device)
+    runner = OfdmMcKernelSimulationRunner(device=args.device,
+                                          matmul_dtype=args.matmul_dtype)
     runner.simulate()
     print("\nElapsed time:", runner.elapsed_time)
     print("SNR:", runner.results.params["SNR"])

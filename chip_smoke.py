@@ -5,8 +5,9 @@ Drives the port's paths at full width and checks every kernel of them
 against its plain PyTorch version on the card:
 
   * the flagship OFDM-over-TDL Monte Carlo BER sweep through
-    ``SimulationRunner``'s bulk path and the Monte Carlo CUDA kernel
-    (phases 1-7);
+    ``SimulationRunner``'s bulk path and the Monte Carlo CUDA kernel, in
+    both channel-product types (float32 and the reference's bf16 mode;
+    phases 1-7);
   * the flagship chain's block-static time-domain route, whose block
     convolution is the ``block_fir`` CUDA kernel, its fused diag route, and
     the per-sample app ``apps/ofdm/ofdm_tdlchannel_torch.py``, each through
@@ -41,7 +42,7 @@ TD_BATCH, TD_SYMBOLS = 256, 300 * 32    # bench.py's time-domain step
 FUSED_BATCH, FUSED_SYMBOLS = 512, 300 * 16  # bench.py's fused step
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12              # f32 outside the tensor cores
-MC_FLOP_PER_SYMBOL = 2048           # E @ G: 4 real products, 256 deep
+MC_DTYPES = ("float32", "bfloat16")  # the flagship kernel's product types
 ALAMOUTI_BER_10DB = (0.008, 0.030)  # bench.py's bands
 BD_CAP_RANGE = (5.0, 16.0)
 ALA_TILE, ALA_LANE, ALA_TILES, ALA_CHUNK = 64, 256, 4, 512   # bench.py
@@ -98,17 +99,26 @@ def bound_ms(nbytes=0, flops=0, issue_ms=0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sass_bound(profile, nbytes):
+def sass_bound(profile, nbytes, flops=0):
     """The bound of a PRNG-mode kernel from the SASS of the library built
-    in this run (``ops/sass.py``): (per-thread instructions by pipe,
-    bound ms, "bytes" or "operations", the pipe that sets it)."""
+    in this run (``ops/sass.py``), beside its bytes and f32 operations:
+    (per-thread instructions by pipe, bound ms, "bytes" or "operations",
+    the pipe that sets it)."""
     from pyphysim_tpu_torch.ops import _build, sass
     listing = sass.function_sass(_build.library_path(), profile["pattern"])
     counts = sass.pipe_counts(listing, profile["loop_trips"],
                               profile["loops"])
     issue_ms, pipe = sass.issue_bound_ms(counts, profile["threads"])
-    ms, by = bound_ms(nbytes=nbytes, issue_ms=issue_ms)
+    ms, by = bound_ms(nbytes=nbytes, flops=flops, issue_ms=issue_ms)
     return counts, ms, by, pipe
+
+
+def mc_flops(mc, reps, num_tiles):
+    """f32 operations the flagship function needs per call: the T-deep
+    complex product (8 T per symbol) and the ray sums (2 adds per symbol
+    row, tap and ray)."""
+    rows = reps * num_tiles * mc.tile
+    return rows * (8 * mc.taps * mc.used + 2 * mc.TL)
 
 
 def check_bers(name, snrs, bers):
@@ -191,11 +201,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
-    import numpy as np
-
-    from apps.ofdm.ofdm_mc_kernel_torch import OfdmMcKernelSimulationRunner
     from pyphysim_tpu_torch.ops import _build, philox
-    from pyphysim_tpu_torch.ops.mc_kernel import MonteCarloOfdmTdl
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -244,11 +250,47 @@ def main() -> int:
     if mismatches:
         raise AssertionError("device Philox differs from ops/philox.py")
 
+    mc_entries = [flagship_phases(dev, smi, dtype) for dtype in MC_DTYPES]
+
+    phases_8_to_12 = chain_phases(dev, smi)
+    phases_13_to_19 = mimo_bd_phases(dev, smi)
+    phases_20_to_26 = ia_phases(dev, smi)
+
+    print(smi)
+    print(json.dumps({"kernels": [
+        *mc_entries, phases_8_to_12, *phases_13_to_19, phases_20_to_26]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def flagship_phases(dev, smi, dtype):
+    """Phases 4-7 in one channel-product type of the flagship kernel:
+    inject and PRNG parity with the plain version at the flagship shape,
+    chunk invariance, the main path (the runner's bulk path at 5 / 15 / 30
+    dB, inside ``BER_CORNERS``, through the kernel), and the times and
+    SASS bound. Returns the kernel's entry of the ``kernels`` line."""
+    import numpy as np
+    import torch
+    from apps.ofdm.ofdm_mc_kernel_torch import OfdmMcKernelSimulationRunner
+    from pyphysim_tpu_torch.ops.mc_kernel import MonteCarloOfdmTdl
+
+    def make_runner(snrs, rep_max, batch):
+        r = OfdmMcKernelSimulationRunner(device=dev,
+                                         read_command_line_args=False,
+                                         matmul_dtype=dtype)
+        r.params.add("SNR", np.array(snrs))
+        r.params.set_unpack_parameter("SNR")
+        r.rep_max, r.batch_size = rep_max, batch
+        r.tile, r.num_tiles = TILE, NUM_TILES
+        r.mc = MonteCarloOfdmTdl(r.ofdm, r.channel, M=16, tile=TILE,
+                                 matmul_dtype=dtype, device=dev)
+        r.update_progress_function_style = None
+        return r
+
     # 4. inject parity at the flagship shape, 15 dB
-    runner = OfdmMcKernelSimulationRunner(device=dev,
-                                          read_command_line_args=False)
-    mc = MonteCarloOfdmTdl(runner.ofdm, runner.channel, M=16, tile=TILE,
-                           device=dev)
+    mc = make_runner([15.0], 1, 1).mc
     cell_bits = TILE * mc.used * mc.bits_per_symbol
     reps = 4
     g = torch.Generator(device=dev).manual_seed(11)
@@ -262,53 +304,39 @@ def main() -> int:
     got = mc.build_inject(reps, NUM_TILES)(pb, db, n1, n2, amp)
     want = mc.simulate_block_reference(pb, db, n1, n2, amp)
     torch.cuda.synchronize()
-    check_cells("inject_parity", got, want, cell_bits)
+    check_cells(f"inject_parity {dtype}", got, want, cell_bits)
 
     # 5. PRNG mode at the main path's chunk shape (32 reps): kernel vs
     # plain, and chunk invariance of the kernel
     seed, snr, chunk = 1234567, 10 ** 1.5, 32
     k32 = mc.build(chunk, NUM_TILES)(seed, snr, 0)
     p32 = mc.prng_reference(chunk, NUM_TILES, seed, mc.amp(snr), 0)
-    max_abs_err = check_cells("prng_parity", k32, p32, cell_bits)
+    max_abs_err = check_cells(f"prng_parity {dtype}", k32, p32, cell_bits)
     k4 = mc.build(4, NUM_TILES)(seed, snr, 4)
     torch.cuda.synchronize()
     same = bool(torch.equal(k32[4:8], k4))
-    phase("chunk_invariance", rows_4_to_7_equal_start_4=same)
+    phase(f"chunk_invariance {dtype}", rows_4_to_7_equal_start_4=same)
     if not same:
         raise AssertionError("kernel results depend on the chunking")
 
     # 6. the main path: SimulationRunner bulk path on the card
-    def make_runner(snrs, rep_max, batch):
-        r = OfdmMcKernelSimulationRunner(device=dev,
-                                         read_command_line_args=False)
-        r.params.add("SNR", np.array(snrs))
-        r.params.set_unpack_parameter("SNR")
-        r.rep_max, r.batch_size = rep_max, batch
-        r.tile, r.num_tiles = TILE, NUM_TILES
-        r.mc = MonteCarloOfdmTdl(r.ofdm, r.channel, M=16, tile=TILE,
-                                 device=dev)
-        r.update_progress_function_style = None
-        return r
-
-    main_runner = make_runner([5.0, 15.0, 30.0], 64, chunk)
+    snrs = [5.0, 15.0, 30.0]
+    main_runner = make_runner(snrs, 64, chunk)
     main_runner.mc.launch_count = 0
     main_runner.mc.reference_count = 0
-    tic = time.time()
-    main_runner.simulate()
-    seconds = time.time() - tic
+    bers, seconds = run_sweep(main_runner)
     launches = main_runner.mc.launch_count
-    bers = [float(b) for b in main_runner.results.get_result_values_list("ber")]
-    phase("main_path", snr_db=[5.0, 15.0, 30.0], ber=bers,
+    phase(f"main_path {dtype}", snr_db=snrs, ber=bers,
           runned_reps=main_runner.runned_reps, seconds=seconds,
-          kernel_launches=launches,
-          chunks=main_runner.chunks_dispatched,
+          kernel_launches=launches, chunks=main_runner.chunks_dispatched,
           plain_calls=main_runner.mc.reference_count)
-    check_bers("main_path", (5.0, 15.0, 30.0), bers)
-    if launches != main_runner.chunks_dispatched or launches == 0 or \
-            main_runner.mc.reference_count != 0:
-        raise AssertionError("the main path did not run through the kernel")
+    check_bers(f"main_path {dtype}", snrs, bers)
+    check_launches(f"main_path {dtype}", launches,
+                   main_runner.chunks_dispatched,
+                   main_runner.mc.reference_count)
 
-    # 7. times on the card (CUDA events, best of 3)
+    # 7. times on the card (CUDA events, best of 3) and the bound from the
+    # SASS of the library built in this run
     syms = chunk * NUM_TILES * TILE * mc.used
     run32 = mc.build(chunk, NUM_TILES)
     kernel_ms = best_ms(lambda: run32(seed, snr, 0), inner=10)
@@ -317,20 +345,27 @@ def main() -> int:
     engine = make_runner([15.0], 512, 128)
     engine_ms = best_ms(engine.simulate)
     engine_syms = 512 * NUM_TILES * TILE * mc.used
-    phase("times", card=repr(smi), shape=f"reps={chunk},tiles={NUM_TILES},"
-          f"tile={TILE},used={mc.used}",
+    profile = mc.prng_kernel_profile(chunk, NUM_TILES)
+    flops = mc_flops(mc, chunk, NUM_TILES)
+    # G_tap read once, one count per (rep, tile) written
+    nbytes = 8 * mc.taps * mc.used + 4 * chunk * NUM_TILES
+    counts, bound, bound_by, pipe = sass_bound(profile, nbytes, flops)
+    phase(f"times {dtype}", card=repr(smi),
+          shape=f"reps={chunk},tiles={NUM_TILES},tile={TILE},used={mc.used},"
+          f"taps={mc.taps},rays={mc.rays}",
           kernel_ms=kernel_ms, kernel_sym_per_s=syms / kernel_ms * 1e3,
           plain_ms=plain_ms, plain_sym_per_s=syms / plain_ms * 1e3,
-          engine_ms=engine_ms, engine_sym_per_s=engine_syms / engine_ms * 1e3)
-
-    phases_8_to_12 = chain_phases(dev, smi)
-    phases_13_to_19 = mimo_bd_phases(dev, smi)
-    phases_20_to_26 = ia_phases(dev, smi)
-
-    print(smi)
-    mc_bound, mc_bound_by = bound_ms(flops=MC_FLOP_PER_SYMBOL * syms)
-    print(json.dumps({"kernels": [{
-        "name": "mc_ofdm_tdl_prng",
+          engine_ms=engine_ms, engine_sym_per_s=engine_syms / engine_ms * 1e3,
+          engine_share_of_kernel=engine_syms / engine_ms / (syms / kernel_ms),
+          bound_ms=bound, bound_by=bound_by, bound_pipe=pipe,
+          flop_bound_ms=flops / F32_FLOP_PER_S * 1e3,
+          sass_per_thread=compact(counts),
+          sass_per_symbol=counts["total"] * profile["threads"] / syms,
+          product_share_of_issue=4 * mc.taps * syms /
+          (counts["total"] * profile["threads"]),
+          share_of_bound=bound / kernel_ms)
+    return {
+        "name": "mc_ofdm_tdl_prng" + ("_bf16" if dtype == "bfloat16" else ""),
         "route": "cuda",
         "source": "pyphysim_tpu_torch/ops/csrc/mc_ofdm_tdl.cu",
         "replaces": "pyphysim_tpu/ops/mc_pallas.py:336",
@@ -338,14 +373,10 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": mc_bound,
-        "bound_by": mc_bound_by,
+        "bound_ms": bound,
+        "bound_by": bound_by,
         "library_ms": None,
-    }, phases_8_to_12, *phases_13_to_19, phases_20_to_26]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    }
 
 
 def chain_phases(dev, smi):

@@ -5,36 +5,54 @@
 // MonteCarloOfdmTdl._simulate_block, launched by _make_prng_call (in-kernel
 // random bits) and _make_inject_call (bits read from device tensors). For
 // every (rep, tile, symbol s, used bin u) it computes:
-//   * the per-bin channel H[s, u] = sum_il E[s, il] G[il, u], with the Jakes
-//     phasor E[s, il] = exp(j (t_s C cos(phi_il) + psi_il)) and the constant
-//     (tap, ray) -> bin matrix G built on the host (ops/mc_kernel.py);
+//   * the per-bin channel H[s, u] = sum_l E[s, l] G[l, u] over the (tap,
+//     ray) pairs l, with the Jakes phasor E[s, l] = exp(j (t_s C cos(phi_l)
+//     + psi_l)) and the constant (tap, ray) -> bin matrix G of the host
+//     (ops/mc_kernel.py);
 //   * a Gray-mapped square-QAM symbol from the data bits;
 //   * AWGN as erfinv of clamped uniforms, scaled by amp;
 //   * the one-tap equalizer, a Gray slicer and the popcount of bit errors.
 // The output is one int32 error count per (rep, tile), summed with integer
 // atomics into a tensor the wrapper zeroes (deterministic in any block order).
 //
-// What bounds it on the card: f32 FMA on the channel product. At the
-// flagship shape (TL = 16 taps x 16 rays = 256, 300 used bins) E @ G is
-// 4 real products of 256-deep dot products per (s, u): ~2 kFLOP per
-// simulated symbol, against 12 bytes of random bits that never leave the
-// chip in PRNG mode. So the design keeps the arithmetic units fed:
-//   * a block owns kRows = 32 consecutive symbols of one tile, and each
-//     thread one used bin u: it accumulates 32 complex H values in
-//     registers, so every G element it loads (coalesced along u, from L2)
-//     feeds 128 FMAs;
-//   * E is built in shared memory, kIlChunk (tap, ray) pairs at a time, laid
-//     out [il][row] so a warp reads 4 rows with one broadcast float4 load;
-//   * the Doppler rate C cos(phi) and phase psi of every (tap, ray) pair are
-//     computed once per block into shared memory;
-//   * mapping, noise, equalization, slicing and popcount stay in registers;
-//     a warp-shuffle + shared-memory reduction issues one atomicAdd per block.
-// E is evaluated with sincosf per element (accurate, not --use_fast_math:
-// the phase reaches ~28 rad at t = 4096 symbols) instead of the TPU kernel's
-// log-depth phasor doubling; the plain version in ops/mc_kernel.py keeps the
-// doubling, and the two differ only in the last bits. Tensor cores (wgmma
-// on bf16/TF32 operands) are a later step.
+// The rays are summed per tap. G's rows repeat within a tap (its rows are
+// np.repeat over the rays of each tap), so
+//   H[s, u] = sum_t (sum_r E[s, t, r]) G_tap[t, u],
+// a product 16 deep at the flagship geometry (16 taps x 16 rays) instead of
+// the TPU kernel's 256: the depth was free on its matrix unit and is not on
+// this card. The host checks the repetition and hands G_tap (T, used).
+//
+// What bounds it on the card: instruction issue. In PRNG mode nothing is
+// read per symbol. After the collapse the product is 64 FFMA per symbol;
+// the rest is the per-symbol epilogue (one Philox4x32-10 call, two erfinvf,
+// one division, the Gray map, the slicer and the popcount) and ~0.85
+// phasors per symbol for the tap sums. No pipe is full at that mix, so the
+// SM's four schedulers, one warp instruction per clock each, set the bound
+// (ops/sass.py counts the instructions from the built library: ~268 a
+// symbol). Tensor cores are not used: after the collapse the product is
+// ~24 % of the issued instructions, and a wgmma tile would have to hand its
+// results back in the epilogue's per-(row, bin) layout; at most it would
+// remove that 24 %.
+//
+// The design:
+//   * a block owns kRows consecutive symbols of one (rep, tile) and up to
+//     kMaxThreads used bins (one thread per bin);
+//   * prologue: the Doppler rate C cos(phi) and phase psi of every (tap, ray)
+//     pair into shared memory; then each thread takes (row, tap) pairs and
+//     sums the L phasors of that tap in registers (each rounded to bf16
+//     first in the bf16 mode) into h[row, tap] in shared memory;
+//   * body: a thread keeps G_tap[:, u] in registers and walks the block's
+//     rows: kTaps complex MACs against the row of h (broadcast float4
+//     loads), then the epilogue; one Philox call per symbol;
+//   * a warp-shuffle + shared-memory reduction and one integer atomicAdd per
+//     block.
+// Phases: the argument t C cos(phi) + psi reaches ~28 rad at t = 4096, so it
+// is reduced by hand (Cody-Waite, 2 pi in two parts) to [-pi, pi], where
+// __sincosf is within 2^-21.4; the phase's own f32 rounding at t = 4096 is
+// ~1e-6. cos(phi) takes a polynomial on a quadrant-reduced argument, so no
+// libm slow path (and no loop) enters the listing.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,15 +60,21 @@
 
 namespace {
 
-constexpr int kRows = 32;         // symbols per block (register tile)
-constexpr int kIlChunk = 64;      // (tap, ray) pairs staged per pass
-constexpr int kMaxTL = 1024;      // (tap, ray) pairs a block can hold
-constexpr int kMaxThreads = 512;  // one thread per used bin, swept if more
+constexpr int kRows = 64;         // symbols per block (ops/mc_kernel.py _ROWS)
+constexpr int kMaxTL = 1024;      // (tap, ray) pairs a block holds
+constexpr int kMaxThreads = 512;  // bins per block; more bins, more blocks
+constexpr float kInvTwoPi = 0.15915494309189535f;
+constexpr float kTwoPiHi = 6.28318548202514648f;     // f32(2 pi)
+constexpr float kTwoPiLo = -1.7484555314695172e-7f;  // 2 pi - kTwoPiHi
 constexpr float kTwoPi = 6.283185307179586f;
+constexpr float kTwoOverPi = 0.63661977236758134f;
+constexpr float kPiO2Hi = 1.5703125f;                // pi / 2 in three parts
+constexpr float kPiO2Mid = 4.837512969970703125e-4f;
+constexpr float kPiO2Lo = 7.54978995489188216e-8f;
 constexpr float kSqrt2 = 1.4142135623730951f;
 
 struct Params {
-  const float* g_re;  // (TL, used), row-major
+  const float* g_re;  // G_tap (T, used), row-major
   const float* g_im;
   // inject mode only: bits in the JAX layout, as int32
   const int* pb;      // phase bits, rows 0 / 1 = phi / psi
@@ -62,7 +86,9 @@ struct Params {
   long long d_rep_stride;
   long long d_row_stride;
   int* out;  // (reps, num_tiles), zeroed by the wrapper
-  int num_tiles, tile, used, TL;
+  int num_tiles, tile, used, TL, T, L;
+  int rows_log2;   // log2 of the rows of a block: min(kRows, tile)
+  int bin_chunks;  // blocks across the used bins
   int M, Lq, half_bits;
   float C, amp, qam_scale, inv_scale;
   uint32_t seed;
@@ -88,12 +114,38 @@ __device__ __forceinline__ int inv_gray(int p) {
   return p;
 }
 
-__device__ __forceinline__ void cmac(float& acc_re, float& acc_im, float er,
-                                     float ei, float gr, float gi) {
-  acc_re = fmaf(er, gr, acc_re);
-  acc_re = fmaf(-ei, gi, acc_re);
-  acc_im = fmaf(er, gi, acc_im);
-  acc_im = fmaf(ei, gr, acc_im);
+// cos(x) for |x| < 2^16: x - j pi/2 in three exact parts, then the minimax
+// polynomials of sin / cos on [-pi/4, pi/4] (within ~2 ulp), picked by the
+// quadrant j without a branch.
+__device__ __forceinline__ float cos_reduced(float x) {
+  const float j = rintf(x * kTwoOverPi);
+  float r = fmaf(j, -kPiO2Hi, x);
+  r = fmaf(j, -kPiO2Mid, r);
+  r = fmaf(j, -kPiO2Lo, r);
+  const float z = r * r;
+  const float c = fmaf(fmaf(fmaf(2.443315711809948e-5f, z,
+                                 -1.388731625493765e-3f), z,
+                            4.166664568298827e-2f), z * z,
+                       fmaf(-0.5f, z, 1.0f));
+  const float s = fmaf(fmaf(fmaf(-1.9515295891e-4f, z, 8.3321608736e-3f), z,
+                            -1.6666654611e-1f), z * r, r);
+  const int q = (int)j & 3;
+  const float v = (q & 1) ? s : c;
+  return (q == 1 || q == 2) ? -v : v;
+}
+
+// e^{jx}, the argument reduced to [-pi, pi] first; rounded to bf16 (round
+// to nearest even, as astype(bfloat16)) in the bf16 mode.
+template <bool kBf16>
+__device__ __forceinline__ void phasor(float x, float& c, float& s) {
+  const float k = rintf(x * kInvTwoPi);
+  float r = fmaf(k, -kTwoPiHi, x);
+  r = fmaf(k, -kTwoPiLo, r);
+  __sincosf(r, &s, &c);
+  if (kBf16) {
+    c = __bfloat162float(__float2bfloat16_rn(c));
+    s = __bfloat162float(__float2bfloat16_rn(s));
+  }
 }
 
 // Bit errors of symbol s of tile tile_idx on used bin u, given its channel.
@@ -134,10 +186,11 @@ __device__ __forceinline__ int symbol_errors(const Params& p, float hr,
   const float ni = erfinvf(z2) * kSqrt2;
   const float yr = xr * hr - xi * hi + p.amp * nr;
   const float yi = xr * hi + xi * hr + p.amp * ni;
-  // one-tap equalizer (the 1e-30 floor stays in the normal f32 range)
-  const float den = hr * hr + hi * hi + 1e-30f;
-  const float eqr = (yr * hr + yi * hi) / den;
-  const float eqi = (yi * hr - yr * hi) / den;
+  // one-tap equalizer, one reciprocal for both parts (the 1e-30 floor stays
+  // in the normal f32 range)
+  const float inv = 1.0f / (hr * hr + hi * hi + 1e-30f);
+  const float eqr = (yr * hr + yi * hi) * inv;
+  const float eqi = (yi * hr - yr * hi) * inv;
   // Gray slicer: floor(x + 0.5), clamped to the constellation
   const float lq1 = (float)(p.Lq - 1);
   const int colp = (int)fminf(
@@ -148,16 +201,19 @@ __device__ __forceinline__ int symbol_errors(const Params& p, float hr,
   return __popc(idx ^ decided);
 }
 
-template <bool kInject>
+template <int kTaps, bool kInject, bool kBf16>
 __global__ void __launch_bounds__(kMaxThreads)
     mc_ofdm_tdl_kernel(const Params p) {
   __shared__ float s_wl[kMaxTL];
   __shared__ float s_psi[kMaxTL];
-  __shared__ __align__(16) float s_ere[kIlChunk][kRows];
-  __shared__ __align__(16) float s_eim[kIlChunk][kRows];
+  // h[row, tap] as (re, im); a row is kTaps / 2 float4 (stride padded)
+  __shared__ __align__(16) float2 s_h[kRows][kTaps + 2];
   __shared__ int s_warp_sum[kMaxThreads / 32];
 
-  const int row0 = blockIdx.x * kRows;
+  const int row_block = blockIdx.x / p.bin_chunks;
+  const int chunk = blockIdx.x - row_block * p.bin_chunks;
+  const int nrows = 1 << p.rows_log2;
+  const int row0 = row_block * nrows;
   const int tile_idx = blockIdx.y;
   const int rep = blockIdx.z;
   const unsigned long long attempt =
@@ -167,6 +223,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   // Doppler rate and phase of every (tap, ray) pair; the same rays for
   // every tile of a repetition
+#pragma unroll 1
   for (int il = threadIdx.x; il < p.TL; il += blockDim.x) {
     uint32_t phi_bits, psi_bits;
     if (kInject) {
@@ -180,67 +237,64 @@ __global__ void __launch_bounds__(kMaxThreads)
       phi_bits = x.x;
       psi_bits = x.y;
     }
-    s_wl[il] = p.C * cosf(u01(phi_bits) * kTwoPi);
+    s_wl[il] = p.C * cos_reduced(u01(phi_bits) * kTwoPi);
     s_psi[il] = u01(psi_bits) * kTwoPi;
   }
+  __syncthreads();
+
+  // tap sums h[row, tap] = sum_r e^{j(t w + psi)} over the tap's rays; a
+  // warp takes consecutive rows of one tap (broadcast reads of the rays)
+  const int t_base = tile_idx * p.tile + row0;
+#pragma unroll 1
+  for (int k = threadIdx.x; k < (kTaps << p.rows_log2); k += blockDim.x) {
+    const int r = k & (nrows - 1);
+    const int tap = k >> p.rows_log2;
+    float hr = 0.f, hi = 0.f;
+    if (tap < p.T) {
+      const float t = (float)(t_base + r);
+      const float* wl = s_wl + tap * p.L;
+      const float* ps = s_psi + tap * p.L;
+#pragma unroll 1
+      for (int l = 0; l < p.L; ++l) {
+        float c, s;
+        phasor<kBf16>(fmaf(t, wl[l], ps[l]), c, s);
+        hr += c;
+        hi += s;
+      }
+    }
+    s_h[r][tap] = make_float2(hr, hi);
+  }
+  __syncthreads();
 
   int errors = 0;
-  for (int u0 = 0; u0 < p.used; u0 += blockDim.x) {
-    const int u = u0 + threadIdx.x;
-    const bool active = u < p.used;
-    float acc_re[kRows], acc_im[kRows];
+  const int u = chunk * blockDim.x + threadIdx.x;
+  if (u < p.used) {
+    float gr[kTaps], gi[kTaps];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      acc_re[r] = 0.f;
-      acc_im[r] = 0.f;
+    for (int t = 0; t < kTaps; ++t) {
+      const bool on = t < p.T;
+      gr[t] = on ? __ldg(p.g_re + (size_t)t * p.used + u) : 0.f;
+      gi[t] = on ? __ldg(p.g_im + (size_t)t * p.used + u) : 0.f;
     }
-
-    for (int il0 = 0; il0 < p.TL; il0 += kIlChunk) {
-      const int n_il = min(kIlChunk, p.TL - il0);
-      __syncthreads();  // s_wl / s_psi written, previous chunk consumed
-      for (int k = threadIdx.x; k < kIlChunk * kRows; k += blockDim.x) {
-        const int c = k / kRows;
-        const int r = k % kRows;
-        float er = 0.f, ei = 0.f;
-        if (c < n_il) {
-          const float t = (float)(tile_idx * p.tile + row0 + r);
-          sincosf(t * s_wl[il0 + c] + s_psi[il0 + c], &ei, &er);
-        }
-        s_ere[c][r] = er;
-        s_eim[c][r] = ei;
-      }
-      __syncthreads();
-      if (active) {
-        const float* gr_p = p.g_re + (size_t)il0 * p.used + u;
-        const float* gi_p = p.g_im + (size_t)il0 * p.used + u;
-#pragma unroll 2
-        for (int c = 0; c < n_il; ++c) {
-          const float gr = __ldg(gr_p + (size_t)c * p.used);
-          const float gi = __ldg(gi_p + (size_t)c * p.used);
-          const float4* er4 = reinterpret_cast<const float4*>(s_ere[c]);
-          const float4* ei4 = reinterpret_cast<const float4*>(s_eim[c]);
+#pragma unroll 1
+    for (int r = 0; r < nrows; ++r) {
+      const float4* h4 = reinterpret_cast<const float4*>(&s_h[r][0]);
+      // four partial sums: two chains of kTaps FFMA each per part
+      float ar = 0.f, br = 0.f, ai = 0.f, bi = 0.f;
 #pragma unroll
-          for (int q = 0; q < kRows / 4; ++q) {
-            const float4 a = er4[q];
-            const float4 b = ei4[q];
-            cmac(acc_re[4 * q + 0], acc_im[4 * q + 0], a.x, b.x, gr, gi);
-            cmac(acc_re[4 * q + 1], acc_im[4 * q + 1], a.y, b.y, gr, gi);
-            cmac(acc_re[4 * q + 2], acc_im[4 * q + 2], a.z, b.z, gr, gi);
-            cmac(acc_re[4 * q + 3], acc_im[4 * q + 3], a.w, b.w, gr, gi);
-          }
-        }
+      for (int q = 0; q < kTaps / 2; ++q) {
+        const float4 v = h4[q];
+        ar = fmaf(v.x, gr[2 * q], ar);
+        br = fmaf(-v.y, gi[2 * q], br);
+        ai = fmaf(v.x, gi[2 * q], ai);
+        bi = fmaf(v.y, gr[2 * q], bi);
+        ar = fmaf(v.z, gr[2 * q + 1], ar);
+        br = fmaf(-v.w, gi[2 * q + 1], br);
+        ai = fmaf(v.z, gi[2 * q + 1], ai);
+        bi = fmaf(v.w, gr[2 * q + 1], bi);
       }
-    }
-
-    if (active) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (row0 + r < p.tile) {
-          errors += symbol_errors<kInject>(p, acc_re[r], acc_im[r], rep,
-                                           tile_idx, row0 + r, u, att_lo,
-                                           att_hi);
-        }
-      }
+      errors += symbol_errors<kInject>(p, ar + br, ai + bi, rep, tile_idx,
+                                       row0 + r, u, att_lo, att_hi);
     }
   }
 
@@ -280,8 +334,8 @@ __global__ void philox_fill_kernel(const uint32_t* __restrict__ ctr,
 }
 
 Params make_params(const float* g_re, const float* g_im, int* out,
-                   int num_tiles, int tile, int used, int TL, int M, float C,
-                   float amp, float qam_scale, float inv_scale) {
+                   int num_tiles, int tile, int used, int TL, int T, int M,
+                   float C, float amp, float qam_scale, float inv_scale) {
   Params p = {};
   p.g_re = g_re;
   p.g_im = g_im;
@@ -290,6 +344,10 @@ Params make_params(const float* g_re, const float* g_im, int* out,
   p.tile = tile;
   p.used = used;
   p.TL = TL;
+  p.T = T;
+  p.L = T > 0 ? TL / T : 0;
+  const int rows = tile < kRows ? tile : kRows;
+  while ((1 << p.rows_log2) < rows) ++p.rows_log2;
   p.M = M;
   int bits = 0;
   while ((1 << bits) < M) ++bits;
@@ -302,17 +360,38 @@ Params make_params(const float* g_re, const float* g_im, int* out,
   return p;
 }
 
-int launch(const Params& p, int reps, bool inject, void* stream) {
-  if (p.TL > kMaxTL || reps > 65535 || p.num_tiles > 65535) {
+template <int kTaps>
+void launch_taps(const Params& p, dim3 grid, int threads, bool inject,
+                 bool bf16, cudaStream_t s) {
+  if (inject) {
+    if (bf16) {
+      mc_ofdm_tdl_kernel<kTaps, true, true><<<grid, threads, 0, s>>>(p);
+    } else {
+      mc_ofdm_tdl_kernel<kTaps, true, false><<<grid, threads, 0, s>>>(p);
+    }
+  } else if (bf16) {
+    mc_ofdm_tdl_kernel<kTaps, false, true><<<grid, threads, 0, s>>>(p);
+  } else {
+    mc_ofdm_tdl_kernel<kTaps, false, false><<<grid, threads, 0, s>>>(p);
+  }
+}
+
+int launch(Params& p, int reps, bool inject, bool bf16, void* stream) {
+  // tile: a power of two >= 8 (the wrapper checks); T taps of L rays
+  if (p.TL > kMaxTL || p.T < 1 || p.T > 32 || p.T * p.L != p.TL ||
+      (1 << p.rows_log2) > p.tile || p.tile % (1 << p.rows_log2) != 0 ||
+      reps > 65535 || p.num_tiles > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  const int threads = min(((p.used + 31) / 32) * 32, kMaxThreads);
-  const dim3 grid((p.tile + kRows - 1) / kRows, p.num_tiles, reps);
+  p.bin_chunks = (p.used + kMaxThreads - 1) / kMaxThreads;
+  const int per_chunk = (p.used + p.bin_chunks - 1) / p.bin_chunks;
+  const int threads = ((per_chunk + 31) / 32) * 32;
+  const dim3 grid((p.tile >> p.rows_log2) * p.bin_chunks, p.num_tiles, reps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (inject) {
-    mc_ofdm_tdl_kernel<true><<<grid, threads, 0, s>>>(p);
+  if (p.T <= 16) {
+    launch_taps<16>(p, grid, threads, inject, bf16, s);
   } else {
-    mc_ofdm_tdl_kernel<false><<<grid, threads, 0, s>>>(p);
+    launch_taps<32>(p, grid, threads, inject, bf16, s);
   }
   return (int)cudaGetLastError();
 }
@@ -320,20 +399,21 @@ int launch(const Params& p, int reps, bool inject, void* stream) {
 }  // namespace
 
 // In-kernel Philox bits (the counterpart of _make_prng_call): rep r of this
-// call is the absolute attempt start + r of the stream keyed by seed.
+// call is the absolute attempt start + r of the stream keyed by seed. G_tap
+// is (T, used); the TL = T * L (tap, ray) pairs draw their rays.
 extern "C" int mc_ofdm_tdl_prng(const void* g_re, const void* g_im, void* out,
                                 int reps, int num_tiles, int tile, int used,
-                                int TL, int M, float C, float amp,
-                                float qam_scale, float inv_scale,
+                                int TL, int T, int M, float C, float amp,
+                                float qam_scale, float inv_scale, int bf16,
                                 unsigned int seed, long long start,
                                 void* stream) {
   Params p = make_params(static_cast<const float*>(g_re),
                          static_cast<const float*>(g_im),
-                         static_cast<int*>(out), num_tiles, tile, used,
-                         TL, M, C, amp, qam_scale, inv_scale);
+                         static_cast<int*>(out), num_tiles, tile, used, TL,
+                         T, M, C, amp, qam_scale, inv_scale);
   p.seed = seed;
   p.start = start;
-  return launch(p, reps, false, stream);
+  return launch(p, reps, false, bf16 != 0, stream);
 }
 
 // Bits read from int32 device tensors in the JAX layout (the counterpart of
@@ -342,13 +422,14 @@ extern "C" int mc_ofdm_tdl_prng(const void* g_re, const void* g_im, void* out,
 extern "C" int mc_ofdm_tdl_inject(
     const void* g_re, const void* g_im, const void* pb, const void* db,
     const void* n1, const void* n2, void* out, int reps, int num_tiles,
-    int tile, int used, int TL, int M, float C, float amp, float qam_scale,
-    float inv_scale, long long pb_rep_stride, long long pb_row_stride,
-    long long d_rep_stride, long long d_row_stride, void* stream) {
+    int tile, int used, int TL, int T, int M, float C, float amp,
+    float qam_scale, float inv_scale, int bf16, long long pb_rep_stride,
+    long long pb_row_stride, long long d_rep_stride, long long d_row_stride,
+    void* stream) {
   Params p = make_params(static_cast<const float*>(g_re),
                          static_cast<const float*>(g_im),
-                         static_cast<int*>(out), num_tiles, tile, used,
-                         TL, M, C, amp, qam_scale, inv_scale);
+                         static_cast<int*>(out), num_tiles, tile, used, TL,
+                         T, M, C, amp, qam_scale, inv_scale);
   p.pb = static_cast<const int*>(pb);
   p.db = static_cast<const int*>(db);
   p.n1 = static_cast<const int*>(n1);
@@ -357,7 +438,7 @@ extern "C" int mc_ofdm_tdl_inject(
   p.pb_row_stride = pb_row_stride;
   p.d_rep_stride = d_rep_stride;
   p.d_row_stride = d_row_stride;
-  return launch(p, reps, true, stream);
+  return launch(p, reps, true, bf16 != 0, stream);
 }
 
 // Philox4x32-10 of n counters (n x 4 words) under one key (2 words), all

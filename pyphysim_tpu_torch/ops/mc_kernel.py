@@ -16,7 +16,15 @@ AWGN -> one-tap equalizer -> Gray slicer -> popcount of bit errors over the
 used bins. Two algebraic collapses make this exact for a CP that covers the
 channel span: the ray sum and the sparse tap DFT are one product with G,
 and time-domain AWGN becomes post-demodulation AWGN with std scaled by
-``noise_gain``.
+``noise_gain``. G's rows repeat within each tap (one row per tap, repeated
+over its rays), so the kernel sums the rays of a tap first and multiplies
+by ``G_tap`` (T, used): the same function with a product T deep instead of
+TL (:meth:`MonteCarloOfdmTdl.channel_rays_first`). The plain version keeps
+the TL-deep product of the JAX kernel.
+
+``matmul_dtype`` is the JAX option of the same name: ``torch.bfloat16``
+rounds E and G to bf16 (round to nearest even) and sums their products in
+float32; a different result from float32 mode, held to its own parity.
 
 Two bit sources, as in the JAX package:
 
@@ -48,6 +56,35 @@ from . import philox
 __all__ = ["MonteCarloOfdmTdl", "from_jax_arrays"]
 
 _TWO_PI = 6.283185307179586
+_ROWS = 64          # symbols per block of the CUDA kernel (kRows there)
+_MAX_THREADS = 512  # used bins per block (kMaxThreads there)
+_MAX_TAPS = 32      # the kernel's register tile of G_tap holds 16 or 32
+_MATMUL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _matmul_dtype(dtype) -> torch.dtype:
+    """``torch.float32`` / ``torch.bfloat16`` or their names."""
+    if isinstance(dtype, torch.dtype) and dtype in _MATMUL_DTYPES.values():
+        return dtype
+    if isinstance(dtype, str) and dtype in _MATMUL_DTYPES:
+        return _MATMUL_DTYPES[dtype]
+    raise ValueError(f"matmul_dtype must be torch.float32, torch.bfloat16, "
+                     f"'float32' or 'bfloat16', got {dtype!r}")
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest bf16 (ties to even), back in float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _ray_run(g_re: np.ndarray, g_im: np.ndarray) -> int:
+    """The number of leading rows of G bit-identical to its first row: the
+    rays of its first tap."""
+    rows = np.concatenate([g_re, g_im], axis=1).view(np.uint32)
+    n = 1
+    while n < rows.shape[0] and np.array_equal(rows[n], rows[0]):
+        n += 1
+    return n
 
 
 def _u01(bits: torch.Tensor) -> torch.Tensor:
@@ -100,6 +137,7 @@ class MonteCarloOfdmTdl:
     """
 
     def __init__(self, ofdm, channel, M: int = 16, tile: int = 256,
+                 matmul_dtype=torch.float32,
                  device: DeviceLike = "cuda") -> None:
         profile = channel.channel_profile
         gen = channel._fading_generator
@@ -126,10 +164,11 @@ class MonteCarloOfdmTdl:
         C = float(_TWO_PI * gen.Fd * gen.Ts * ofdm.samples_per_symbol)
         # post-demod equivalent AWGN std multiplier (exact)
         noise_gain = math.sqrt(ofdm.fft_size / ofdm._calculate_power_scale())
-        self._set_state(g_re, g_im, C, noise_gain, M, tile, used, device)
+        self._set_state(g_re, g_im, C, noise_gain, M, tile, used, Lrays,
+                        matmul_dtype, device)
 
-    def _set_state(self, g_re, g_im, C, noise_gain, M, tile, used,
-                   device) -> None:
+    def _set_state(self, g_re, g_im, C, noise_gain, M, tile, used, rays,
+                   matmul_dtype, device) -> None:
         Lq = int(round(math.sqrt(M)))
         if Lq * Lq != M or M & (M - 1):
             raise ValueError("M must be a square power of 2")
@@ -138,6 +177,20 @@ class MonteCarloOfdmTdl:
                              "(the E matrix is built by row doubling)")
         if g_re.shape != g_im.shape or g_re.shape[1] != used:
             raise ValueError("G must be two (TL, used) arrays")
+        TL = g_re.shape[0]
+        if rays < 1 or TL % rays:
+            raise ValueError(f"TL {TL} is not a multiple of the ray count "
+                             f"{rays}")
+        taps = TL // rays
+        for g in (g_re, g_im):
+            g = g.reshape(taps, rays, used).view(np.uint32)
+            if not np.array_equal(g, np.broadcast_to(g[:, :1], g.shape)):
+                raise ValueError("the rows of a tap of G differ: the rays "
+                                 "of a tap must share one row")
+        if taps > _MAX_TAPS:
+            raise ValueError(f"{taps} taps: the kernel takes at most "
+                             f"{_MAX_TAPS}")
+        self.matmul_dtype = _matmul_dtype(matmul_dtype)
         self.device = require_cuda(device)
         self.M = int(M)
         self.bits_per_symbol = level2bits(M)
@@ -146,12 +199,19 @@ class MonteCarloOfdmTdl:
         self.qam_scale = math.sqrt((M - 1) * 2.0 / 3.0)
         self.tile = int(tile)
         self.used = int(used)
-        self.TL = int(g_re.shape[0])
+        self.TL = int(TL)
+        self.rays = int(rays)
+        self.taps = int(taps)
         self.C = float(C)
         self.noise_gain = float(noise_gain)
+        # G (TL, used) for the plain version, G_tap (T, used) for the
+        # kernel; both rounded to bf16 where they are used in that mode
         self.g_re = torch.tensor(g_re, device=self.device).contiguous()
         self.g_im = torch.tensor(g_im, device=self.device).contiguous()
-        self._g = torch.complex(self.g_re, self.g_im)
+        self._g = torch.complex(self._cast(self.g_re), self._cast(self.g_im))
+        self.g_tap_re = self._cast(self.g_re[::rays]).contiguous()
+        self.g_tap_im = self._cast(self.g_im[::rays]).contiguous()
+        self._g_tap = torch.complex(self.g_tap_re, self.g_tap_im)
         self.launch_count = 0
         self.reference_count = 0
 
@@ -168,6 +228,15 @@ class MonteCarloOfdmTdl:
         """Width of the inject-mode phase bit tensor (the JAX layout)."""
         return ((self.TL + 127) // 128) * 128
 
+    @property
+    def bf16(self) -> bool:
+        return self.matmul_dtype == torch.bfloat16
+
+    def _cast(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as an operand of the channel product: float32, rounded to
+        bf16 in the bf16 mode."""
+        return _round_bf16(x) if self.bf16 else x
+
     def amp(self, snr_linear: float) -> float:
         """Per-component noise std at ``snr_linear``, rounded to float32
         as the kernel receives it."""
@@ -177,6 +246,22 @@ class MonteCarloOfdmTdl:
     # ------------------------------------------------------------------
     # The plain PyTorch version
     # ------------------------------------------------------------------
+
+    def channel_reference(self, e: torch.Tensor) -> torch.Tensor:
+        """H = E @ G, TL deep, as the JAX kernel computes it: ``e`` complex
+        (..., TL) -> (..., used), its parts rounded to bf16 first in the
+        bf16 mode; products and sums in float32."""
+        e = torch.complex(self._cast(e.real), self._cast(e.imag))
+        return e @ self._g.to(e.device)
+
+    def channel_rays_first(self, e: torch.Tensor) -> torch.Tensor:
+        """The same H as :meth:`channel_reference` in the CUDA kernel's
+        order: the rays of each tap summed first, then a product with
+        G_tap only T deep. Equal in real arithmetic because G's rows repeat
+        within a tap; in float32 the two differ by rounding."""
+        e = torch.complex(self._cast(e.real), self._cast(e.imag))
+        h_tap = e.reshape(*e.shape[:-1], self.taps, self.rays).sum(-1)
+        return h_tap @ self._g_tap.to(e.device)
 
     def simulate_block_reference(self, phase_bits: torch.Tensor,
                                  data_bits: torch.Tensor,
@@ -190,8 +275,8 @@ class MonteCarloOfdmTdl:
         data/n1/n2_bits: (reps, num_tiles * tile, >= used) int32
         Returns (reps, num_tiles) int32 error counts. Mirrors
         ``mc_pallas.py _simulate_block`` step for step, including the
-        log-depth row doubling of E, so that it agrees with the JAX kernel
-        to float32 rounding.
+        log-depth row doubling of E and the TL-deep product, so that it
+        agrees with the JAX kernel to float32 rounding.
         """
         self.reference_count += 1
         f32 = torch.float32
@@ -226,8 +311,8 @@ class MonteCarloOfdmTdl:
             d_im = 2.0 * d_re * d_im
             d_re = s_re
             rows *= 2
-        h = torch.complex(e_re, e_im) @ self._g.to(dev)   # (reps,nt,tile,used)
-        h_re, h_im = h.real, h.imag
+        h = self.channel_reference(torch.complex(e_re, e_im))
+        h_re, h_im = h.real, h.imag                       # (reps,nt,tile,used)
 
         # --- data symbols: arithmetic Gray QAM map ---------------------
         shape = (reps, num_tiles, tile, -1)
@@ -360,11 +445,32 @@ class MonteCarloOfdmTdl:
     # CUDA launches
     # ------------------------------------------------------------------
 
+    def prng_kernel_profile(self, reps: int, num_tiles: int
+                            ) -> Dict[str, object]:
+        """What ``ops/sass.py`` needs to count one PRNG-mode call's
+        instructions: the kernel instance's mangled-name pattern, the
+        threads that do work (one per used bin and block: idle lanes are
+        left out) and the trips of its four loops in listing order, per
+        such thread: the (tap, ray) pairs' rays, the rays of a tap, the
+        (row, tap) pairs of the tap sums, the rows of the body."""
+        rows = min(_ROWS, self.tile)
+        ktaps = 16 if self.taps <= 16 else 32
+        chunks = -(-self.used // _MAX_THREADS)
+        active = self.used / chunks                  # bins a block owns
+        blocks = reps * num_tiles * (self.tile // rows) * chunks
+        return {"pattern": f"mc_ofdm_tdl_kernelILi{ktaps}ELb0ELb"
+                           f"{int(self.bf16)}EE",
+                "threads": round(blocks * active), "loops": 4,
+                "loop_trips": [self.TL / active,
+                               self.rays * self.taps / ktaps,
+                               ktaps * rows / active, rows]}
+
     def _common_args(self, out: torch.Tensor, reps: int, num_tiles: int,
                      amp: float):
-        return (self.g_re.data_ptr(), self.g_im.data_ptr(), out.data_ptr(),
-                reps, num_tiles, self.tile, self.used, self.TL, self.M,
-                self.C, amp, self.qam_scale, 1.0 / self.qam_scale)
+        return (self.g_tap_re.data_ptr(), self.g_tap_im.data_ptr(),
+                out.data_ptr(), reps, num_tiles, self.tile, self.used,
+                self.TL, self.taps, self.M, self.C, amp, self.qam_scale,
+                1.0 / self.qam_scale, int(self.bf16))
 
     def _launch_prng(self, reps: int, num_tiles: int, seed: int, amp: float,
                      start: int) -> torch.Tensor:
@@ -384,9 +490,9 @@ class MonteCarloOfdmTdl:
                        amp: float) -> torch.Tensor:
         from . import _build
         pb, db, n1, n2 = bits
-        if pb.device != self.g_re.device:
+        if pb.device != self.g_tap_re.device:
             raise ValueError(f"bits on {pb.device}, builder on "
-                             f"{self.g_re.device}")
+                             f"{self.g_tap_re.device}")
         lib = _build.load()
         out = torch.zeros((reps, num_tiles), dtype=torch.int32,
                           device=pb.device)
@@ -405,12 +511,17 @@ def from_jax_arrays(d: Dict[str, object],
                     device: DeviceLike = "cuda") -> MonteCarloOfdmTdl:
     """The port's builder from a JAX ``MonteCarloOfdmTdl``'s numpy state:
     ``g_re`` / ``g_im`` (``np.asarray(mc._g_re)``, padded to (TLp,
-    used_p)), ``C``, ``noise_gain``, ``M``, ``tile``, ``used`` and ``TL``.
-    The padding is cut off."""
+    used_p), float32 or bf16), ``C``, ``noise_gain``, ``M``, ``tile``,
+    ``used``, ``TL`` and optionally ``matmul_dtype``
+    (``str(mc._matmul_dtype)``, default ``"float32"``). The padding is cut
+    off. The ray count is the number of leading rows of G equal to its
+    first, and G must repeat one row over the rays of every tap."""
     TL, used = int(d["TL"]), int(d["used"])
+    g_re = np.asarray(d["g_re"], np.float32)[:TL, :used]
+    g_im = np.asarray(d["g_im"], np.float32)[:TL, :used]
+    md = d.get("matmul_dtype", "float32")
     mc = MonteCarloOfdmTdl.__new__(MonteCarloOfdmTdl)
-    mc._set_state(np.asarray(d["g_re"], np.float32)[:TL, :used],
-                  np.asarray(d["g_im"], np.float32)[:TL, :used],
-                  float(d["C"]), float(d["noise_gain"]), int(d["M"]),
-                  int(d["tile"]), used, device)
+    mc._set_state(g_re, g_im, float(d["C"]), float(d["noise_gain"]),
+                  int(d["M"]), int(d["tile"]), used, _ray_run(g_re, g_im),
+                  md if isinstance(md, torch.dtype) else str(md), device)
     return mc

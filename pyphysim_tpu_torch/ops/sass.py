@@ -14,7 +14,9 @@ Counting rules, per thread (a warp issues each instruction once for its
   * the body runs up to its last unconditional ``EXIT``; what nvcc places
     after it (out-of-line routines, reached only by ``CALL``) counts only
     through the rules below;
-  * a loop (a backward branch) counts ``loop_trips`` times;
+  * a loop (a backward branch) counts its trips: ``loop_trips`` for every
+    loop, or one number per backward branch in listing order (a loop inside
+    another counts the product of both);
   * the slow path of a division (the few instructions around a ``CALL``
     that a range check branches over) counts 0 times:
     for an IEEE f32 division it runs only for denormal or near-overflow
@@ -48,7 +50,7 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 __all__ = ["PIPE_RATES", "SMS", "CLOCK_HZ", "ERFINV_TAIL", "function_sass",
            "pipe_counts", "issue_bound_ms"]
@@ -165,14 +167,17 @@ def _parse(sass: str) -> List[_Insn]:
     return insns
 
 
-def pipe_counts(sass: str, loop_trips: int = 1,
+def pipe_counts(sass: str, loop_trips: Union[float, Sequence[float]] = 1,
                 loops: int = 0) -> Dict[str, float]:
     """Instructions issued per thread, by pipe (``fp32``, ``imad``,
     ``alu``, ``xu``, ``uniform``, ``other``) and in all (``total``), of
     one kernel's listing under the module's counting rules. ``loops`` is
     the number of backward branches the caller expects; another number,
     or a listing the rules do not cover, raises, so a change of the
-    compiled code cannot change the count unnoticed."""
+    compiled code cannot change the count unnoticed. ``loop_trips`` is one
+    trip count for every loop, or a sequence of ``loops`` of them, one per
+    backward branch in listing order (a trip may be fractional: the mean
+    over the threads counted)."""
     insns = _parse(sass)
     end = next((i.addr for i in insns
                 if i.op == "BRA" and i.target == i.addr), None)
@@ -198,8 +203,12 @@ def pipe_counts(sass: str, loop_trips: int = 1,
     if len(back) != loops:
         raise ValueError(f"{len(back)} loops in the listing, expected "
                          f"{loops}")
-    for lo, hi in back:
-        scale(lo, hi + 1, loop_trips)
+    trips = ([loop_trips] * loops if isinstance(loop_trips, (int, float))
+             else list(loop_trips))
+    if len(trips) != loops:
+        raise ValueError(f"{len(trips)} trip counts for {loops} loops")
+    for (lo, hi), n in zip(back, trips):
+        scale(lo, hi + 1, n)
 
     for k, i in enumerate(body):
         if i.addr > main_end:

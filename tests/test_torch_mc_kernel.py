@@ -7,10 +7,11 @@ interpreter, as tests/test_mc_pallas.py runs it) and to the port. The
 tolerance is the JAX test's own: identical bits and float32 math, with a
 handful of decision-boundary flips allowed from float association and
 transcendental differences (at most 16 per (rep, tile) cell and 32 per
-call). The CUDA kernel itself is compared with the plain version on the
+call), in float32 and in bf16 channel-product mode. The CUDA kernel itself is compared with the plain version on the
 card by ``chip_smoke.py`` and by the ``cuda``-marked tests here.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -34,16 +35,24 @@ TS = 1.0 / 20e6
 BER_CORNERS = [(5.0, 0.08, 0.22), (15.0, 0.02, 0.06), (30.0, 2e-4, 6e-3)]
 
 
-def _port_mc(tile, device="cpu"):
+def _port_mc(tile, device="cpu", matmul_dtype=torch.float32):
     ofdm = OFDM(512, 52, 300, device=device)
     jakes = JakesSampleGenerator(Fd=30.0, Ts=TS, L=16, device=device)
     return MonteCarloOfdmTdl(ofdm, TdlChannel(jakes, COST259_TUx), M=16,
-                             tile=tile, device=device)
+                             tile=tile, matmul_dtype=matmul_dtype,
+                             device=device)
 
 
-def _jax_mc(tile):
+def _jax_mc(tile, matmul_dtype=jnp.float32):
     channel = J_TdlChannel(J_Jakes(Fd=30.0, Ts=TS, L=16), J_COST259_TUx)
-    return J_MC(J_OFDM(512, 52, 300), channel, M=16, tile=tile)
+    return J_MC(J_OFDM(512, 52, 300), channel, M=16, tile=tile,
+                matmul_dtype=matmul_dtype)
+
+
+def _jax_state(jmc):
+    return {"g_re": np.asarray(jmc._g_re), "g_im": np.asarray(jmc._g_im),
+            "C": jmc._C, "noise_gain": jmc.noise_gain, "M": jmc._M,
+            "tile": jmc._tile, "used": jmc._used, "TL": jmc._TL}
 
 
 def _bits(seed, mc, reps, num_tiles):
@@ -93,10 +102,7 @@ def test_inject_matches_jax_kernel(seed, snr_db):
 
 def test_from_jax_arrays_gives_identical_counts():
     jmc = _jax_mc(64)
-    state = {"g_re": np.asarray(jmc._g_re), "g_im": np.asarray(jmc._g_im),
-             "C": jmc._C, "noise_gain": jmc.noise_gain, "M": jmc._M,
-             "tile": jmc._tile, "used": jmc._used, "TL": jmc._TL}
-    carried = from_jax_arrays(state, device="cpu")
+    carried = from_jax_arrays(_jax_state(jmc), device="cpu")
     mc = _port_mc(64)
     bits = _bits(4, mc, 2, 2)
     amp = _amp(mc, 10.0)
@@ -105,6 +111,113 @@ def test_from_jax_arrays_gives_identical_counts():
         mc.build_inject(2, 2)(*bits, amp).numpy())
     np.testing.assert_array_equal(carried.build(2, 2)(9, 10.0, 3).numpy(),
                                   mc.build(2, 2)(9, 10.0, 3).numpy())
+
+
+@pytest.mark.parametrize("seed,snr_db", [(2, 15.0), (3, 5.0)])
+def test_bf16_inject_matches_jax_kernel(seed, snr_db):
+    """bf16 mode (E and G rounded to bf16, f32 sums) against the JAX
+    kernel's ``matmul_dtype=bfloat16`` on the same bits, at the JAX test's
+    slack: a different result from float32 mode, with its own parity."""
+    mc = _port_mc(64, matmul_dtype=torch.bfloat16)
+    jmc = _jax_mc(64, jnp.bfloat16)
+    bits = _bits(seed, mc, 2, 2)
+    amp = _amp(mc, snr_db)
+    want = np.asarray(jmc.build_inject(2, 2)(*bits, amp), np.int64)
+    got = mc.build_inject(2, 2)(*bits, amp).numpy().astype(np.int64)
+    assert int(want.sum()) > 1000
+    assert abs(int(got.sum()) - int(want.sum())) <= 32
+    assert np.all(np.abs(got - want) <= 16)
+
+
+def test_bf16_g_matches_jax():
+    """The rounded G the bf16 plain version multiplies by is the JAX
+    object's bf16 G, bit for bit."""
+    mc, jmc = _port_mc(16, matmul_dtype="bfloat16"), _jax_mc(16, jnp.bfloat16)
+    for mine, theirs in ((mc._g.real, jmc._g_re), (mc._g.imag, jmc._g_im)):
+        theirs = np.asarray(theirs, np.float32)[:mc.TL, :mc.used]
+        np.testing.assert_array_equal(mine.numpy(), theirs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_g_tap_is_the_first_row_of_each_tap(dtype):
+    mc = _port_mc(16, matmul_dtype=dtype)
+    assert (mc.taps, mc.rays) == (16, 16)
+    want_re, want_im = mc.g_re[::16], mc.g_im[::16]
+    if dtype == torch.bfloat16:
+        want_re = want_re.to(dtype).float()
+        want_im = want_im.to(dtype).float()
+    assert torch.equal(mc.g_tap_re, want_re)
+    assert torch.equal(mc.g_tap_im, want_im)
+    g = mc.g_re.reshape(16, 16, -1)
+    assert torch.equal(g, g[:, :1].expand_as(g))   # the rays share a row
+
+
+def test_from_jax_arrays_checks_the_tap_structure():
+    """The ray count comes from G (the leading rows equal to the first);
+    every tap must then repeat one row over that many rays."""
+    state = _jax_state(_jax_mc(16))
+    carried = from_jax_arrays(state, device="cpu")
+    assert (carried.rays, carried.taps) == (16, 16)
+    for key in ("g_re", "g_im"):
+        bad = state[key].copy()
+        bad[16 + 5, 7] += 1e-3            # ray 5 of tap 1 differs
+        with pytest.raises(ValueError, match="rows of a tap"):
+            from_jax_arrays(dict(state, **{key: bad}), device="cpu")
+    with pytest.raises(ValueError, match="multiple of the ray count"):
+        from_jax_arrays(dict(state, TL=250), device="cpu")
+
+
+def test_from_jax_arrays_carries_bf16():
+    jmc = _jax_mc(64, jnp.bfloat16)
+    carried = from_jax_arrays(dict(_jax_state(jmc),
+                                   matmul_dtype=str(jmc._matmul_dtype)),
+                              device="cpu")
+    assert carried.matmul_dtype == torch.bfloat16
+    mc = _port_mc(64, matmul_dtype=torch.bfloat16)
+    bits = _bits(4, mc, 2, 2)
+    amp = _amp(mc, 10.0)
+    np.testing.assert_array_equal(
+        carried.build_inject(2, 2)(*bits, amp).numpy(),
+        mc.build_inject(2, 2)(*bits, amp).numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rays_first_product_is_the_depth_tl_product(dtype):
+    """The kernel's order (rays of a tap summed, then a 16-deep product
+    with G_tap) against the plain version's 256-deep E @ G, on the phasors
+    of a whole tile of 1,024 symbols: within 2e-6 of max |H|."""
+    mc = _port_mc(16, matmul_dtype=dtype)
+    rng = np.random.default_rng(21)
+    phi, psi = rng.uniform(0, 2 * np.pi, (2, mc.TL))
+    t = np.arange(1024)[:, None]
+    e = torch.from_numpy(np.exp(1j * (t * mc.C * np.cos(phi) + psi))
+                         .astype(np.complex64))
+    want = mc.channel_reference(e)
+    got = mc.channel_rays_first(e)
+    assert got.shape == want.shape == (1024, mc.used)
+    assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", ["float16", torch.float64, "bf16", None,
+                                   np.float32])
+def test_unknown_matmul_dtype_raises(dtype):
+    with pytest.raises(ValueError, match="matmul_dtype"):
+        _port_mc(16, matmul_dtype=dtype)
+
+
+def test_prng_kernel_profile():
+    """One thread per used bin and block (idle lanes left out) and the
+    trips of the kernel's four loops, at the flagship chunk and at a tile
+    smaller than a block's rows."""
+    mc = _port_mc(1024, matmul_dtype="bfloat16")
+    assert mc.prng_kernel_profile(32, 4) == {
+        "pattern": "mc_ofdm_tdl_kernelILi16ELb0ELb1EE",
+        "threads": 32 * 4 * 16 * 300, "loops": 4,
+        "loop_trips": [256 / 300, 16, 16 * 64 / 300, 64]}
+    small = _port_mc(16).prng_kernel_profile(2, 2)
+    assert small["pattern"] == "mc_ofdm_tdl_kernelILi16ELb0ELb0EE"
+    assert small["threads"] == 2 * 2 * 300
+    assert small["loop_trips"] == [256 / 300, 16, 16 * 16 / 300, 16]
 
 
 def test_extreme_noise_bits_stay_finite():
@@ -182,10 +295,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile", [256, 16])
+def test_cuda_kernel_matches_plain_version(cuda_device, tile, dtype):
     """Kernel vs plain version on the card, inject and PRNG mode, at
-    |diff| <= 2e-4 of a cell's bits (the JAX test's 16 in 76,800)."""
-    mc = _port_mc(256, cuda_device)
+    |diff| <= 2e-4 of a cell's bits (the JAX test's 16 in 76,800), in both
+    channel-product types; tile 16 is smaller than a block's 64 rows."""
+    mc = _port_mc(tile, cuda_device, dtype)
     cell_bits = mc.tile * mc.used * mc.bits_per_symbol
     bits = [torch.from_numpy(b.view(np.int32)).to(cuda_device)
             for b in _bits(8, mc, 2, 2)]

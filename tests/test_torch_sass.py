@@ -2,8 +2,8 @@
 listing written in ``cuobjdump -sass``'s format with every shape the
 counting rules name: the slow path of a 64-bit integer division (if /
 else) and of an f32 division (if only), a loop, an ``erfinvf`` tail, the
-out-of-line routines after the last ``EXIT``, and the final self-branch.
-The real listings come from the card's build (``chip_smoke.py``)."""
+out-of-line routines after the last ``EXIT``, and the final self-branch;
+and a listing of two loops with trip counts of their own. The real listings come from the card's build (``chip_smoke.py``)."""
 
 import subprocess
 
@@ -69,6 +69,40 @@ def test_counts_follow_the_rules():
             "uniform": 1, "other": 14}
     want["total"] = sum(want.values())
     assert got == pytest.approx(want, rel=1e-12)
+
+
+_TWO_LOOPS = [
+    (0x000, "", "S2R R0, SR_TID.X"),
+    (0x010, "", "FFMA R2, R2, R3, R4"),       # loop 1 head
+    (0x020, "", "IADD3 R5, R5, 0x1, RZ"),
+    (0x030, "", "ISETP.GE.AND P0, PT, R5, UR4, PT"),
+    (0x040, "@!P0", "BRA 0x10"),              # loop 1 back
+    (0x050, "", "FMUL R6, R6, R2"),           # loop 2 head
+    (0x060, "", "MUFU.EX2 R6, R6"),
+    (0x070, "", "ISETP.GE.AND P1, PT, R7, UR5, PT"),
+    (0x080, "@!P1", "BRA 0x50"),              # loop 2 back
+    (0x090, "", "STG.E desc[UR4][R2.64], R6"),
+    (0x0a0, "", "EXIT"),
+    (0x0b0, "", "BRA 0xb0"),
+]
+
+
+@pytest.mark.parametrize("trips, a, b", [
+    ([3, 7], 3, 7),          # one trip count per loop, in listing order
+    ((0.8, 2.5), 0.8, 2.5),  # fractional: a mean over the threads
+    (4, 4, 4),               # a scalar: every loop
+])
+def test_trips_per_loop(trips, a, b):
+    got = sass.pipe_counts(_listing(_TWO_LOOPS), loop_trips=trips, loops=2)
+    want = {"fp32": a + b, "imad": 0, "alu": 2 * a + b, "xu": b,
+            "uniform": 0, "other": a + b + 3}
+    want["total"] = sum(want.values())
+    assert got == pytest.approx(want, rel=1e-12)
+
+
+def test_trips_per_loop_must_match_the_loops():
+    with pytest.raises(ValueError, match="3 trip counts for 2 loops"):
+        sass.pipe_counts(_listing(_TWO_LOOPS), loop_trips=[1, 2, 3], loops=2)
 
 
 def test_erfinv_tail_is_the_uniform_tail_probability():
