@@ -6,7 +6,8 @@ Each variant is the committed ``pyphysim_tpu_torch/ops/csrc/mc_ofdm_tdl.cu``
 with a few lines substituted (rows per block, the unrolling of the row
 loop, a register cap for four blocks of 320 threads per SM, the
 equalizer's two divisions instead of one reciprocal), built by
-its own ``nvcc`` into a library of its own under ``ops/_build/tune/``. At
+its own ``nvcc`` into a library of its own under ``ops/_build/tune/``
+(``bin/_tune.py``). At
 the flagship chunk (32 reps x 4 tiles x 1,024 symbols x 300 bins, PRNG
 mode) the script prints for every variant and channel-product type:
 
@@ -22,15 +23,10 @@ PATH]``. Needs a CUDA device and nvcc.
 """
 
 import argparse
-import ctypes
 import json
-import os
-import re
-import subprocess
 import sys
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
+import _tune
 
 TILE, NUM_TILES, REPS = 1024, 4, 32
 SEED, SNR = 1234567, 10 ** 1.5
@@ -67,44 +63,20 @@ VARIANTS = {
 
 
 def build_variants():
-    """{name: (library path, {instance: registers})}; every nvcc started
+    """{name: (library path, {dtype: registers})}; every nvcc started
     together."""
     from pyphysim_tpu_torch.ops import _build
     src = (_build.SRC_DIR / "mc_ofdm_tdl.cu").read_text()
-    out_dir = _build.BUILD_DIR / "tune"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for k, (name, subs) in enumerate(VARIANTS.items()):
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"{name}: the source has no {old!r}")
-            text = text.replace(old, new)
-        cu = out_dir / f"variant{k}.cu"
-        cu.write_text(text)
-        lib = out_dir / f"libvariant{k}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-               str(_build.SRC_DIR), "-o", str(lib), str(cu)]
-        jobs[name] = (lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
-    built = {}
-    for name, (lib, proc) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        regs, entry = {}, None
-        for line in log.splitlines():
-            m = re.search(r"mc_ofdm_tdl_kernelILi16ELb0ELb(\d)EE", line)
-            if "entry function" in line:
-                entry = ("bfloat16" if m.group(1) == "1" else "float32") \
-                    if m else None
-            m = re.search(r"Used (\d+) registers", line)
-            if entry and m:
-                regs[entry] = int(m.group(1))
-                entry = None
-        built[name] = (lib, regs)
-    return built
+    sources = {name: (_tune.substitute(name, src, subs), _build.SRC_DIR)
+               for name, subs in VARIANTS.items()}
+    built = _tune.build_variants(sources, "variant", "mc_ofdm_tdl_kernel")
+    # the PRNG-mode instances at 16 taps, by channel-product type
+    instances = {"float32": "mc_ofdm_tdl_kernelILi16ELb0ELb0E",
+                 "bfloat16": "mc_ofdm_tdl_kernelILi16ELb0ELb1E"}
+    return {name: (lib, {dtype: int(ptxas[inst].split()[0])
+                         for dtype, inst in instances.items()
+                         if inst in ptxas})
+            for name, (lib, ptxas) in built.items()}
 
 
 def main() -> int:
@@ -117,14 +89,11 @@ def main() -> int:
     args = parser.parse_args()
 
     from apps.ofdm.ofdm_mc_kernel_torch import OfdmMcKernelSimulationRunner
-    from chip_smoke import best_ms
+    from chip_smoke import card
     from pyphysim_tpu_torch.ops import _build
     from pyphysim_tpu_torch.ops.mc_kernel import MonteCarloOfdmTdl
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
     built = build_variants()
     dev = torch.device("cuda")
@@ -135,11 +104,9 @@ def main() -> int:
                                matmul_dtype=dtype, device=dev)
         amp = mc.amp(SNR)
         want = mc.build(REPS, NUM_TILES)(SEED, SNR, 0)
-        calls = {}
+        calls, mine = [], []
         for name, (lib, regs) in built.items():
-            fn = ctypes.CDLL(str(lib)).mc_ofdm_tdl_prng
-            fn.argtypes = _build._SIGNATURES["mc_ofdm_tdl_prng"]
-            fn.restype = ctypes.c_int
+            fn = _tune.function(lib, "mc_ofdm_tdl_prng")
             out = torch.zeros((REPS, NUM_TILES), dtype=torch.int32,
                               device=dev)
             g_re, g_im, o, *geom = mc._common_args(out, REPS, NUM_TILES, amp)
@@ -151,23 +118,17 @@ def main() -> int:
                              "variant")
                 return out
             diff = (call().to(torch.int64) - want.to(torch.int64)).abs()
-            calls[name] = call
-            results.append({"variant": name, "dtype": dtype,
-                            "registers": regs.get(dtype),
-                            "max_abs_count_diff": int(diff.max()),
-                            "sum_abs_count_diff": int(diff.sum()),
-                            "ms": float("inf")})
-        names = list(calls)
-        mine = results[-len(names):]
-        for k in range(3):
-            for i in (range(len(names)) if k % 2 == 0
-                      else reversed(range(len(names)))):
-                ms = best_ms(calls[names[i]], repeat=1, inner=10)
-                mine[i]["ms"] = min(mine[i]["ms"], ms)
+            calls.append(call)
+            mine.append({"variant": name, "dtype": dtype,
+                         "registers": regs.get(dtype),
+                         "max_abs_count_diff": int(diff.max()),
+                         "sum_abs_count_diff": int(diff.sum())})
         syms = REPS * NUM_TILES * TILE * mc.used
-        for row in mine:
-            row["sym_per_s"] = syms / row["ms"] * 1e3
+        for row, ms in zip(mine, _tune.time_in_turns(calls)):
+            row["ms"] = ms
+            row["sym_per_s"] = syms / ms * 1e3
             print(json.dumps(row), flush=True)
+        results += mine
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"card": smi, "shape": f"reps={REPS},tiles={NUM_TILES},"

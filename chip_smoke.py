@@ -9,7 +9,8 @@ against its plain PyTorch version on the card:
     both channel-product types (float32 and the reference's bf16 mode;
     phases 1-7);
   * the flagship chain's block-static time-domain route, whose block
-    convolution is the ``block_fir`` CUDA kernel, its fused diag route, and
+    convolution is the ``block_fir`` CUDA kernel, and its fused diag route,
+    each in both signal types (complex64 and the reference's bf16), and
     the per-sample app ``apps/ofdm/ofdm_tdlchannel_torch.py``, each through
     the runner's per-key path (phases 8-12);
   * the Alamouti 2x1 family through its CUDA kernel on the bulk path and
@@ -43,6 +44,7 @@ FUSED_BATCH, FUSED_SYMBOLS = 512, 300 * 16  # bench.py's fused step
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12              # f32 outside the tensor cores
 MC_DTYPES = ("float32", "bfloat16")  # the flagship kernel's product types
+SIGNAL_DTYPES = (None, "bfloat16")  # the chain's signal types (None: complex64)
 ALAMOUTI_BER_10DB = (0.008, 0.030)  # bench.py's bands
 BD_CAP_RANGE = (5.0, 16.0)
 ALA_TILE, ALA_LANE, ALA_TILES, ALA_CHUNK = 64, 256, 4, 512   # bench.py
@@ -51,6 +53,16 @@ BD_TILE, BD_LANE, BD_TILES, BD_CHUNK = 8, 512, 4, 128        # bench.py
 BD_PARITY_TILE = 64                 # inject parity: 32,768 solves per cell
 BD_CHAIN_BATCH = 4096                                        # bd_step
 BD_REL_TOL = 2e-4                   # |kernel - plain| / |plain| per cell
+BD_MAX_REGISTERS_3_2 = 128          # 4 blocks of 128 threads a SM, or more
+# The fewest SASS instructions known to solve one BD element at (3, 2),
+# normalized, per pipe as ``ops/sass.py`` counts them: the listing of the
+# earlier register-resident mc_bd.cu (4 solves a thread, 23,215.3
+# instructions a thread). The shared-memory form issues more a solve
+# (shared loads and stores, loop counters, run-time addresses), which the
+# function does not need, so the BD bound takes the smaller count.
+BD_FEWEST_SASS_PER_SOLVE = {k: v / 4 for k, v in {
+    "total": 23215.311932398534, "imad": 1317.0, "alu": 4752.960406820743,
+    "xu": 383.98020341038057}.items()}
 IA_CAP_RANGE = (6.0, 16.0)          # bench.py: K=3, 2x2, Ns=1, noise 0.1
 IA_TILE, IA_LANE, IA_TILES, IA_CHUNK = 8, 512, 4, 128        # bench.py
 IA_ITERS, IA_NV = 10, 0.1
@@ -208,10 +220,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card()
     phase("device", nvidia_smi=repr(smi), torch=torch.__version__,
           cuda=torch.version.cuda,
           matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
@@ -407,37 +416,47 @@ def chain_phases(dev, smi):
                                  f"version at R={rows}: {rel}")
         fir_err = max(fir_err, err)
 
-    # 9. the block-static time-domain chain through the per-key runner
+    # 9. the block-static time-domain chain through the per-key runner, in
+    # each signal type; 10. the fused diag chain through the same runner
     snrs = [5.0, 15.0, 30.0]
     if fading.BLOCK_CONV_IMPL not in ("auto", "kernel"):
         raise AssertionError("the default block convolution is not the "
                              "kernel")
-    td = ChainStep(TD_SYMBOLS, 512, 52, 300, block_static=True, device=dev)
-    runner = chain_runner(dev, td, snrs, 2 * TD_BATCH, TD_BATCH)
-    fir.block_fir.launch_count = 0
-    fir.block_fir.reference_count = 0
-    bers, seconds = run_sweep(runner)
-    fir_launches = fir.block_fir.launch_count
-    fir_plain = fir.block_fir.reference_count
-    phase("time_domain_path", snr_db=snrs, ber=bers,
-          runned_reps=runner.runned_reps, seconds=seconds,
-          chain_calls=runner.chunks_dispatched, block_fir_launches=fir_launches,
-          block_fir_plain_calls=fir_plain)
-    check_bers("time_domain_path", snrs, bers)
-    if fir_launches != runner.chunks_dispatched or fir_launches == 0 or \
-            fir_plain != 0:
-        raise AssertionError("the time-domain path did not run its block "
-                             "convolutions through the block_fir kernel")
+    td, fused, fir_launches = {}, {}, 0
+    for dtype in SIGNAL_DTYPES:
+        tag = dtype or "complex64"
+        td[dtype] = ChainStep(TD_SYMBOLS, 512, 52, 300, block_static=True,
+                              signal_dtype=dtype, device=dev)
+        runner = chain_runner(dev, td[dtype], snrs, 2 * TD_BATCH, TD_BATCH)
+        fir.block_fir.launch_count = 0
+        fir.block_fir.reference_count = 0
+        bers, seconds = run_sweep(runner)
+        launches = fir.block_fir.launch_count
+        fir_plain = fir.block_fir.reference_count
+        phase("time_domain_path", signal=tag, snr_db=snrs, ber=bers,
+              runned_reps=runner.runned_reps, seconds=seconds,
+              chain_calls=runner.chunks_dispatched,
+              block_fir_launches=launches, block_fir_plain_calls=fir_plain)
+        check_bers(f"time_domain_path {tag}", snrs, bers)
+        if launches != runner.chunks_dispatched or launches == 0 or \
+                fir_plain != 0:
+            raise AssertionError("the time-domain path did not run its "
+                                 "block convolutions through the "
+                                 "block_fir kernel")
+        fir_launches += launches
 
-    # 10. the fused diag chain through the same runner
-    fused = ChainStep(FUSED_SYMBOLS, 512, 52, 300, block_static=True,
-                      fused=True, device=dev)
-    runner = chain_runner(dev, fused, snrs, 2 * FUSED_BATCH, FUSED_BATCH)
-    bers, seconds = run_sweep(runner)
-    phase("fused_path", snr_db=snrs, ber=bers,
-          runned_reps=runner.runned_reps, seconds=seconds,
-          chain_calls=runner.chunks_dispatched)
-    check_bers("fused_path", snrs, bers)
+    for dtype in SIGNAL_DTYPES:
+        tag = dtype or "complex64"
+        fused[dtype] = ChainStep(FUSED_SYMBOLS, 512, 52, 300,
+                                 block_static=True, fused=True,
+                                 signal_dtype=dtype, device=dev)
+        runner = chain_runner(dev, fused[dtype], snrs, 2 * FUSED_BATCH,
+                              FUSED_BATCH)
+        bers, seconds = run_sweep(runner)
+        phase("fused_path", signal=tag, snr_db=snrs, ber=bers,
+              runned_reps=runner.runned_reps, seconds=seconds,
+              chain_calls=runner.chunks_dispatched)
+        check_bers(f"fused_path {tag}", snrs, bers)
 
     # 11. the per-sample app (apps/ofdm/ofdm_tdlchannel_torch.py)
     from apps.ofdm.ofdm_tdlchannel_torch import OfdmTdlSimulationRunner
@@ -467,9 +486,11 @@ def chain_phases(dev, smi):
         streams = AttemptStreams.from_range(99, 0, batch, dev)
         return best_ms(lambda: chain.step(streams, snr))
 
-    td_ms = step_ms(td, TD_BATCH)
-    fused_ms = step_ms(fused, FUSED_BATCH)
-    engine = chain_runner(dev, td, [15.0], 4 * TD_BATCH, TD_BATCH)
+    td_ms = step_ms(td[None], TD_BATCH)
+    fused_ms = step_ms(fused[None], FUSED_BATCH)
+    td_bf16_ms = step_ms(td["bfloat16"], TD_BATCH)
+    fused_bf16_ms = step_ms(fused["bfloat16"], FUSED_BATCH)
+    engine = chain_runner(dev, td[None], [15.0], 4 * TD_BATCH, TD_BATCH)
     engine_ms = best_ms(engine.simulate)
     phase("times", card=repr(smi), block_fir_rows=FIR_ROWS[0],
           block_fir_ms=fir_ms, block_fir_bound_ms=fir_bound,
@@ -480,6 +501,8 @@ def chain_phases(dev, smi):
           time_domain_sym_per_s=TD_BATCH * TD_SYMBOLS / td_ms * 1e3,
           fused_step_ms=fused_ms,
           fused_sym_per_s=FUSED_BATCH * FUSED_SYMBOLS / fused_ms * 1e3,
+          time_domain_bf16_step_ms=td_bf16_ms,
+          fused_bf16_step_ms=fused_bf16_ms,
           per_key_engine_ms=engine_ms,
           per_key_engine_sym_per_s=4 * TD_BATCH * TD_SYMBOLS / engine_ms * 1e3)
     return {
@@ -518,6 +541,52 @@ def check_range(name, value, band):
         raise AssertionError(f"{name}: {value} outside {band}")
 
 
+def bd_guard_witness(mc, seed, k_main, p_main):
+    """The draw behind the BD PRNG parity's worst cell. For each solve of
+    that cell the plain version's guard ratio sqrt(smin) / sqrt(smax) (the
+    guard keeps a draw when it exceeds 1e-6), in float32 and, on the same
+    float32 draws, in float64; the draw with the smallest float64 ratio is
+    then replaced by its neighbour's in inject mode, which must take the
+    kernel's difference from the plain version down to float32 summation
+    rounding (1e-5 of the cell): the whole difference is that draw's."""
+    import torch
+    diff = (k_main - p_main).abs()
+    worst = int(diff.argmax())
+    rep, tile = divmod(worst, k_main.shape[1])
+    rows = slice(tile * mc.tile, (tile + 1) * mc.tile)
+    bits = mc.prng_bits(1, k_main.shape[1], seed, rep)[:, rows].contiguous()
+    ratio = {}
+    for name, dtype in (("float32", torch.complex64),
+                        ("float64", torch.complex128)):
+        gains = torch.stack(mc.stream_gains(bits, dtype)).reshape(
+            mc.K * mc.Nr_u, -1)
+        ratio[name] = (gains.min(dim=0).values.sqrt() /
+                       gains.max(dim=0).values.sqrt())
+    element = int(ratio["float64"].argmin())
+    row, lane = divmod(element, mc.lane)
+    swapped = bits.clone()
+    cols = torch.arange(mc.num_planes, device=bits.device) * mc.lane
+    swapped[0, row, cols + lane] = bits[0, row, cols + (lane + 1) % mc.lane]
+    run = mc.build_inject(1, 1)
+    cell, cell_swapped = (
+        float((run(b) - mc.simulate_block_reference(b)).abs())
+        for b in (bits, swapped))
+    plain_cell = float(p_main[rep, tile])
+    phase("bd_guard_witness", rep=rep, tile=tile, row=row, lane=lane,
+          prng_cell_diff=float(diff.max()), inject_cell_diff=cell,
+          ratio_float32=float(ratio["float32"][element]),
+          ratio_float64=float(ratio["float64"][element]),
+          next_smallest_ratio_float64=float(
+              ratio["float64"].kthvalue(2).values),
+          draw_capacity_plain=float(
+              mc.element_capacities(bits).reshape(-1)[element]),
+          inject_cell_diff_draw_replaced=cell_swapped,
+          limit=1e-5 * abs(plain_cell))
+    if not cell_swapped <= 1e-5 * abs(plain_cell):
+        raise AssertionError("bd_guard_witness: the worst cell's difference "
+                             "is not one draw's")
+
+
 def mimo_bd_phases(dev, smi):
     """Phases 13-19: the Alamouti and BD kernels against their plain
     versions, both families through the bulk path (kernel) and the per-key
@@ -530,7 +599,7 @@ def mimo_bd_phases(dev, smi):
     from apps.mimo.alamouti_mc_kernel_torch import \
         AlamoutiMcKernelSimulationRunner
     from apps.mimo.simulate_mimo_torch import MimoSimulationRunner
-    from pyphysim_tpu_torch.ops import bd_kernel
+    from pyphysim_tpu_torch.ops import bd_kernel, sass
     from pyphysim_tpu_torch.ops.alamouti_kernel import MonteCarloAlamouti
     from pyphysim_tpu_torch.ops.streams import AttemptStreams
     from pyphysim_tpu_torch.simulations import kernel_stream_seed
@@ -640,6 +709,7 @@ def mimo_bd_phases(dev, smi):
         "bd_prng_parity per rep", k_main.sum(dim=1), p_main.sum(dim=1),
         reps=BD_CHUNK, max_rel_diff_4096_solve_cell=float(cell_rel.max()),
         cells_over_limit=int((cell_rel > BD_REL_TOL).sum()))
+    bd_guard_witness(mcb, seed, k_main, p_main)
     k4 = mcb.build(4, BD_TILES)(seed, 4)
     again = mcb.build(BD_CHUNK, BD_TILES)(seed, 0)
     torch.cuda.synchronize()
@@ -687,7 +757,22 @@ def mimo_bd_phases(dev, smi):
           seconds=seconds, chain_calls=runner.chunks_dispatched)
     check_range("bd_chain_path mean capacity", chain_caps[0], BD_CAP_RANGE)
 
-    # 19. times (CUDA events, best of 3 after a warm-up)
+    # 19. the BD kernel's instances as built (phase 2), then times (CUDA
+    # events, best of 3 after a warm-up)
+    bd_instances = kernel_ptxas("mc_bd_kernel")
+    for name, regs in bd_instances.items():
+        phase("bd_build", instance=name, ptxas=repr(regs))
+    if len(bd_instances) != 2 * len(bd_kernel.MENU) * len(bd_kernel.MODES):
+        raise AssertionError(f"bd_build: {len(bd_instances)} mc_bd "
+                             f"instances")
+    bd_spilling = sorted(n for n, r in bd_instances.items()
+                         if " 0 bytes spill stores" not in r)
+    bd_heavy = sorted(n for n, r in bd_instances.items()
+                      if n.startswith("mc_bd_kernelILi3ELi2E")
+                      and int(r.split()[0]) > BD_MAX_REGISTERS_3_2)
+    if bd_spilling or bd_heavy:
+        raise AssertionError(f"bd_build: spills in {bd_spilling}, more than "
+                             f"{BD_MAX_REGISTERS_3_2} registers in {bd_heavy}")
     run_a = mca.build(ALA_CHUNK, ALA_TILES)
     ala_ms = best_ms(lambda: run_a(seed, snr, 0), inner=10)
     ala_plain_ms = best_ms(lambda: mca.prng_reference(
@@ -702,9 +787,14 @@ def mimo_bd_phases(dev, smi):
     bd_plain_ms = best_ms(lambda: mcb.prng_reference(BD_CHUNK, BD_TILES,
                                                      seed, 0))
     bd_solves = BD_CHUNK * BD_TILES * mcb.solves_per_grid_step
-    bd_sass, bd_bound, bd_bound_by, bd_pipe = sass_bound(
+    bd_sass, bd_built_bound, _, bd_pipe = sass_bound(
         mcb.prng_kernel_profile(BD_CHUNK, BD_TILES),
         nbytes=4 * BD_CHUNK * BD_TILES)
+    bd_fewest_bound, bd_fewest_pipe = sass.issue_bound_ms(
+        BD_FEWEST_SASS_PER_SOLVE, bd_solves)
+    bd_bound, bd_bound_by = bound_ms(
+        nbytes=4 * BD_CHUNK * BD_TILES,
+        issue_ms=min(bd_built_bound, bd_fewest_bound))
 
     def step_ms(runner, batch):
         """One chain call of the per-key runner's kernel on ``batch``
@@ -733,8 +823,17 @@ def mimo_bd_phases(dev, smi):
           f"lane={BD_LANE},K=3,Nr_u=2,normalized",
           bd_kernel_ms=bd_ms, bd_kernel_solves_per_s=bd_solves / bd_ms * 1e3,
           bd_bound_ms=bd_bound, bd_bound_by=bd_bound_by,
-          bd_bound_pipe=bd_pipe, bd_sass_per_thread=compact(bd_sass),
-          bd_share_of_bound=bd_bound / bd_ms, bd_plain_ms=bd_plain_ms,
+          bd_share_of_bound=bd_bound / bd_ms,
+          bd_built_bound_ms=bd_built_bound, bd_built_bound_pipe=bd_pipe,
+          bd_sass_per_thread=compact(bd_sass),
+          bd_share_of_built_bound=bd_built_bound / bd_ms,
+          bd_fewest_bound_ms=bd_fewest_bound,
+          bd_fewest_bound_pipe=bd_fewest_pipe,
+          bd_fewest_sass_per_solve=BD_FEWEST_SASS_PER_SOLVE["total"],
+          bd_plain_ms=bd_plain_ms,
+          bd_registers_3_2=bd_instances.get(
+              "mc_bd_kernelILi3ELi2ELi0ELb0E", "?"),
+          bd_spilling_instances=len(bd_spilling),
           alamouti_chain_step_ms=ala_chain_ms,
           alamouti_chain_sym_per_s=ALA_CHAIN_BATCH * ALA_CHAIN_SYMBOLS /
           ala_chain_ms * 1e3,
@@ -800,19 +899,15 @@ def ia_plain(mc, reps, num_tiles, seed, start=0):
         for r in range(0, reps, IA_PLAIN_SLICE)])
 
 
-def ia_ptxas():
-    """``{instance: "registers, spill stores / loads"}`` of the IA kernel's
-    instances in the built library, from the build log's ``-Xptxas -v``
-    lines."""
+def ptxas_info(log, kernel):
+    """``{instance: "registers, spill stores / loads"}`` of the instances
+    of the kernel named by the regex ``kernel`` in the ``-Xptxas -v`` lines
+    of the nvcc log ``log`` (text)."""
     import re
-    from pyphysim_tpu_torch.ops import _build
-    log = _build.library_path().with_suffix(".log")
-    lines = log.read_text().splitlines() if log.exists() else []
     out, name = {}, None
-    for line in lines:
+    for line in log.splitlines():
         if "entry function" in line:
-            m = re.search(r"\d(mc_ia_(?:closed|general)_kernelI\w*?)EEvNS",
-                          line)
+            m = re.search(rf"\d({kernel}I\w*?)EEvNS", line)
             name = m.group(1) if m else None
         elif name and "spill" in line:
             out[name] = re.sub(r"\s+", " ", line.strip())
@@ -821,6 +916,21 @@ def ia_ptxas():
             out[name] = f"{regs} registers, {out.get(name, '')}"
             name = None
     return out
+
+
+def kernel_ptxas(kernel):
+    """:func:`ptxas_info` of the library built in this run."""
+    from pyphysim_tpu_torch.ops import _build
+    log = _build.library_path().with_suffix(".log")
+    return ptxas_info(log.read_text() if log.exists() else "", kernel)
+
+
+def card():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def ia_phases(dev, smi):
@@ -837,7 +947,7 @@ def ia_phases(dev, smi):
     from pyphysim_tpu_torch.ops.streams import AttemptStreams
 
     # 20. the kernel instances the build made (phase 2 built the library)
-    instances = ia_ptxas()
+    instances = kernel_ptxas("mc_ia_(?:closed|general)_kernel")
     for name, regs in instances.items():
         phase("ia_build", instance=name, ptxas=repr(regs))
     if len(instances) != 2 * len(ia_kernel.MENU):

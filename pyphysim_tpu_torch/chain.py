@@ -17,6 +17,17 @@ inputs:
   * :meth:`ChainStep.step` draws those inputs from per-attempt streams
     (``ops/streams.py``) and returns the bit-error counts: the
     ``kernel(streams)`` of the runner's per-key path.
+
+``signal_dtype=torch.bfloat16`` is the reference's bf16 signal path, which
+``bench.py`` times. Torch has no complex bf16 and ``torch.fft`` no bf16, so
+the signal stays complex64 holding bf16 values: it is rounded to bf16
+(``utils.misc.round_bf16``) wherever the JAX step's value is bf16 (the
+symbols, the OFDM modulate and demodulate outputs, the channel output, the
+noise, its amplitude, their product and the noisy sum; on the fused route
+the output of ``corrupt_and_demodulate``), and computed in float32 in
+between. The equalizer runs in float32 on those values, as the JAX step
+promotes it. The noise is the float32 draw rounded: the JAX package's
+moment correction of its bf16 sampler has no counterpart here.
 """
 
 from __future__ import annotations
@@ -24,19 +35,32 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ._device import DeviceLike, require_cuda
 from .channels import COST259_TUx, JakesSampleGenerator, TdlChannel
 from .modulators import OFDM, QAM, OfdmOneTapEqualizer
 from .ops.fused_ofdm_tdl import FusedOfdmTdl
-from .utils.misc import count_bit_errors, randn_c, random_symbols
+from .utils.misc import (count_bit_errors, randn_c, random_symbols,
+                         round_bf16)
 
 __all__ = ["ChainOutput", "ChainStep"]
 
 BANDWIDTH = 20e6       # Ts = 50 ns
 DOPPLER_HZ = 30.0
 JAKES_RAYS = 16
+
+
+def _signal_dtype(dtype) -> Optional[torch.dtype]:
+    """None (complex64) or bfloat16, given as ``torch.bfloat16`` or its
+    name."""
+    if dtype is None:
+        return None
+    if dtype is torch.bfloat16 or dtype == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"signal_dtype must be None, torch.bfloat16 or "
+                     f"'bfloat16', got {dtype!r}")
 
 
 class ChainOutput(NamedTuple):
@@ -49,17 +73,15 @@ class ChainOutput(NamedTuple):
 class ChainStep:
     """The flagship chain at one geometry. Arguments as
     ``_make_chain_step`` (``precision`` has no counterpart: the port's
-    transforms are ``torch.fft`` in float32); ``signal_dtype`` must be None
-    (complex64), ``fused`` requires ``block_static``."""
+    transforms are ``torch.fft`` in float32); ``signal_dtype`` is None
+    (complex64) or bfloat16 (the module docstring says where it rounds),
+    ``fused`` requires ``block_static``."""
 
     def __init__(self, num_symbols: int, fft_size: int, cp_size: int,
                  num_used: int, block_static: bool = False,
                  signal_dtype=None, fused: bool = False,
                  device: DeviceLike = "cuda") -> None:
-        if signal_dtype is not None:
-            raise NotImplementedError(
-                "only the complex64 signal path is ported "
-                "(signal_dtype=None)")
+        self.signal_dtype = _signal_dtype(signal_dtype)
         if fused and not block_static:
             raise ValueError("the fused path implies block-static evolution")
         if num_symbols % num_used != 0:
@@ -92,17 +114,28 @@ class ChainStep:
         Jakes state with batch (n,), ``noise`` (n, noise_length) CN(0, 1)
         complex64 (scaled here: by ``sqrt(1 / snr)`` in the time domain,
         times ``noise_gain`` on the fused path)."""
-        tx = self.qam.modulate(data)
-        scale = math.sqrt(1.0 / float(snr_linear))
+        bf16 = self.signal_dtype is not None
+        # identity on the complex64 path
+        rnd = round_bf16 if bf16 else (lambda x: x)
+        tx = rnd(self.qam.modulate(data))
         if self.fop is not None:
             rx, ir, _ = self.fop.corrupt_and_demodulate(channel_state, tx)
-            rx = rx + noise * (scale * self.fop.noise_gain)
+            gain = self.fop.noise_gain
         else:
-            sig = self.ofdm.modulate(tx)
-            rx_sig, ir, _ = self.channel.corrupt_data(
+            sig = rnd(self.ofdm.modulate(tx))
+            rx, ir, _ = self.channel.corrupt_data(
                 channel_state, sig, block_size=self.block_size)
-            rx_sig = rx_sig + noise * scale
-            rx = self.ofdm.demodulate(rx_sig[..., :sig.shape[-1]])
+            gain = 1.0
+        if bf16:
+            # the JAX step's amplitude: sqrt(1 / snr) in float32, times
+            # the gain, cast to bf16 (a python float holds it exactly)
+            amp = float(round_bf16(torch.tensor(np.sqrt(
+                np.float32(1.0) / np.float32(snr_linear)) * np.float32(gain))))
+            rx = rnd(rnd(rx) + rnd(rnd(noise) * amp))
+        else:
+            rx = rx + noise * (math.sqrt(1.0 / float(snr_linear)) * gain)
+        if self.fop is None:
+            rx = rnd(self.ofdm.demodulate(rx[..., :sig.shape[-1]]))
         eq = self.equalizer.equalize_data(rx, ir)
         decided = self.qam.demodulate_hard(eq)
         return ChainOutput(count_bit_errors(data, decided, axis=-1), eq, rx)

@@ -3,7 +3,8 @@ Jakes and Rayleigh generators; the flat-fading multiuser channel matrix."""
 
 from .fading import (COST259_HTx, COST259_RAx, COST259_TUx,  # noqa: F401
                      TdlChannel, TdlChannelProfile, TdlImpulseResponse)
-from .fading_generators import (JakesSampleGenerator,  # noqa: F401
-                                JakesState, RayleighSampleGenerator,
-                                RayleighState)
+from .fading_generators import (FadingSampleGenerator,  # noqa: F401
+                                JakesSampleGenerator, JakesState,
+                                RayleighSampleGenerator, RayleighState,
+                                generate_jakes_samples)
 from .multiuser import MultiUserChannelMatrix  # noqa: F401

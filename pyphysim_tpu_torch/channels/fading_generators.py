@@ -18,6 +18,13 @@ realization per row, as the JAX package's ``vmap`` does): ``t0`` and the
 Rayleigh counter have the batch shape. ``init_state`` draws from an
 explicit random source: a ``torch.Generator`` (no batch) or an
 ``ops.streams.AttemptStreams`` (one row per attempt).
+
+Both derive from :class:`FadingSampleGenerator`, which also carries the
+reference's stateful host API (``set_seed``, ``generate_more_samples``,
+``get_samples``, ``skip_samples_for_next_generation``): an internal state
+seeded through a ``torch.Generator`` on the generator's device, samples
+returned as numpy. ``generate_jakes_samples`` is the stateless
+convenience function.
 """
 
 from __future__ import annotations
@@ -31,8 +38,9 @@ import torch
 from .._device import DeviceLike, require_cuda
 from ..ops import streams
 
-__all__ = ["JakesSampleGenerator", "JakesState", "RayleighSampleGenerator",
-           "RayleighState"]
+__all__ = ["FadingSampleGenerator", "JakesSampleGenerator", "JakesState",
+           "RayleighSampleGenerator", "RayleighState",
+           "generate_jakes_samples"]
 
 Shape = Union[int, Tuple[int, ...]]
 
@@ -59,22 +67,93 @@ class JakesState(NamedTuple):
         dev = require_cuda(device)
 
         def f32(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+            return torch.as_tensor(np.array(a, np.float32), device=dev)
         return cls(f32(phi_l), f32(psi_l), f32(t0))
 
 
-class JakesSampleGenerator:
+class FadingSampleGenerator:
+    """Base of the generators: the sample shape and device, the functional
+    API (``init_state`` / ``generate`` / ``skip``, state in and out) that
+    the subclasses implement, and the reference's stateful host API on an
+    internal state."""
+
+    def __init__(self, shape: Optional[Shape] = None,
+                 device: DeviceLike = "cuda") -> None:
+        self._shape = _normalize_shape(shape) if shape is not None else None
+        self.device = require_cuda(device)
+        self._state = None
+        self._samples: Optional[np.ndarray] = None
+        self._seed: Optional[int] = None
+
+    @property
+    def shape(self):
+        return self._shape
+
+    @shape.setter
+    def shape(self, new_shape):
+        self._shape = (_normalize_shape(new_shape)
+                       if new_shape is not None else None)
+
+    def init_state(self, source):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def generate(self, state, num_samples: int = 1):  # pragma: no cover
+        raise NotImplementedError
+
+    def skip(self, state, num_samples: int):  # pragma: no cover
+        raise NotImplementedError
+
+    def get_similar_fading_generator(self):  # pragma: no cover
+        raise NotImplementedError
+
+    # -- the stateful host API ---------------------------------------------
+
+    def set_seed(self, seed: int) -> None:
+        """(Re)seed the internal state of the stateful API."""
+        self._seed = int(seed)
+        self._state = self.init_state(
+            torch.Generator(device=self.device).manual_seed(self._seed))
+
+    def _ensure_state(self) -> None:
+        if self._state is None:
+            if self._seed is None:
+                # fresh entropy per generator, as the reference's
+                # per-object RandomState
+                self._seed = int(np.random.randint(0, 2**31 - 1))
+            self.set_seed(self._seed)
+
+    def generate_more_samples(
+            self, num_samples: Optional[int] = None) -> None:
+        """Generate the next samples into :meth:`get_samples`. With
+        ``num_samples=None`` one sample of shape ``self.shape``, without
+        the trailing sample axis, as the reference."""
+        self._ensure_state()
+        n = 1 if num_samples is None else int(num_samples)
+        samples, self._state = self.generate(self._state, n)
+        host = samples.cpu().numpy()
+        self._samples = host[..., 0] if num_samples is None else host
+
+    def get_samples(self) -> Optional[np.ndarray]:
+        """The samples of the last :meth:`generate_more_samples` call."""
+        return self._samples
+
+    def skip_samples_for_next_generation(self, num_samples: int) -> None:
+        """Advance the internal state without generating samples."""
+        self._ensure_state()
+        self._state = self.skip(self._state, num_samples)
+
+
+class JakesSampleGenerator(FadingSampleGenerator):
     """Jakes sum-of-sinusoids:
     ``h(t) = sqrt(1/L) sum_l exp(j(2 pi Fd cos(phi_l) t + psi_l))``."""
 
     def __init__(self, Fd: float = 100.0, Ts: float = 1e-3, L: int = 8,
                  shape: Optional[Shape] = None,
                  device: DeviceLike = "cuda") -> None:
+        super().__init__(shape, device)
         self._Fd = float(Fd)
         self._Ts = float(Ts)
         self._L = int(L)
-        self._shape = _normalize_shape(shape) if shape is not None else None
-        self.device = require_cuda(device)
 
     @property
     def Fd(self) -> float:
@@ -87,15 +166,6 @@ class JakesSampleGenerator:
     @property
     def L(self) -> int:
         return self._L
-
-    @property
-    def shape(self):
-        return self._shape
-
-    @shape.setter
-    def shape(self, new_shape):
-        self._shape = (_normalize_shape(new_shape)
-                       if new_shape is not None else None)
 
     def init_state(self, source) -> JakesState:
         """Draw fresh ray angles and phases, uniform in [0, 2 pi), from
@@ -130,6 +200,12 @@ class JakesSampleGenerator:
         return JakesState(phi_l=state.phi_l, psi_l=state.psi_l,
                           t0=state.t0 + num_samples * self._Ts)
 
+    def get_similar_fading_generator(self) -> "JakesSampleGenerator":
+        """A generator of the same configuration and device (its own
+        state)."""
+        return JakesSampleGenerator(self._Fd, self._Ts, self._L, self._shape,
+                                    self.device)
+
 
 class RayleighState(NamedTuple):
     """State of a Rayleigh generator: a Philox key and a draw counter."""
@@ -151,23 +227,9 @@ class RayleighState(NamedTuple):
         return cls(k, c)
 
 
-class RayleighSampleGenerator:
+class RayleighSampleGenerator(FadingSampleGenerator):
     """iid CN(0, 1) samples (memoryless: ``skip`` only moves the
     counter, so later draws still differ)."""
-
-    def __init__(self, shape: Optional[Shape] = None,
-                 device: DeviceLike = "cuda") -> None:
-        self._shape = _normalize_shape(shape) if shape is not None else None
-        self.device = require_cuda(device)
-
-    @property
-    def shape(self):
-        return self._shape
-
-    @shape.setter
-    def shape(self, new_shape):
-        self._shape = (_normalize_shape(new_shape)
-                       if new_shape is not None else None)
 
     def init_state(self, source) -> RayleighState:
         """A fresh key drawn from an explicit random source (see
@@ -197,3 +259,27 @@ class RayleighSampleGenerator:
     def skip(self, state: RayleighState, num_samples: int) -> RayleighState:
         del num_samples
         return RayleighState(state.key, state.counter + 1)
+
+    def get_similar_fading_generator(self) -> "RayleighSampleGenerator":
+        """A generator of the same shape and device (its own state)."""
+        return RayleighSampleGenerator(self._shape, self.device)
+
+
+def generate_jakes_samples(Fd: float, Ts: float = 1e-3,
+                           num_samples: int = 100, L: int = 8,
+                           shape: Optional[Shape] = None, source=None,
+                           device: DeviceLike = "cuda") -> torch.Tensor:
+    """``num_samples`` Jakes samples, ``shape + (num_samples,)``, from a
+    fresh state: the stateless convenience function of the reference.
+    ``source`` is a random source for :meth:`JakesSampleGenerator.
+    init_state` (None: a ``torch.Generator`` seeded with 0) or a
+    :class:`JakesState` to start from."""
+    gen = JakesSampleGenerator(Fd, Ts, L, shape, device)
+    if isinstance(source, JakesState):
+        state = source
+    else:
+        if source is None:
+            source = torch.Generator(device=gen.device).manual_seed(0)
+        state = gen.init_state(source)
+    samples, _ = gen.generate(state, num_samples)
+    return samples

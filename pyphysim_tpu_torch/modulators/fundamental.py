@@ -51,6 +51,22 @@ class Modulator:
         self._table = torch.tensor(symbols.astype(np.complex64),
                                    device=self.device)
 
+    def plotConstellation(self) -> None:  # pragma: no cover
+        """Scatter-plot the constellation with each point's binary and
+        decimal label (matplotlib, imported here: nothing else needs
+        it)."""
+        import matplotlib.pyplot as plt
+        _, ax = plt.subplots()
+        ax.scatter(self.symbols.real, self.symbols.imag)
+        ax.axis("equal")
+        ax.grid()
+        for index, symbol in enumerate(self.symbols):
+            ax.text(symbol.real, symbol.imag + 0.03,
+                    f"{index:0{self._K}b} ({index})",
+                    verticalalignment="bottom",
+                    horizontalalignment="center")
+        plt.show()
+
     @property
     def M(self) -> int:
         """Constellation cardinality."""
@@ -105,6 +121,21 @@ class Modulator:
     def calcTheoreticalBER(self, SNR: NumberOrArray) -> NumberOrArray:
         raise NotImplementedError
 
+    def calcTheoreticalPER(self, SNR: NumberOrArray,
+                           packet_length: int) -> NumberOrArray:
+        """Theoretical packet error rate ``1 - (1 - BER)^L``."""
+        ber = self.calcTheoreticalBER(SNR)
+        return 1.0 - (1.0 - ber) ** packet_length
+
+    def calcTheoreticalSpectralEfficiency(
+            self, SNR: NumberOrArray,
+            packet_length: Optional[int] = None) -> NumberOrArray:
+        """``K * (1 - PER)`` bits per symbol; ``K * (1 - BER)`` without a
+        packet length."""
+        if packet_length is None:
+            return self._K * (1.0 - self.calcTheoreticalBER(SNR))
+        return self._K * (1.0 - self.calcTheoreticalPER(SNR, packet_length))
+
 
 class PSK(Modulator):
     """Gray-mapped M-PSK on the unit circle."""
@@ -128,6 +159,13 @@ class PSK(Modulator):
         re[np.abs(re) < 1e-15] = 0.0
         im[np.abs(im) < 1e-15] = 0.0
         return re + 1j * im
+
+    def setPhaseOffset(self, phaseOffset: float) -> None:
+        """Rotate the constellation: rebuild the Gray-mapped table (host
+        and device) with the new offset."""
+        self._phase_offset = phaseOffset
+        symbols = self._createConstellation(self._M, phaseOffset)
+        self.setConstellation(symbols[gray2binary(np.arange(self._M))])
 
     def calcTheoreticalSER(self, SNR):
         """High-SNR approximation ``2 Q(sqrt(2 snr) sin(pi/M))``."""

@@ -30,6 +30,9 @@ tensors it launches the kernel, or raises: there is no fallback.
 
 from __future__ import annotations
 
+import functools
+import re
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
@@ -46,13 +49,22 @@ __all__ = ["MonteCarloBD", "MENU", "MODES", "from_jax_attrs"]
 
 MENU = ((2, 1), (2, 2), (3, 2), (4, 1), (4, 2))   # (K, Nr_u) instantiated
 MODES = ("normalized", "global", "none")           # the kernel's mode codes
-_THREADS = 128            # mc_bd.cu kThreads
-_ELEMS_PER_THREAD = 4     # mc_bd.cu kElemsPerThread
+_SOURCE = Path(__file__).resolve().parent / "csrc" / "mc_bd.cu"
+
+
+@functools.lru_cache(maxsize=1)
+def block_threads() -> int:
+    """``kThreads`` of ``ops/csrc/mc_bd.cu``, the threads of a block (one
+    element each), read from the source so that the SASS profile cannot
+    drift from the kernel."""
+    m = re.search(r"constexpr int kThreads = (\d+);", _SOURCE.read_text())
+    if m is None:
+        raise RuntimeError(f"{_SOURCE.name} defines no kThreads")
+    return int(m.group(1))
 
 
 def _f32(x) -> float:
     return float(np.float32(x))
-
 
 
 class MonteCarloBD:
@@ -101,15 +113,19 @@ class MonteCarloBD:
                             ) -> Dict[str, object]:
         """What ``ops/sass.py`` needs to count one PRNG-mode call's
         instructions: the kernel instance's mangled-name pattern, the
-        threads launched, and its one loop, over a thread's elements (a
-        cell's tile * lane is a multiple of 1,024, so every thread runs
-        all of its trips)."""
-        parts = self.tile * self.lane // (_THREADS * _ELEMS_PER_THREAD)
+        threads launched (one a solve), and its loops with their trips in
+        listing order: the Philox calls that fill a thread's channel, then
+        for each user (the user loop is unrolled) two passes over the
+        columns of H. The rest is unrolled."""
+        threads = block_threads()
+        parts = -(-self.tile * self.lane // threads)
+        nt = self.K * self.Nr_u
+        trips = [self.num_planes // 4] + [nt, nt] * self.K
         pattern = (f"mc_bd_kernelILi{self.K}ELi{self.Nr_u}ELi"
                    f"{MODES.index(self.mode)}ELb0EE")
         return {"pattern": pattern,
-                "threads": reps * num_tiles * parts * _THREADS,
-                "loops": 1, "loop_trips": _ELEMS_PER_THREAD}
+                "threads": reps * num_tiles * parts * threads,
+                "loops": len(trips), "loop_trips": trips}
 
     def _scalars(self, iPu, noise_var):
         return (_f32(self.iPu if iPu is None else iPu),
@@ -119,23 +135,22 @@ class MonteCarloBD:
     # The plain PyTorch version
     # ------------------------------------------------------------------
 
-    def element_capacities(self, ch_bits: torch.Tensor,
-                           iPu: Optional[float] = None,
-                           noise_var: Optional[float] = None
-                           ) -> torch.Tensor:
-        """Per-element capacities (reps, num_tiles, tile * lane), float32,
-        0 for a degenerate draw: ``_solve_block`` + ``_guarded`` step for
-        step on the bits' device. ``ch_bits`` is the inject layout."""
+    def stream_gains(self, ch_bits: torch.Tensor,
+                     dtype: torch.dtype = torch.complex64) -> list:
+        """The K * Nr_u stream gains of each element, each (reps,
+        num_tiles, tile, lane): ``_solve_block``'s projections and
+        eigenvalues on the float32 draws of ``ch_bits`` (inject layout),
+        carried out in ``dtype`` (complex64 as the kernel; complex128 as a
+        witness of what float32 rounding does to a draw)."""
         K, NR = self.K, self.Nr_u
         NT = K * NR
-        ipu, nv = self._scalars(iPu, noise_var)
         reps, rows, _ = ch_bits.shape
         nt = rows // self.tile
         planes = ch_bits.reshape(reps, nt, self.tile, self.num_planes,
                                  self.lane).transpose(-1, -2)
         g = _gauss(planes)                       # (reps, nt, tile, lane, P)
         H = torch.complex(g[..., 0::2], g[..., 1::2]).reshape(
-            g.shape[:-1] + (NT, NT))
+            g.shape[:-1] + (NT, NT)).to(dtype)
 
         gains = []
         for k in range(K):
@@ -155,6 +170,19 @@ class MonteCarloBD:
                 l0, l1 = herm2_eigvals(gram_rows(T))
                 gains.append(torch.clamp(l0, min=0.0))
                 gains.append(torch.clamp(l1, min=0.0))
+        return gains
+
+    def element_capacities(self, ch_bits: torch.Tensor,
+                           iPu: Optional[float] = None,
+                           noise_var: Optional[float] = None
+                           ) -> torch.Tensor:
+        """Per-element capacities (reps, num_tiles, tile * lane), float32,
+        0 for a degenerate draw: ``_solve_block`` + ``_guarded`` step for
+        step on the bits' device. ``ch_bits`` is the inject layout."""
+        K, NR = self.K, self.Nr_u
+        ipu, nv = self._scalars(iPu, noise_var)
+        reps, nt = ch_bits.shape[0], ch_bits.shape[1] // self.tile
+        gains = self.stream_gains(ch_bits)
 
         inv_nv = _f32(np.float32(1.0) / np.float32(nv))
         if self.mode == "none":

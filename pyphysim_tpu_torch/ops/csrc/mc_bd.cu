@@ -18,24 +18,54 @@
 //     scale-relative guard that zeroes a degenerate draw.
 //
 // What bounds it on the card: instruction issue. In PRNG mode nothing is
-// read per element; at (K, Nr_u) = (3, 2) an element costs ~5,800 SASS
+// read per element; at (K, Nr_u) = (3, 2) an element costs ~7,400 SASS
 // instructions (72 erfinvf, three 4x4 LDL^H solves and their products, 18
-// Philox calls), ~3,700 of them f32 and ~1,200 ALU (ops/sass.py counts
-// them from the built library): the SM's four schedulers, one warp
-// instruction per clock each, are the limit, ahead of the FMA pipe. The
-// design:
-//   * one element per thread, the whole solve in registers: every matrix is
-//     a fixed-size array (ops/csrc/planes.cuh) and every loop is unrolled,
-//     with (K, Nr_u) and the mode as template parameters (the menu below);
-//   * each thread draws its element's channel words with Philox in
-//     registers; inject-mode loads are coalesced along the lane;
-//   * the TPU grid (rep, tile) ran in order and summed per step; here a
-//     block sums a fixed slice of a (rep, tile) in a fixed order (per
-//     thread, then a shuffle tree, then its warps), writes one partial, and
-//     a second pass adds a (rep, tile)'s partials in order. No float
-//     atomics: a rerun and another chunking give the same bits.
-// Register pressure grows with NT^2: at (4, 2) H alone is 128 floats;
-// chip_smoke.py prints ptxas's registers and spills for each instance.
+// Philox calls, the shared-memory traffic and the column loops), most of
+// them f32 (ops/sass.py counts them from the built library): the SM's four
+// schedulers, one warp instruction per clock each, are the limit. The
+// function needs fewer: the earlier form, H in registers, solved an element
+// in ~5,800, so ~1,500 of these (the shared-memory traffic, loop counters,
+// run-time addresses) are overhead of this design, and chip_smoke.py holds
+// the kernel to the bound of the smaller count. To reach it the schedulers
+// need enough warps to hide each solve's long dependent chain, and a loop
+// body small enough to stay in the instruction cache. The design:
+//   * one element per thread, its channel in shared memory: the thread
+//     writes its element's NT x NT entries to a plane-major tile
+//     s_H[entry][threadIdx.x] (one float2 per entry, so a warp's access is
+//     256 consecutive bytes, free of bank conflicts), from Philox words in
+//     registers (PRNG mode, the same words in the same order as the plain
+//     version) or from loads coalesced along the lane (inject mode). Each
+//     thread reads only its own column, so no barrier is needed;
+//   * per user only the small working set lives in registers: B (M x M, M
+//     = (K - 1) Nr_u), Y (Nr_u x M) and W (M x Nr_u). B and Y are summed
+//     column by column of H; then T is streamed column by column straight
+//     into its Gram (p, q, r) or |T|^2, so tilde, Hk, T and the projection
+//     never exist whole. The sums run in the order of the plain version
+//     (bd_pallas.py _solve_block), so the result stays within rounding of
+//     it; T T^H is never rewritten as Hk Hk^H - Y W, which cancels;
+//   * the loops: the Philox calls that fill a thread's column and the two
+//     passes over the columns of H stay rolled (the column index is a
+//     run-time shared-memory offset, so a rolled pass costs a counter and
+//     keeps the code small); the user loop is unrolled, so each user's row
+//     offsets are constants. Fully unrolled, the solve was ~130 KB of code
+//     and slower than H held in registers; rolling the user loop as well,
+//     or giving a thread 2 or 4 elements, was slower than this form
+//     (bin/tune_bd_kernel.py times these variants; ops/bd_kernel.py's SASS
+//     profile lists the loops);
+//   * (K, Nr_u) and the mode are template parameters (the menu below).
+// Shared memory per block of 128 threads: NT^2 x 1 KB (36 KB at (3, 2),
+// 64 KB at (4, 2), above the 48 KB default, opted in per launch).
+// __launch_bounds__ caps registers at 128 for NT <= 6 (four blocks a SM)
+// and 168 at NT = 8 (three blocks, bound by shared memory); ptxas stays
+// well below both without spilling (~60 at (3, 2), so shared memory, not
+// registers, sets six blocks, 24 warps a SM, where H held in registers
+// took 255 with spills and two blocks). chip_smoke.py prints each
+// instance's registers and spills. The water-filling and the sums keep a
+// fixed order: the TPU grid (rep, tile) ran in order and summed per step;
+// here a block sums a fixed slice of a (rep, tile) in a fixed order (a
+// shuffle tree, then its warps), writes one partial, and a second pass
+// adds a (rep, tile)'s partials in order. No float atomics: a rerun and
+// another chunking give the same bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -48,9 +78,8 @@ namespace {
 
 using planes::cf;
 
-constexpr int kThreads = 128;
-constexpr int kElemsPerThread = 4;
-constexpr int kElemsPerBlock = kThreads * kElemsPerThread;
+constexpr int kThreads = 128;  // one element a thread
+constexpr int kStaticSmemLimit = 48 * 1024;
 constexpr uint32_t kChannelKey = 5u;  // ops/philox.py BD_CHANNEL_KEY
 enum Mode { kNormalized = 0, kGlobal = 1, kNone = 2 };
 
@@ -65,72 +94,134 @@ struct Params {
   long long start;
 };
 
-// Plane pl (re of H[i][c] at 2 (i NT + c), im next) of an element.
+// Bytes of s_H for an NT x NT channel per thread of a block.
 template <int NT>
-__device__ __forceinline__ void set_plane(cf (&H)[NT][NT], int pl, float v) {
-  const int e = pl >> 1;
-  if (pl & 1) {
-    H[e / NT][e % NT].im = v;
-  } else {
-    H[e / NT][e % NT].re = v;
+constexpr int smem_bytes() {
+  return NT * NT * kThreads * (int)sizeof(float2);
+}
+
+// Blocks per SM that __launch_bounds__ asks registers for: four, unless
+// shared memory admits fewer.
+template <int NT>
+constexpr int min_blocks() {
+  return smem_bytes<NT>() > kStaticSmemLimit ? 3 : 4;
+}
+
+// Entry e = i NT + j of this thread's element: its column of s_H holds
+// the entries kThreads float2 apart.
+__device__ __forceinline__ cf load_h(const float2* col, int e) {
+  const float2 v = col[e * kThreads];
+  return {v.x, v.y};
+}
+
+// The stream gains of user k: sigma^2 of T = Hk - W^H tilde (Nr_u = 1:
+// |T|^2; Nr_u = 2: the two eigenvalues of T T^H, descending), written to
+// gains[NR k ...]. The user loop is unrolled, so k and the rows' offsets
+// are constants; the two column loops stay rolled.
+template <int K, int NR>
+__device__ __forceinline__ void user_gains(const float2* col, int k,
+                                           float (&gains)[K * NR]) {
+  constexpr int NT = K * NR;
+  constexpr int M = (K - 1) * NR;
+  // the entry of column 0 of each row of tilde (the other users' rows, in
+  // order) and of the user's own rows
+  int trow[M], hrow[NR];
+#pragma unroll
+  for (int t = 0; t < M; ++t) trow[t] = (t < k * NR ? t : t + NR) * NT;
+#pragma unroll
+  for (int s = 0; s < NR; ++s) hrow[s] = (NR * k + s) * NT;
+
+  // B = tilde tilde^H (gram_full) and Y = Hk tilde^H (mat_mul), each entry
+  // summed over the columns in order (from 0, and 0 + x is x)
+  cf B[M][M], Y[NR][M];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = 0; j < M; ++j) B[i][j] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < NR; ++r) Y[r][i] = {0.f, 0.f};
+  }
+#pragma unroll 1  // columns
+  for (int c = 0; c < NT; ++c) {
+    cf tl[M], hk[NR];
+#pragma unroll
+    for (int t = 0; t < M; ++t) tl[t] = load_h(col, trow[t] + c);
+#pragma unroll
+    for (int s = 0; s < NR; ++s) hk[s] = load_h(col, hrow[s] + c);
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+#pragma unroll
+      for (int j = i; j < M; ++j) {
+        B[i][j] = planes::cadd(B[i][j], planes::cmulc(tl[i], tl[j]));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        Y[r][i] = planes::cadd(Y[r][i],
+                               planes::cmul(hk[r], planes::cconj(tl[i])));
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int j = i + 1; j < M; ++j) B[j][i] = planes::cconj(B[i][j]);
+  }
+  cf Y_h[M][NR];
+  planes::mat_H<NR, M>(Y, Y_h);
+  cf W[M][NR];
+  planes::herm_solve_cols_ldl<M, NR>(B, Y_h, W);
+
+  // T column by column, added at once into its Gram (gram_rows) or |T|^2
+  float p = 0.f, r = 0.f;
+  cf q = {0.f, 0.f};
+#pragma unroll 1  // columns
+  for (int c = 0; c < NT; ++c) {
+    cf tl[M];
+#pragma unroll
+    for (int t = 0; t < M; ++t) tl[t] = load_h(col, trow[t] + c);
+    cf T[NR];
+#pragma unroll
+    for (int s = 0; s < NR; ++s) {
+      cf acc = planes::cmul(planes::cconj(W[0][s]), tl[0]);
+#pragma unroll
+      for (int t = 1; t < M; ++t) {
+        acc = planes::cadd(acc, planes::cmul(planes::cconj(W[t][s]), tl[t]));
+      }
+      T[s] = planes::csub(load_h(col, hrow[s] + c), acc);
+    }
+    p = p + planes::cabs2(T[0]);
+    if constexpr (NR == 2) {
+      r = r + planes::cabs2(T[1]);
+      q = planes::cadd(q, planes::cmulc(T[0], T[1]));
+    }
+  }
+  float g0 = fmaxf(p, 0.f), g1 = 0.f;  // sigma^2
+  if constexpr (NR == 2) {
+    float l0, l1;
+    planes::herm2_eigvals(p, q, r, l0, l1);
+    g0 = fmaxf(l0, 0.f);  // descending
+    g1 = fmaxf(l1, 0.f);
+  }
+#pragma unroll
+  for (int i = 0; i < K * NR; ++i) {
+    gains[i] = i == NR * k ? g0 : (NR == 2 && i == NR * k + 1 ? g1 : gains[i]);
   }
 }
 
 // Sum capacity of one element (0 for a degenerate draw): _solve_block +
 // _guarded of bd_pallas.py, in the same order.
 template <int K, int NR, int MODE>
-__device__ __forceinline__ float solve_element(const cf (&H)[K * NR][K * NR],
-                                               float nv, float ipu) {
-  constexpr int NT = K * NR;
-  constexpr int M = (K - 1) * NR;
+__device__ __forceinline__ float solve_element(const float2* col, float nv,
+                                               float ipu) {
   constexpr int NS = K * NR;  // streams
   float gains[NS];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    cf tilde[M][NT];
-    cf Hk[NR][NT];
-#pragma unroll
-    for (int t = 0; t < M; ++t) {
-      const int src = t < k * NR ? t : t + NR;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) tilde[t][j] = H[src][j];
-    }
-#pragma unroll
-    for (int t = 0; t < NR; ++t) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j) Hk[t][j] = H[NR * k + t][j];
-    }
-    // projector route: T = Hk - W^H tilde with W = B^-1 Y^H
-    cf B[M][M];
-    planes::gram_full<M, NT>(tilde, B);
-    cf tilde_h[NT][M];
-    planes::mat_H<M, NT>(tilde, tilde_h);
-    cf Y[NR][M];
-    planes::mat_mul<NR, NT, M>(Hk, tilde_h, Y);
-    cf Y_h[M][NR];
-    planes::mat_H<NR, M>(Y, Y_h);
-    cf W[M][NR];
-    planes::herm_solve_cols_ldl<M, NR>(B, Y_h, W);
-    cf W_h[NR][M];
-    planes::mat_H<M, NR>(W, W_h);
-    cf proj[NR][NT];
-    planes::mat_mul<NR, M, NT>(W_h, tilde, proj);
-    cf T[NR][NT];
-    planes::mat_sub<NR, NT>(Hk, proj, T);
-    if constexpr (NR == 1) {
-      float g = planes::cabs2(T[0][0]);
-#pragma unroll
-      for (int j = 1; j < NT; ++j) g = g + planes::cabs2(T[0][j]);
-      gains[k] = fmaxf(g, 0.f);  // sigma^2
-    } else {
-      float p, r, l0, l1;
-      cf q;
-      planes::gram_rows<NT>(T, p, q, r);
-      planes::herm2_eigvals(p, q, r, l0, l1);
-      gains[NR * k] = fmaxf(l0, 0.f);  // sigma^2, descending
-      gains[NR * k + 1] = fmaxf(l1, 0.f);
-    }
-  }
+  for (int i = 0; i < NS; ++i) gains[i] = 0.f;
+#pragma unroll  // users
+  for (int k = 0; k < K; ++k) user_gains<K, NR>(col, k, gains);
 
   float cap = 0.f;
   if constexpr (MODE == kNone) {
@@ -207,11 +298,15 @@ __device__ __forceinline__ float solve_element(const cf (&H)[K * NR][K * NR],
 }
 
 template <int K, int NR, int MODE, bool kInject>
-__global__ void __launch_bounds__(kThreads) mc_bd_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads, min_blocks<K * NR>())
+    mc_bd_kernel(const Params p) {
   constexpr int NT = K * NR;
   constexpr int P = 2 * NT * NT;
-  constexpr int CALLS = (P + 3) / 4;
+  constexpr int CALLS = P / 4;
+  static_assert(P % 4 == 0, "a Philox call fills two whole entries");
+  extern __shared__ float2 s_H[];  // (NT * NT, kThreads)
   __shared__ float s_warp_sum[kThreads / 32];
+  float2* const col = s_H + threadIdx.x;  // this thread's element
   const int cell = blockIdx.x / p.parts;   // rep * num_tiles + tile
   const int part = blockIdx.x % p.parts;
   const int rep = cell / p.num_tiles;
@@ -222,36 +317,35 @@ __global__ void __launch_bounds__(kThreads) mc_bd_kernel(const Params p) {
   const uint32_t att_hi = (uint32_t)(attempt >> 32);
   const int elems = p.tile * p.lane;
 
+  const int e = part * kThreads + threadIdx.x;
   float acc = 0.f;
-#pragma unroll 1
-  for (int i = 0; i < kElemsPerThread; ++i) {
-    const int e = part * kElemsPerBlock + i * kThreads + threadIdx.x;
-    if (e >= elems) break;
-    cf H[NT][NT];
+  if (e < elems) {
+    // entry en of the element: planes 2 en (re) and 2 en + 1 (im)
     if (kInject) {
       const int r = e / p.lane;
       const int l = e - r * p.lane;
       const int* row = p.bits + rep * p.rep_stride +
                        (long long)(tile_idx * p.tile + r) * p.row_stride + l;
-#pragma unroll
-      for (int pl = 0; pl < P; ++pl) {
-        set_plane<NT>(H, pl, bits_half_normal((uint32_t)row[pl * p.lane]));
+#pragma unroll 1
+      for (int en = 0; en < NT * NT; ++en) {
+        col[en * kThreads] =
+            make_float2(bits_half_normal((uint32_t)row[(2 * en) * p.lane]),
+                        bits_half_normal((uint32_t)row[(2 * en + 1) * p.lane]));
       }
     } else {
-#pragma unroll
+#pragma unroll 1  // Philox calls
       for (int j = 0; j < CALLS; ++j) {
         const uint4 x = philox4x32_10(
             make_uint4((uint32_t)e, (uint32_t)(tile_idx * CALLS + j), att_lo,
                        att_hi),
             make_uint2(p.seed, kChannelKey));
-        const uint32_t w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          if (4 * j + k < P) set_plane<NT>(H, 4 * j + k, bits_half_normal(w[k]));
-        }
+        col[(2 * j) * kThreads] =
+            make_float2(bits_half_normal(x.x), bits_half_normal(x.y));
+        col[(2 * j + 1) * kThreads] =
+            make_float2(bits_half_normal(x.z), bits_half_normal(x.w));
       }
     }
-    acc += solve_element<K, NR, MODE>(H, p.nv, p.ipu);
+    acc = solve_element<K, NR, MODE>(col, p.nv, p.ipu);
   }
 
   // fixed-order block reduction -> one partial per block
@@ -283,22 +377,27 @@ __global__ void bd_sum_parts_kernel(const float* __restrict__ partial,
 }
 
 template <int K, int NR, int MODE, bool kInject>
-void launch_one(const Params& p, int blocks, cudaStream_t s) {
-  mc_bd_kernel<K, NR, MODE, kInject><<<blocks, kThreads, 0, s>>>(p);
+int launch_one(const Params& p, int blocks, cudaStream_t s) {
+  constexpr int bytes = smem_bytes<K * NR>();
+  if (bytes > kStaticSmemLimit) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        mc_bd_kernel<K, NR, MODE, kInject>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  mc_bd_kernel<K, NR, MODE, kInject><<<blocks, kThreads, bytes, s>>>(p);
+  return 0;
 }
 
 template <int K, int NR, bool kInject>
 int launch_mode(const Params& p, int mode, int blocks, cudaStream_t s) {
   switch (mode) {
     case kNormalized:
-      launch_one<K, NR, kNormalized, kInject>(p, blocks, s);
-      return 0;
+      return launch_one<K, NR, kNormalized, kInject>(p, blocks, s);
     case kGlobal:
-      launch_one<K, NR, kGlobal, kInject>(p, blocks, s);
-      return 0;
+      return launch_one<K, NR, kGlobal, kInject>(p, blocks, s);
     case kNone:
-      launch_one<K, NR, kNone, kInject>(p, blocks, s);
-      return 0;
+      return launch_one<K, NR, kNone, kInject>(p, blocks, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -321,7 +420,7 @@ int launch(Params& p, float* out, int reps, int K, int NR, int mode,
   if (reps < 1 || p.num_tiles < 1 || p.tile < 1 || p.lane < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  p.parts = (p.tile * p.lane + kElemsPerBlock - 1) / kElemsPerBlock;
+  p.parts = (p.tile * p.lane + kThreads - 1) / kThreads;
   const long long cells = (long long)reps * p.num_tiles;
   const long long blocks = cells * p.parts;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
@@ -342,7 +441,7 @@ int launch(Params& p, float* out, int reps, int K, int NR, int mode,
 // Partials per (rep, tile) cell: the wrapper's scratch holds
 // reps * num_tiles * mc_bd_num_parts(tile, lane) floats.
 extern "C" int mc_bd_num_parts(int tile, int lane) {
-  return (tile * lane + kElemsPerBlock - 1) / kElemsPerBlock;
+  return (tile * lane + kThreads - 1) / kThreads;
 }
 
 // In-kernel Philox bits (the counterpart of _make_prng_call): rep r of this

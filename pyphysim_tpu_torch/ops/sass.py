@@ -16,7 +16,10 @@ Counting rules, per thread (a warp issues each instruction once for its
     through the rules below;
   * a loop (a backward branch) counts its trips: ``loop_trips`` for every
     loop, or one number per backward branch in listing order (a loop inside
-    another counts the product of both);
+    another counts the product of both). A backward branch after the last
+    ``EXIT`` is no loop of the body: it is out-of-line code like the rest
+    (e.g. the jump back from a warp shuffle's fallback for a diverged warp,
+    which ``BRA.DIV`` reaches) and counts 0 times;
   * the slow path of a division (the few instructions around a ``CALL``
     that a range check branches over) counts 0 times:
     for an IEEE f32 division it runs only for denormal or near-overflow
@@ -199,7 +202,8 @@ def pipe_counts(sass: str, loop_trips: Union[float, Sequence[float]] = 1,
                 weight[a] *= w
 
     back = [(i.target, i.addr) for i in body
-            if i.op == "BRA" and i.target is not None and i.target <= i.addr]
+            if i.op == "BRA" and i.target is not None and
+            i.target <= i.addr <= main_end]
     if len(back) != loops:
         raise ValueError(f"{len(back)} loops in the listing, expected "
                          f"{loops}")

@@ -307,6 +307,13 @@ class SimulationRunner:
             current_params_sim_results: SimulationResults) -> None:
         """Hook called after each variation."""
 
+    def clear(self) -> None:
+        """Reset the elapsed time, the run repetitions and the results,
+        keeping the parameters."""
+        self._elapsed_time = 0.0
+        self._runned_reps = []
+        self.results = SimulationResults()
+
     # ------------------------------------------------------------------
     # Properties
     # ------------------------------------------------------------------

@@ -4,7 +4,9 @@ Counterpart of the parts of ``pyphysim_tpu/utils/misc.py`` that the Monte
 Carlo paths need: complex Gaussian samples and random symbols from an
 explicit random source, bit counting on torch tensors, ``level2bits``, the
 Q function, confidence intervals, the host-side geometric mean
-decomposition (``gmd``, for ``mimo.GMDMimo``), the host-side numpy helpers
+decomposition (``gmd``, for ``mimo.GMDMimo``), the bf16 rounding of complex
+values (``round_bf16``, for the chain's bf16 signal path), the host-side
+numpy helpers
 of the interference-alignment solvers (``randn_c_RS``, ``peig`` / ``leig``,
 ``update_inv_sum_diag``, ``get_principal_component_matrix``), and the
 host-side formatting helpers the runner uses for file names and progress.
@@ -24,6 +26,7 @@ __all__ = [
     "randn_c",
     "randn_c_RS",
     "random_symbols",
+    "round_bf16",
     "count_bits",
     "count_bit_errors",
     "qfunc",
@@ -59,6 +62,23 @@ def randn_c(source, *shape: int) -> torch.Tensor:
     lead = both.dim() - len(shape) - 1       # 1 for streams, 0 otherwise
     re, im = both.unbind(dim=lead)
     return torch.complex(re, im) * np.float32(np.sqrt(0.5))
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with each real and imaginary part rounded to bfloat16 (round
+    to nearest, ties to even), kept in its own dtype (complex64 or
+    float32).
+
+    Torch has no complex bf16 dtype and ``torch.fft`` takes no bf16, so the
+    port carries a bf16 signal as complex64 that holds bf16 values and
+    computes in float32 between the points where the JAX package's value
+    would be bf16 (``CArray.astype(jnp.bfloat16)``): these agree bit for
+    bit with its casts.
+    """
+    if x.is_complex():
+        return torch.view_as_complex(
+            torch.view_as_real(x).to(torch.bfloat16).to(torch.float32))
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def randn_c_RS(rs: np.random.RandomState, *shape: int) -> np.ndarray:

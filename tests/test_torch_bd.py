@@ -240,7 +240,7 @@ def test_builder_checks():
     mc = MonteCarloBD(tile=8, lane=128, device="cpu")
     with pytest.raises(ValueError, match="channel bits"):
         mc.build_inject(1, 1)(np.zeros((1, 8, 128), np.uint32))
-    assert mc.prng_kernel_profile(1, 1)["threads"] == 8 * 128 // 4
+    assert mc.prng_kernel_profile(1, 1)["threads"] == 8 * 128  # one a solve
 
 
 # -- the apps --------------------------------------------------------------
@@ -336,3 +336,18 @@ def test_cuda_kernel_prng_parity_and_chunk_invariance(cuda_device):
     assert ((got - want).abs() / want.abs()).max().item() <= 2e-4
     assert torch.equal(mc.build(2, 4)(seed=9, start=2), got[2:])
     assert torch.equal(mc.build(4, 4)(seed=9, start=0), got)   # rerun
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,NR", [(2, 1), (2, 2), (3, 2), (4, 1), (4, 2)])
+def test_cuda_kernel_prng_matches_plain_version_across_menu(cuda_device, K,
+                                                            NR):
+    """PRNG mode at the bench tile: each rep's sum (16,384 solves) within
+    2e-4 of the plain version's on the same Philox bits, in every mode."""
+    for mode in ("normalized", "global", "none"):
+        mc = MonteCarloBD(tile=8, lane=512, K=K, Nr_u=NR, mode=mode,
+                          device=cuda_device)
+        got = mc.build(4, 4)(seed=K * 10 + NR, start=3).sum(dim=1)
+        want = mc.prng_reference(4, 4, seed=K * 10 + NR, start=3).sum(dim=1)
+        assert ((got - want).abs() / want.abs()).max().item() <= 2e-4
+        assert mc.launch_count == 1

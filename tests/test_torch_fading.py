@@ -27,7 +27,8 @@ from pyphysim_tpu.ops.cplx import CArray  # noqa: E402
 from pyphysim_tpu_torch.channels import (JakesSampleGenerator,  # noqa: E402
                                          JakesState, RayleighSampleGenerator,
                                          RayleighState, TdlChannel,
-                                         TdlImpulseResponse, fading)
+                                         TdlImpulseResponse, fading,
+                                         generate_jakes_samples)
 
 TS = 1.0 / 20e6
 L = 16
@@ -231,3 +232,101 @@ def test_rayleigh_state_from_jax_key_and_channel():
     _close(out_a[:2].numpy(), taps[0, :2].numpy())
     _close(out_a[2:6].numpy(), (taps[0, 2:] + taps[1, :4]).numpy(),
            atol=1e-6)
+
+
+# -- the generator base: similar generators, the stateful API, the
+# -- stateless Jakes function -------------------------------------------------
+
+def _jax_and_port_jakes(shape=(3,)):
+    return (J_Jakes(Fd=30.0, Ts=TS, L=L, shape=shape),
+            JakesSampleGenerator(Fd=30.0, Ts=TS, L=L, shape=shape,
+                                 device="cpu"))
+
+
+def _carry(jstate):
+    """A JAX Jakes state as the port's, through numpy."""
+    return JakesState.from_numpy(np.asarray(jstate.phi_l),
+                                 np.asarray(jstate.psi_l),
+                                 np.asarray(jstate.t0), device="cpu")
+
+
+def test_similar_fading_generators_match_jax():
+    j, mine = _jax_and_port_jakes()
+    j2, mine2 = j.get_similar_fading_generator(), \
+        mine.get_similar_fading_generator()
+    assert isinstance(mine2, JakesSampleGenerator) and mine2 is not mine
+    assert (mine2.Fd, mine2.Ts, mine2.L, mine2.shape, mine2.device) == \
+        (j2.Fd, j2.Ts, j2.L, j2.shape, mine.device)
+    jstate = j2.init_state(jax.random.PRNGKey(4))
+    got, _ = mine2.generate(_carry(jstate), 50)
+    want, _ = j2.generate(jstate, 50)
+    _close(got.numpy(), want.to_numpy())
+    r = RayleighSampleGenerator(shape=(2, 2), device="cpu")
+    r2 = r.get_similar_fading_generator()
+    assert isinstance(r2, RayleighSampleGenerator) and r2 is not r
+    assert (r2.shape, r2.device) == (
+        J_fading.RayleighSampleGenerator((2, 2))
+        .get_similar_fading_generator().shape, r.device)
+
+
+def test_stateful_api_matches_jax():
+    """``generate_more_samples`` / ``skip_samples_for_next_generation`` /
+    ``get_samples`` from one state as the JAX package's, the state carried
+    over; one sample without the trailing axis when no count is given."""
+    j, mine = _jax_and_port_jakes()
+    j.set_seed(11)
+    mine.set_seed(11)
+    mine._state = _carry(j._state)
+    for n in (20, None, 7):
+        j.generate_more_samples(n)
+        mine.generate_more_samples(n)
+        got, want = mine.get_samples(), j.get_samples()
+        assert isinstance(got, np.ndarray) and got.shape == want.shape
+        _close(got, want)
+        j.skip_samples_for_next_generation(564)
+        mine.skip_samples_for_next_generation(564)
+    assert mine.get_samples().shape == (3, 7)
+    _close(float(mine._state.t0), float(j._state.t0), atol=1e-9)
+
+
+@pytest.mark.parametrize("make", [
+    lambda: JakesSampleGenerator(Fd=30.0, Ts=TS, L=L, shape=(2,),
+                                 device="cpu"),
+    lambda: RayleighSampleGenerator(shape=(2,), device="cpu"),
+])
+def test_stateful_api_is_seeded(make):
+    """``set_seed`` makes the draws repeatable; without it each generator
+    seeds itself; a skip moves the stream on."""
+    a, b = make(), make()
+    assert a.get_samples() is None
+    for g in (a, b):
+        g.set_seed(3)
+        g.generate_more_samples(10)
+    np.testing.assert_array_equal(a.get_samples(), b.get_samples())
+    first = a.get_samples()
+    a.skip_samples_for_next_generation(100)
+    a.generate_more_samples(10)
+    assert a.get_samples().shape == (2, 10)
+    assert not np.array_equal(a.get_samples(), first)
+    c = make()
+    c.generate_more_samples()
+    assert c.get_samples().shape == (2,) and c._seed is not None
+
+
+def test_generate_jakes_samples_matches_jax():
+    from pyphysim_tpu.channels.fading_generators import \
+        generate_jakes_samples as j_generate
+    key = jax.random.PRNGKey(9)
+    want = j_generate(30.0, TS, 100, L, (2, 3), key=key)
+    jstate = J_Jakes(30.0, TS, L, (2, 3)).init_state(key)
+    got = generate_jakes_samples(30.0, TS, 100, L, (2, 3),
+                                 source=_carry(jstate), device="cpu")
+    assert got.shape == (2, 3, 100) and got.dtype == torch.complex64
+    _close(got.numpy(), want.to_numpy())
+    # a random source: the port's own draws, seeded like its generators
+    a = generate_jakes_samples(30.0, TS, 64, L, device="cpu")
+    b = generate_jakes_samples(
+        30.0, TS, 64, L, source=torch.Generator().manual_seed(0),
+        device="cpu")
+    assert a.shape == (64,) and torch.equal(a, b)
+    assert abs(float((a.abs() ** 2).mean()) - 1.0) < 1.0

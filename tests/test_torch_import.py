@@ -145,7 +145,8 @@ def test_cuda_request_raises_without_cuda(monkeypatch):
     from pyphysim_tpu_torch.ops.alamouti_kernel import MonteCarloAlamouti
     from apps.ia.batched_stream_selection_torch import StreamSelectionRunner
     from apps.ia.ia_mc_kernel_torch import IaMcKernelSimulationRunner
-    from pyphysim_tpu_torch.channels import MultiUserChannelMatrix
+    from pyphysim_tpu_torch.channels import (MultiUserChannelMatrix,
+                                             generate_jakes_samples)
     from pyphysim_tpu_torch.ops.bd_kernel import MonteCarloBD
     from pyphysim_tpu_torch.ops.ia_kernel import MonteCarloMaxSinr
 
@@ -165,6 +166,7 @@ def test_cuda_request_raises_without_cuda(monkeypatch):
                  lambda: MonteCarloBD(),
                  lambda: MonteCarloMaxSinr(),
                  lambda: MultiUserChannelMatrix(),
+                 lambda: generate_jakes_samples(30.0),
                  *(lambda cls=cls: cls(read_command_line_args=False)
                    for cls in runners)):
         with pytest.raises(RuntimeError, match="cuda"):
@@ -191,11 +193,13 @@ def test_public_entry_points_default_to_the_card():
     from apps.ofdm.ofdm_tdlchannel_torch import OfdmTdlSimulationRunner
     from pyphysim_tpu_torch import _device, mimo
     from pyphysim_tpu_torch.chain import ChainStep
-    from pyphysim_tpu_torch.channels import (JakesSampleGenerator,
+    from pyphysim_tpu_torch.channels import (FadingSampleGenerator,
+                                             JakesSampleGenerator,
                                              JakesState,
                                              RayleighSampleGenerator,
                                              RayleighState,
-                                             TdlImpulseResponse)
+                                             TdlImpulseResponse,
+                                             generate_jakes_samples)
     from pyphysim_tpu_torch.modulators import (BPSK, OFDM, PSK, QAM, QPSK,
                                                Modulator)
     from apps.ia.batched_stream_selection_torch import StreamSelectionRunner
@@ -222,11 +226,48 @@ def test_public_entry_points_default_to_the_card():
         BDKernelCapacityRunner, ia_kernel.MonteCarloMaxSinr,
         ia_kernel.from_jax_attrs, MultiUserChannelMatrix,
         IaMcKernelSimulationRunner, StreamSelectionRunner, solve_all,
-        simple_ia_run]
+        simple_ia_run, FadingSampleGenerator, generate_jakes_samples]
     for fn in entry_points:
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", f"{fn.__qualname__} defaults to {default}"
     assert SimulationRunner(read_command_line_args=False).device == "cuda"
+
+
+@pytest.mark.parametrize("module, names", [
+    ("pyphysim_tpu_torch.utils.misc", ["round_bf16"]),
+    ("pyphysim_tpu_torch.channels.fading_generators",
+     ["FadingSampleGenerator", "generate_jakes_samples"]),
+    ("pyphysim_tpu_torch.channels",
+     ["FadingSampleGenerator", "generate_jakes_samples"]),
+])
+def test_new_names_are_exported(module, names):
+    import importlib
+    mod = importlib.import_module(module)
+    for name in names:
+        assert hasattr(mod, name), name
+        assert name in getattr(mod, "__all__", names), name
+
+
+def test_new_methods_exist():
+    """The methods the JAX package has and earlier slices lacked."""
+    from pyphysim_tpu_torch.channels import (FadingSampleGenerator,
+                                             JakesSampleGenerator,
+                                             RayleighSampleGenerator)
+    from pyphysim_tpu_torch.modulators import PSK, Modulator
+    from pyphysim_tpu_torch.ops.bd_kernel import block_threads
+    from pyphysim_tpu_torch.simulations import SimulationRunner
+    for name in ("calcTheoreticalPER", "calcTheoreticalSpectralEfficiency",
+                 "plotConstellation"):
+        assert callable(getattr(Modulator, name))
+    assert callable(PSK.setPhaseOffset)
+    assert callable(SimulationRunner.clear)
+    for cls in (JakesSampleGenerator, RayleighSampleGenerator):
+        assert issubclass(cls, FadingSampleGenerator)
+        for name in ("get_similar_fading_generator", "set_seed",
+                     "generate_more_samples", "get_samples",
+                     "skip_samples_for_next_generation"):
+            assert callable(getattr(cls, name))
+    assert block_threads() == 128
 
 
 def test_cpu_builder_takes_the_plain_version():

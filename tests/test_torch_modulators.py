@@ -88,6 +88,53 @@ def test_modulator_matches_jax(name):
                                    rtol=1e-6)
 
 
+@pytest.mark.parametrize("name", list(MODULATORS))
+def test_packet_error_rate_and_spectral_efficiency_match_jax(name):
+    make, make_j = MODULATORS[name]
+    mine, j = make(), make_j()
+    snr = np.array([-5.0, 0.0, 5.0, 10.0, 20.0])
+    for length in (1, 20, 1500):
+        np.testing.assert_allclose(
+            mine.calcTheoreticalPER(snr, length),
+            np.asarray(j.calcTheoreticalPER(snr, length)), rtol=1e-6)
+        np.testing.assert_allclose(
+            mine.calcTheoreticalSpectralEfficiency(snr, length),
+            np.asarray(j.calcTheoreticalSpectralEfficiency(snr, length)),
+            rtol=1e-6)
+    np.testing.assert_allclose(
+        mine.calcTheoreticalSpectralEfficiency(snr),
+        np.asarray(j.calcTheoreticalSpectralEfficiency(snr)), rtol=1e-6)
+    assert mine.calcTheoreticalSpectralEfficiency(40.0) == \
+        pytest.approx(mine.K)
+
+
+@pytest.mark.parametrize("M, offset", [(8, 0.3), (16, -1.1), (4, np.pi)])
+def test_psk_set_phase_offset_matches_jax(M, offset):
+    mine, j = PSK(M, device="cpu"), J_mod.PSK(M)
+    mine.setPhaseOffset(offset)
+    j.setPhaseOffset(offset)
+    np.testing.assert_allclose(mine.symbols, j.symbols, atol=1e-12)
+    np.testing.assert_allclose(mine.symbols, PSK(M, offset,
+                                                 device="cpu").symbols,
+                               atol=0)
+    data = np.arange(M).repeat(3)
+    tx = mine.modulate(torch.from_numpy(data))    # the device table
+    np.testing.assert_allclose(
+        tx.numpy(), j.modulate(jnp.asarray(data, jnp.int32)).to_numpy(),
+        atol=1e-6, rtol=0)
+    assert np.array_equal(mine.demodulate(tx).numpy(), data)
+
+
+def test_plot_constellation():
+    mpl = pytest.importorskip("matplotlib")
+    mpl.use("Agg")
+    import matplotlib.pyplot as plt
+    PSK(8, device="cpu").plotConstellation()
+    ax = plt.gcf().axes[0]
+    assert len(ax.texts) == 8 and ax.texts[5].get_text() == "101 (5)"
+    plt.close("all")
+
+
 def test_modulator_rejects_bad_input():
     with pytest.raises(ValueError):
         QAM(8, device="cpu")

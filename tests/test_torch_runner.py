@@ -142,6 +142,25 @@ def test_tensor_outputs_are_fetched(device):
     assert _summary(a) == _summary(b)
 
 
+def test_clear_resets_results_and_keeps_parameters():
+    """``clear`` as the JAX runner's: elapsed time, run repetitions and
+    results go; the parameters stay, and a second run gives the first's
+    results."""
+    runners = []
+    for pkg in (J, T):
+        r = _make_runner(pkg, p_skip=0.3)
+        r.simulate()
+        first = _summary(r)
+        r.clear()
+        assert (r.elapsed_time, r.runned_reps) == ("0.00s", [])
+        assert r.results.get_result_names() == []
+        assert list(r.params["SNR"]) == list(SNRS)
+        r.simulate()
+        assert _summary(r) == first
+        runners.append(r)
+    assert _summary(runners[1]) == _summary(runners[0])
+
+
 def test_stop_criterion_ladder_equal_jax():
     jr, tr = _both(rep_max=200, batch=32, stop=("bit_errors", 6000.0))
     assert _summary(tr) == _summary(jr)

@@ -167,4 +167,74 @@ def test_kernel_profiles():
                       device="cpu")
     assert bd.prng_kernel_profile(128, 4) == {
         "pattern": "mc_bd_kernelILi2ELi1ELi2ELb0EE",
-        "threads": 128 * 4 * 8 * 128, "loops": 1, "loop_trips": 4}
+        "threads": 128 * 4 * 8 * 512, "loops": 5,
+        "loop_trips": [2, 2, 2, 2, 2]}
+
+
+def _bd_shape(users):
+    """A listing of the BD kernel's shape: the Philox calls that store a
+    thread's channel to shared memory, then the users (unrolled), each with
+    two passes over the columns of H around its solve; then the block's
+    reduction, whose shuffles have an out-of-line fallback for a diverged
+    warp that jumps back to the join."""
+    body = [
+        (0x000, "", "S2R R0, SR_TID.X"),
+        (0x010, "", "ISETP.GE.AND P0, PT, R0, UR4, PT"),
+        (0x020, "", "IMAD R2, R3, 0x80, R0"),         # the element
+        (0x030, "", "IMAD.HI.U32 R5, R2, R3, RZ"),    # Philox loop head
+        (0x040, "", "LOP3.LUT R6, R5, R7, RZ, 0x96, !PT"),
+        (0x050, "", "STS.64 [R4], R6"),
+        (0x060, "", "ISETP.NE.AND P1, PT, R5, UR5, PT"),
+        (0x070, "@P1", "BRA 0x30"),                   # Philox loop back
+    ]
+    for u in range(users):
+        a = 0x080 + 0x80 * u
+        body += [
+            (a, "", "LDS.64 R8, [R4]"),               # column pass 1 head
+            (a + 0x10, "", "FFMA R10, R8, R9, R10"),
+            (a + 0x20, "@P2", f"BRA {a:#x}"),         # column pass 1 back
+            (a + 0x30, "", "MUFU.RCP R11, R10"),      # the solve
+            (a + 0x40, "", "LDS.64 R8, [R4+0x400]"),  # column pass 2 head
+            (a + 0x50, "", "FMUL R13, R8, R11"),
+            (a + 0x60, "@P3", f"BRA {a + 0x40:#x}"),  # column pass 2 back
+            (a + 0x70, "", "FSEL R14, R13, R14, P4"),
+        ]
+    a = 0x080 + 0x80 * users
+    return body + [
+        (a, "", "MUFU.LG2 R15, R14"),                 # capacities
+        (a + 0x10, "", f"BRA.DIV UR6, {a + 0x60:#x}"),
+        (a + 0x20, "", "SHFL.DOWN PT, R12, R10, 0x10, 0x1f"),
+        (a + 0x30, "", "BAR.SYNC.DEFER_BLOCKING 0x0"),  # join
+        (a + 0x40, "", "STG.E desc[UR4][R2.64], R12"),
+        (a + 0x50, "", "EXIT"),
+        (a + 0x60, "", f"WARPSYNC.COLLECTIVE R6, {a + 0x80:#x}"),  # fallback
+        (a + 0x70, "", "SHFL.DOWN P0, R4, R7, R8, R9"),
+        (a + 0x80, "", f"BRA {a + 0x30:#x}"),         # back to the join
+        (a + 0x90, "", f"BRA {a + 0x90:#x}"),
+    ]
+
+
+def test_bd_profile_counts_a_listing_of_its_shape():
+    """The BD profile's loops run their trips in listing order (Philox
+    calls, two column passes a user), the threads are the launch's, one a
+    solve, and the shuffle fallback's jump back after the ``EXIT`` is no
+    loop and counts 0."""
+    profile = MonteCarloBD(tile=8, lane=512,
+                           device="cpu").prng_kernel_profile(128, 4)
+    C, N, K = 2 * 6 * 6 // 4, 6, 3
+    assert profile["loops"] == 2 * K + 1
+    assert profile["loop_trips"] == [C] + [N] * (2 * K)
+    assert profile["threads"] == 128 * 4 * 8 * 512
+    listing = _listing(_bd_shape(K))
+    counts = sass.pipe_counts(listing, profile["loop_trips"],
+                              profile["loops"])
+    want = {"fp32": 2 * K * N, "imad": 1 + C, "alu": 1 + 2 * C + K,
+            "xu": K + 1, "uniform": 0, "other": 6 + 2 * C + 4 * K * N}
+    want["total"] = sum(want.values())
+    assert counts == pytest.approx(want, rel=1e-12)
+    ms, limit = sass.issue_bound_ms(counts, profile["threads"])
+    assert limit == "issue"
+    assert ms == pytest.approx(profile["threads"] * want["total"] / (
+        128 * sass.SMS * sass.CLOCK_HZ) * 1e3, rel=1e-12)
+    with pytest.raises(ValueError, match="loops"):
+        sass.pipe_counts(listing, profile["loop_trips"], profile["loops"] + 1)
