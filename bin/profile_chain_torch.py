@@ -9,17 +9,25 @@ capacity step (4,096 joint 6x6 channels, K = 3, normalized, ``bd_step``)
 and the Max-SINR IA step (4,096 K = 3, 2x2 channels, 'svd' init, 10
 iterations, noise 0.1, ``ia_step``):
 
-  * the step split in two with CUDA events (best of 3 after a warm-up):
-    drawing the inputs from the per-attempt streams, and ``forward``;
+  * the step split in two with CUDA events (best of 10 after a warm-up):
+    drawing the inputs from the per-attempt streams, and ``forward``; and
+    the host's time to issue ``forward`` (best of 20, the device waited
+    for between calls), with, on the time-domain route, the host's time
+    of one ``block_fir`` wrapper call at the forward's shape;
   * a ``torch.profiler`` trace of 3 steps: the busy share of the device
     (kernel time over wall time) and the kernels that take most of it;
+    and traces of 3 draws alone and 3 forwards alone: the device kernels
+    each issues a step, the draws' Philox fills (``philox_stream_fill``)
+    among them, and ``block_fir``'s share of the forward's device time;
   * the per-key engine over 1,024 attempts in chunks of 256, without a
     stop criterion (double-buffered) and with one that never trips
     (8 synchronous sub-chunks of 32 per chunk): the cost of the
     per-sub-chunk host check.
 
 Run from the repository root: ``python3 bin/profile_chain_torch.py
-[--json PATH]``. Needs a CUDA device.
+[--json PATH]``. Needs a CUDA device. It reads only names an older
+checkout also has, so a copy of it in that checkout's ``bin/`` measures
+that checkout with the same yardstick.
 """
 
 import argparse
@@ -36,7 +44,7 @@ SNR = 10 ** 1.5
 ROUTES = {"time_domain": (256, 300 * 32, False), "fused": (512, 300 * 16, True)}
 
 
-def best_ms(fn, repeat=3):
+def best_ms(fn, repeat=10):
     import torch
     fn()
     torch.cuda.synchronize()
@@ -52,6 +60,20 @@ def best_ms(fn, repeat=3):
     return best
 
 
+def host_ms(fn, repeat=20):
+    """Best host time of one ``fn()`` in ms: what issuing its work takes,
+    the device idle at the start of each call."""
+    import torch
+    best = float("inf")
+    for _ in range(repeat):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - tic)
+    torch.cuda.synchronize()
+    return best * 1e3
+
+
 def kernel_time_us(event):
     """Device time of a device-side event (a kernel or a copy); 0 for the
     host-side operators, whose device time their kernels already carry."""
@@ -64,12 +86,32 @@ def kernel_time_us(event):
     return 0.0
 
 
+def trace(fn, repeat=3):
+    """``[(key, device us, count)]`` of ``repeat`` calls of ``fn`` under
+    ``torch.profiler``, and the traced wall time in us."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        for _ in range(repeat):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - tic) * 1e6
+    return ([(e.key, kernel_time_us(e), e.count)
+             for e in prof.key_averages()], wall_us)
+
+
+def kernels(events, name="", repeat=3):
+    """Device kernels (and copies) a call among ``events``, of those whose
+    key holds ``name``."""
+    return sum(c for k, t, c in events if t > 0 and name in k) / repeat
+
+
 def profile_step(name, batch, units, unit_name, draw, forward):
     """Time ``forward(*draw())`` (one chain step of ``batch`` attempts doing
     ``units`` units of work), its two halves, and trace 3 steps."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     inputs = draw()
 
     def step():
@@ -78,28 +120,29 @@ def profile_step(name, batch, units, unit_name, draw, forward):
     step_ms = best_ms(step)
     draw_ms = best_ms(draw)
     forward_ms = best_ms(lambda: forward(*inputs))
+    forward_host_ms = host_ms(lambda: forward(*inputs))
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        tic = time.perf_counter()
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - tic) * 1e6
-    events = [(e.key, kernel_time_us(e), e.count)
-              for e in prof.key_averages()]
+    events, wall_us = trace(step)
     busy_us = sum(t for _, t, _ in events)
     top = sorted((e for e in events if e[1] > 0), key=lambda e: -e[1])[:12]
+    draw_events, _ = trace(draw)
+    forward_events, _ = trace(lambda: forward(*inputs))
+    forward_us = sum(t for _, t, _ in forward_events)
+    fir_us = sum(t for k, t, _ in forward_events if "block_fir" in k)
     out = {
         "route": name, "batch": batch, "units_per_step": units,
         "step_ms": step_ms, f"{unit_name}_per_s": units / step_ms * 1e3,
         "draw_ms": draw_ms, "forward_ms": forward_ms,
+        "forward_host_ms": forward_host_ms,
         "traced_wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / wall_us,
-        "device_kernels_per_step": sum(c for _, t, c in events if t > 0) / 3,
-        "block_fir_ms_per_step": sum(t for k, t, _ in events
-                                     if "block_fir" in k) / 3e3,
+        "device_kernels_per_step": kernels(events),
+        "draw_kernels_per_step": kernels(draw_events),
+        "draw_fills_per_step": kernels(draw_events, "philox_stream_fill"),
+        "forward_kernels_per_step": kernels(forward_events),
+        "forward_device_ms": forward_us / 3e3,
+        "block_fir_ms_per_step": fir_us / 3e3,
+        "block_fir_share_of_forward_device": fir_us / forward_us,
         "top_kernels": [{"kernel": k[:90], "ms_per_step": t / 3e3,
                          "share_of_busy": t / busy_us, "calls": c}
                         for k, t, c in top],
@@ -123,8 +166,19 @@ def profile_route(name, batch, num_symbols, fused, dev):
                 chain.channel.init_state(s_channel),
                 randn_c(s_noise, chain.noise_length))
 
-    return profile_step(name, batch, batch * num_symbols, "sym", draw,
-                        lambda *x: chain.forward(*x, SNR))
+    out = profile_step(name, batch, batch * num_symbols, "sym", draw,
+                       lambda *x: chain.forward(*x, SNR))
+    if not fused:
+        from chip_smoke import fir_inputs
+        from pyphysim_tpu_torch.ops import fir
+        rows = batch * (num_symbols // chain.ofdm.num_used_subcarriers)
+        args = fir_inputs(dev, rows)
+        out["block_fir_rows"] = rows
+        out["block_fir_wrapper_host_ms"] = host_ms(
+            lambda: fir.block_fir(*args))
+        print(json.dumps({"route": name, "block_fir_wrapper_host_ms":
+                          out["block_fir_wrapper_host_ms"]}), flush=True)
+    return out
 
 
 def profile_families(dev):

@@ -8,6 +8,9 @@ against its plain PyTorch version on the card:
     ``SimulationRunner``'s bulk path and the Monte Carlo CUDA kernel, in
     both channel-product types (float32 and the reference's bf16 mode;
     phases 1-7);
+  * the per-attempt streams' draws (``ops/streams.py`` ``philox_draw``,
+    one launch of the ``philox_stream_fill`` CUDA kernel a draw) bit for
+    bit against their plain version and the CPU route (phase 3);
   * the flagship chain's block-static time-domain route, whose block
     convolution is the ``block_fir`` CUDA kernel, and its fused diag route,
     each in both signal types (complex64 and the reference's bf16), and
@@ -38,7 +41,14 @@ BER_CORNERS = {5.0: (0.08, 0.22), 15.0: (0.02, 0.06), 30.0: (2e-4, 6e-3)}
 TILE, NUM_TILES = 1024, 4           # flagship kernel shape
 REL_TOL = 2e-4                      # |kernel - plain| per cell / cell bits
 FIR_REL_TOL = 1e-5                  # block_fir: max |kernel - plain| / max |y|
-FIR_ROWS = (8192, 1000)             # time-domain step's rows; a ragged count
+FIR_ROWS = (8192, 1000, 1)          # time-domain step's rows; ragged counts
+# phase 8's other geometries, (rows, block_size, offsets): a row of 4,520 B
+# (not a multiple of 16), 20 taps over 96 samples, 64 taps over 127
+FIR_GEOMETRIES = ((1000, 565, None), (1000, 564, tuple(range(0, 100, 5))),
+                  (256, 564, tuple(range(0, 128, 2))))
+FILL_ROWS, FILL_WORDS = 512, 2049   # phase 3: 1,049,088 draws a kind, odd m
+FILL_ULP_LIMIT = 2                  # normals: kernel vs plain, in ulps
+FILL_GRID_COUNTERS = 132 * 16 * 256  # counters one fill grid covers a stride
 TD_BATCH, TD_SYMBOLS = 256, 300 * 32    # bench.py's time-domain step
 FUSED_BATCH, FUSED_SYMBOLS = 512, 300 * 16  # bench.py's fused step
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
@@ -101,6 +111,23 @@ def best_ms(fn, repeat=3, inner=1):
     return best
 
 
+def graph_ms(fn, inner=10):
+    """Best of 3 replays of a CUDA graph of ``inner`` calls of ``fn``, in
+    ms per call: the device's time for what ``fn`` launches, without the
+    host's work between launches (for kernels shorter than it)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return best_ms(graph.replay) / inner
+
+
 def bound_ms(nbytes=0, flops=0, issue_ms=0.0):
     """The least time the card could take: bytes over the memory rate, f32
     operations over the f32 rate, or the instructions' time on their
@@ -151,9 +178,13 @@ def fir_geometry():
     return ofdm.samples_per_symbol, [int(d) for d in offsets]
 
 
-def fir_inputs(dev, rows, seed=5):
+def fir_inputs(dev, rows, seed=5, block_size=None, offsets=None):
+    """Random x and taps of ``rows`` rows at the flagship geometry, or at
+    ``block_size`` / ``offsets`` where given."""
     import torch
-    block_size, offsets = fir_geometry()
+    flagship = fir_geometry()
+    block_size = block_size or flagship[0]
+    offsets = list(offsets or flagship[1])
     g = torch.Generator(device=dev).manual_seed(seed + rows)
     x = torch.randn(rows, block_size, dtype=torch.complex64, device=dev,
                     generator=g)
@@ -258,20 +289,144 @@ def main() -> int:
     phase("philox", counters=n, mismatched_words=mismatches)
     if mismatches:
         raise AssertionError("device Philox differs from ops/philox.py")
+    fill_err = fill_parity(dev)
 
     mc_entries = [flagship_phases(dev, smi, dtype) for dtype in MC_DTYPES]
 
-    phases_8_to_12 = chain_phases(dev, smi)
+    phases_8_to_12 = chain_phases(dev, smi, fill_err)
     phases_13_to_19 = mimo_bd_phases(dev, smi)
     phases_20_to_26 = ia_phases(dev, smi)
 
     print(smi)
     print(json.dumps({"kernels": [
-        *mc_entries, phases_8_to_12, *phases_13_to_19, phases_20_to_26]}))
+        *mc_entries, *phases_8_to_12, *phases_13_to_19, phases_20_to_26]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def float_ulps(a, b):
+    """Largest distance in units of the last place between two float32
+    tensors of one shape."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i + 2 ** 31), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def fill_parity(dev):
+    """Phase 3, the streams' draws: ``philox_draw`` (one launch of the fill
+    kernel) against its plain version on the card and against the CPU
+    route, on ``FILL_ROWS`` attempts across 2**32 with per-row keys and
+    with the scalar key of an ``AttemptStreams``, at an odd ``FILL_WORDS``
+    a row. Bits and uniforms must be equal bit for bit everywhere; normals
+    within ``FILL_ULP_LIMIT`` ulps of the plain version on the card (the
+    CPU's ``log`` / ``cos`` / ``sin`` are other functions). Returns the
+    largest |kernel - plain| over the kinds."""
+    import torch
+    from pyphysim_tpu_torch.ops.streams import (philox_draw,
+                                                philox_draw_reference)
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.arange(2 ** 32 - FILL_ROWS // 2, 2 ** 32 + FILL_ROWS // 2,
+                     dtype=torch.int64, device=dev)
+    keys = torch.randint(0, 2 ** 32, (FILL_ROWS, 2), dtype=torch.int64,
+                         device=dev, generator=g)
+    err = 0.0
+    for key_name, k0, k1 in (("per_row", keys[:, 0], keys[:, 1]),
+                             ("scalar", 0x9E3779B9, 12345)):
+        for kind in ("bits", "uniform", "normal"):
+            args = (k0, k1, (a, 0), (a, 32), FILL_WORDS)
+            cpu_args = tuple(w.cpu() if isinstance(w, torch.Tensor) else w
+                             for w in (k0, k1)) + (
+                (a.cpu(), 0), (a.cpu(), 32), FILL_WORDS)
+            before = philox_draw.launch_count
+            got = philox_draw(kind, *args)
+            launches = philox_draw.launch_count - before
+            plain = philox_draw_reference(kind, *args)
+            cpu = philox_draw(kind, *cpu_args)
+            torch.cuda.synchronize()
+            differ = int((got != plain).sum())
+            cpu_differ = int((got.cpu() != cpu).sum())
+            fields = {}
+            if kind == "normal":
+                fields = {"max_ulps": float_ulps(got, plain),
+                          "max_ulps_cpu": float_ulps(got.cpu(), cpu),
+                          "ulp_limit": FILL_ULP_LIMIT}
+            phase("fill_parity", keys=key_name, kind=kind,
+                  shape=f"{FILL_ROWS}x{FILL_WORDS}", launches=launches,
+                  differ_from_plain=differ, differ_from_cpu=cpu_differ,
+                  **fields)
+            exact = kind != "normal"
+            if launches != 1 or (exact and (differ or cpu_differ)) or \
+                    (not exact and fields["max_ulps"] > FILL_ULP_LIMIT):
+                raise AssertionError(f"fill_parity {key_name} {kind}: the "
+                                     f"fill differs from its plain version")
+            err = max(err, float((got.double() - plain.double()).abs()
+                                 .max()))
+    return err
+
+
+def recorded_draws(step):
+    """Run ``step()`` and return the draws it made through
+    ``AttemptStreams``: ``[(kind, streams, m, mask)]``, ``m`` the draws a
+    row."""
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+    draws = []
+    draw = AttemptStreams._draw
+
+    def record(self, kind, shape, mask=0xFFFFFFFF):
+        out = draw(self, kind, shape, mask)
+        draws.append((kind, self, out[0].numel(), mask))
+        return out
+    AttemptStreams._draw = record
+    try:
+        step()
+    finally:
+        AttemptStreams._draw = draw
+    return draws
+
+
+def fill_main_path_parity(dev, name, chain, batch):
+    """Phase 10, the fill at the main path's own shapes: every draw one
+    step of ``chain`` makes over ``batch`` attempts across 2**32 (symbol
+    bits, channel uniforms, noise normals), the fill against its plain
+    version, bits and uniforms bit for bit, normals within
+    ``FILL_ULP_LIMIT`` ulps. The noise draws span several grids of the
+    fill's launch, so its grid-stride loop runs. Returns the largest
+    |kernel - plain|."""
+    import torch
+    from pyphysim_tpu_torch.ops.streams import (AttemptStreams, philox_draw,
+                                                philox_draw_reference)
+    a = torch.arange(2 ** 32 - batch // 2, 2 ** 32 + batch - batch // 2,
+                     dtype=torch.int64, device=dev)
+    draws = recorded_draws(lambda: chain.step(AttemptStreams(99, a), 10.0))
+    err = 0.0
+    for kind, s, m, mask in draws:
+        args = (kind, s.seed, s.salt, (s.attempts, 0), (s.attempts, 32), m,
+                mask)
+        got = philox_draw(*args)
+        plain = philox_draw_reference(*args)
+        torch.cuda.synchronize()
+        differ = int((got != plain).sum())
+        ulps = float_ulps(got, plain) if kind == "normal" else 0
+        counters = s.n * -(-(m + (m & 1 if kind == "normal" else 0)) // 4)
+        phase("fill_main_path", step=name, kind=kind, shape=f"{s.n}x{m}",
+              counters=counters, grids=counters / FILL_GRID_COUNTERS,
+              differ_from_plain=differ, max_ulps=ulps,
+              ulp_limit=FILL_ULP_LIMIT)
+        if (kind != "normal" and differ) or ulps > FILL_ULP_LIMIT:
+            raise AssertionError(f"fill_main_path {name} {kind} {s.n}x{m}: "
+                                 f"the fill differs from its plain version")
+        err = max(err, float((got.double() - plain.double()).abs().max()))
+    kinds = sorted(k for k, *_ in draws)
+    if kinds != ["bits", "normal", "uniform"]:
+        raise AssertionError(f"fill_main_path {name}: a step drew {kinds}, "
+                             f"expected symbol bits, channel uniforms and "
+                             f"noise normals")
+    return err
 
 
 def flagship_phases(dev, smi, dtype):
@@ -381,6 +536,8 @@ def flagship_phases(dev, smi, dtype):
         "launches": launches,
         "max_abs_err": max_abs_err,
         "ms": kernel_ms,
+        "timed_by": "wrapper_events",
+        "wrapper_ms": kernel_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": bound_by,
@@ -388,32 +545,44 @@ def flagship_phases(dev, smi, dtype):
     }
 
 
-def chain_phases(dev, smi):
+def chain_phases(dev, smi, fill_err):
     """Phases 8-12: block_fir against its plain version, the time-domain
-    and fused chains and the per-sample app through the per-key runner,
-    and their times. Returns block_fir's entry of the ``kernels`` line."""
+    and fused chains and the per-sample app through the per-key runner
+    (their draws through the fill kernel, and the fill against its plain
+    version at each of their draws), and their times. Returns the entries
+    of block_fir and of the fill (``fill_err``: its phase-3 parity error,
+    raised by phase 10's) in the ``kernels`` line."""
     import torch
     from pyphysim_tpu_torch.chain import ChainStep
     from pyphysim_tpu_torch.channels import fading
-    from pyphysim_tpu_torch.ops import fir
-    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+    from pyphysim_tpu_torch.ops import _build, fir, sass
+    from pyphysim_tpu_torch.ops.streams import (AttemptStreams, philox_draw,
+                                                philox_draw_reference)
 
     # 8. block_fir against its plain version, at the time-domain step's
-    # rows and at a ragged row count
+    # rows, at ragged row counts and at the other geometries
     fir_err = 0.0
-    for rows in FIR_ROWS:
-        x, taps, offsets, block_size = fir_inputs(dev, rows)
+    for rows, block_size, offsets in [(r, None, None) for r in FIR_ROWS] + \
+            list(FIR_GEOMETRIES):
+        x, taps, offsets, block_size = fir_inputs(dev, rows,
+                                                  block_size=block_size,
+                                                  offsets=offsets)
         y = fir.block_fir(x, taps, offsets, block_size)
         ref = fir.block_fir_reference(x, taps, offsets, block_size)
         torch.cuda.synchronize()
         err = float((y - ref).abs().max())
         rel = err / float(ref.abs().max())
+        plan = fir.kernel_plan(rows, block_size, tuple(offsets))
         phase("fir_parity", rows=rows, block_size=block_size,
-              taps=len(offsets), out_len=y.shape[1], max_abs_diff=err,
-              rel=rel, limit=FIR_REL_TOL)
+              row_bytes=8 * block_size, taps=len(offsets),
+              span=offsets[-1] + 1, out_len=y.shape[1],
+              instance=f"{plan['tap_bound']}/{int(plan['full'])}/"
+              f"{plan['stages']}", max_abs_diff=err, rel=rel,
+              limit=FIR_REL_TOL)
         if not rel <= FIR_REL_TOL:
             raise AssertionError(f"block_fir disagrees with its plain "
-                                 f"version at R={rows}: {rel}")
+                                 f"version at R={rows}, block_size="
+                                 f"{block_size}, T={len(offsets)}: {rel}")
         fir_err = max(fir_err, err)
 
     # 9. the block-static time-domain chain through the per-key runner, in
@@ -422,7 +591,19 @@ def chain_phases(dev, smi):
     if fading.BLOCK_CONV_IMPL not in ("auto", "kernel"):
         raise AssertionError("the default block convolution is not the "
                              "kernel")
-    td, fused, fir_launches = {}, {}, 0
+    td, fused, fir_launches, fill_launches = {}, {}, 0, 0
+
+    def check_fills(name, runner):
+        """Three draws a chain call (symbols, channel, noise), each one
+        fill launch, and no plain draw."""
+        fills = philox_draw.launch_count
+        plain = philox_draw.reference_count
+        if fills != 3 * runner.chunks_dispatched or plain != 0:
+            raise AssertionError(f"{name}: {fills} fill launches and {plain} "
+                                 f"plain draws for {runner.chunks_dispatched}"
+                                 f" chain calls")
+        return fills
+
     for dtype in SIGNAL_DTYPES:
         tag = dtype or "complex64"
         td[dtype] = ChainStep(TD_SYMBOLS, 512, 52, 300, block_static=True,
@@ -430,19 +611,24 @@ def chain_phases(dev, smi):
         runner = chain_runner(dev, td[dtype], snrs, 2 * TD_BATCH, TD_BATCH)
         fir.block_fir.launch_count = 0
         fir.block_fir.reference_count = 0
+        philox_draw.launch_count = 0
+        philox_draw.reference_count = 0
         bers, seconds = run_sweep(runner)
         launches = fir.block_fir.launch_count
         fir_plain = fir.block_fir.reference_count
         phase("time_domain_path", signal=tag, snr_db=snrs, ber=bers,
               runned_reps=runner.runned_reps, seconds=seconds,
               chain_calls=runner.chunks_dispatched,
-              block_fir_launches=launches, block_fir_plain_calls=fir_plain)
+              block_fir_launches=launches, block_fir_plain_calls=fir_plain,
+              fill_launches=philox_draw.launch_count,
+              plain_draws=philox_draw.reference_count)
         check_bers(f"time_domain_path {tag}", snrs, bers)
         if launches != runner.chunks_dispatched or launches == 0 or \
                 fir_plain != 0:
             raise AssertionError("the time-domain path did not run its "
                                  "block convolutions through the "
                                  "block_fir kernel")
+        fill_launches += check_fills(f"time_domain_path {tag}", runner)
         fir_launches += launches
 
     for dtype in SIGNAL_DTYPES:
@@ -452,11 +638,22 @@ def chain_phases(dev, smi):
                                  signal_dtype=dtype, device=dev)
         runner = chain_runner(dev, fused[dtype], snrs, 2 * FUSED_BATCH,
                               FUSED_BATCH)
+        philox_draw.launch_count = 0
+        philox_draw.reference_count = 0
         bers, seconds = run_sweep(runner)
         phase("fused_path", signal=tag, snr_db=snrs, ber=bers,
               runned_reps=runner.runned_reps, seconds=seconds,
-              chain_calls=runner.chunks_dispatched)
+              chain_calls=runner.chunks_dispatched,
+              fill_launches=philox_draw.launch_count,
+              plain_draws=philox_draw.reference_count)
         check_bers(f"fused_path {tag}", snrs, bers)
+        fill_launches += check_fills(f"fused_path {tag}", runner)
+
+    # the fill at every draw of a time-domain and a fused step, bitwise
+    for name, chain, batch in (("time_domain", td[None], TD_BATCH),
+                               ("fused", fused[None], FUSED_BATCH)):
+        fill_err = max(fill_err, fill_main_path_parity(dev, name, chain,
+                                                       batch))
 
     # 11. the per-sample app (apps/ofdm/ofdm_tdlchannel_torch.py)
     from apps.ofdm.ofdm_tdlchannel_torch import OfdmTdlSimulationRunner
@@ -472,14 +669,48 @@ def chain_phases(dev, smi):
     check_bers("app", [15.0], [app_bers[app_snrs.index(15.0)]])
 
     # 12. times (CUDA events, best of 3 after a warm-up)
-    x, taps, offsets, block_size = fir_inputs(dev, FIR_ROWS[0])
+    rows = FIR_ROWS[0]
+    x, taps, offsets, block_size = fir_inputs(dev, rows)
     args = (x, taps, offsets, block_size)
-    fir_ms = best_ms(lambda: fir.block_fir(*args), inner=10)
+    # the kernel's time without the host's launch work (a CUDA graph of
+    # wrapper calls), and the wrapper's, whose host work may exceed it
+    fir_ms = graph_ms(lambda: fir.block_fir(*args))
+    fir_wrapper_ms = best_ms(lambda: fir.block_fir(*args), inner=10)
     fir_plain_ms = best_ms(lambda: fir.block_fir_reference(*args))
     fir_fft_ms = best_ms(lambda: fir.block_fir_fft(*args), inner=10)
+    fir_nbytes = fir_bytes(rows, block_size, offsets)
     fir_bound, fir_bound_by = bound_ms(
-        nbytes=fir_bytes(FIR_ROWS[0], block_size, offsets),
-        flops=8 * FIR_ROWS[0] * block_size * len(offsets))
+        nbytes=fir_nbytes, flops=8 * rows * block_size * len(offsets))
+    # the one PyTorch call that computes it: a grouped conv1d with the
+    # dense (R, D) kernel built outside the timed call (TF32 off)
+    span = offsets[-1] + 1
+    dense = torch.zeros(rows, span, dtype=torch.complex64, device=dev)
+    dense[:, list(offsets)] = taps
+    weight = dense.flip(-1)[:, None, :].contiguous()
+
+    def conv1d():
+        return torch.nn.functional.conv1d(x[None], weight, padding=span - 1,
+                                          groups=rows)[0]
+    y = fir.block_fir(*args)
+    conv_rel = float((conv1d() - y).abs().max() / y.abs().max())
+    conv_ms = best_ms(conv1d, inner=10)
+    copy_ms = best_ms(lambda: y.clone(), inner=10)
+    # the kernel's own SASS: its issue beside the bytes
+    profile = fir.kernel_profile(rows, block_size, offsets)
+    listing = sass.function_sass(_build.library_path(), profile["pattern"])
+    trips = fir.loop_trips(sass.loop_ops(listing), profile)
+    counts = sass.pipe_counts(listing, trips, len(trips))
+    issue_ms, issue_pipe = sass.issue_bound_ms(counts, profile["threads"])
+    pairs = rows * y.shape[1] * len(offsets)
+    # the fill at the time-domain step's largest draw (its noise normals)
+    attempts = torch.arange(TD_BATCH, dtype=torch.int64, device=dev)
+    fill_args = ("normal", 99, 7, (attempts, 0), (attempts, 32),
+                 2 * td[None].noise_length)
+    fill_ms = graph_ms(lambda: philox_draw(*fill_args))
+    fill_wrapper_ms = best_ms(lambda: philox_draw(*fill_args), inner=10)
+    fill_plain_ms = best_ms(lambda: philox_draw_reference(*fill_args))
+    fill_bound, fill_bound_by = bound_ms(
+        nbytes=4 * TD_BATCH * fill_args[-1] + 8 * TD_BATCH)
     snr = 10 ** 1.5
 
     def step_ms(chain, batch):
@@ -492,11 +723,24 @@ def chain_phases(dev, smi):
     fused_bf16_ms = step_ms(fused["bfloat16"], FUSED_BATCH)
     engine = chain_runner(dev, td[None], [15.0], 4 * TD_BATCH, TD_BATCH)
     engine_ms = best_ms(engine.simulate)
-    phase("times", card=repr(smi), block_fir_rows=FIR_ROWS[0],
+    phase("times", card=repr(smi), block_fir_rows=rows,
           block_fir_ms=fir_ms, block_fir_bound_ms=fir_bound,
           block_fir_bound_by=fir_bound_by,
           block_fir_share_of_bound=fir_bound / fir_ms,
+          block_fir_wrapper_ms=fir_wrapper_ms,
+          block_fir_sass_per_thread=compact(counts),
+          block_fir_sass_per_pair=counts["total"] * profile["threads"] /
+          pairs, block_fir_issue_ms=issue_ms, block_fir_issue_pipe=issue_pipe,
+          block_fir_loop_trips=compact(trips),
           block_fir_plain_ms=fir_plain_ms, block_fir_fft_route_ms=fir_fft_ms,
+          block_fir_conv1d_ms=conv_ms, conv1d_rel_diff=conv_rel,
+          copy_of_y_ms=copy_ms,
+          copy_bytes_per_s=2 * 8 * y.numel() / copy_ms * 1e3,
+          block_fir_bytes_per_s=fir_nbytes / fir_ms * 1e3,
+          fill_shape=f"normal,{TD_BATCH}x{fill_args[-1]}", fill_ms=fill_ms,
+          fill_wrapper_ms=fill_wrapper_ms, fill_plain_ms=fill_plain_ms,
+          fill_bound_ms=fill_bound,
+          fill_share_of_bound=fill_bound / fill_ms,
           time_domain_step_ms=td_ms,
           time_domain_sym_per_s=TD_BATCH * TD_SYMBOLS / td_ms * 1e3,
           fused_step_ms=fused_ms,
@@ -505,7 +749,7 @@ def chain_phases(dev, smi):
           fused_bf16_step_ms=fused_bf16_ms,
           per_key_engine_ms=engine_ms,
           per_key_engine_sym_per_s=4 * TD_BATCH * TD_SYMBOLS / engine_ms * 1e3)
-    return {
+    return [{
         "name": "block_fir",
         "route": "cuda",
         "source": "pyphysim_tpu_torch/ops/csrc/block_fir.cu",
@@ -513,11 +757,28 @@ def chain_phases(dev, smi):
         "launches": fir_launches,
         "max_abs_err": fir_err,
         "ms": fir_ms,
+        "timed_by": "graph_replay",
+        "wrapper_ms": fir_wrapper_ms,
         "plain_ms": fir_plain_ms,
         "bound_ms": fir_bound,
         "bound_by": fir_bound_by,
-        "library_ms": fir_fft_ms,
-    }
+        "library_ms": conv_ms,
+        "fft_route_ms": fir_fft_ms,
+    }, {
+        "name": "philox_stream_fill",
+        "route": "cuda",
+        "source": "pyphysim_tpu_torch/ops/csrc/philox_fill.cu",
+        "replaces": None,
+        "launches": fill_launches,
+        "max_abs_err": fill_err,
+        "ms": fill_ms,
+        "timed_by": "graph_replay",
+        "wrapper_ms": fill_wrapper_ms,
+        "plain_ms": fill_plain_ms,
+        "bound_ms": fill_bound,
+        "bound_by": fill_bound_by,
+        "library_ms": None,
+    }]
 
 
 def sweep_runner(runner, name, values, rep_max, batch):
@@ -851,6 +1112,8 @@ def mimo_bd_phases(dev, smi):
         "launches": ala_launches,
         "max_abs_err": ala_err,
         "ms": ala_ms,
+        "timed_by": "wrapper_events",
+        "wrapper_ms": ala_ms,
         "plain_ms": ala_plain_ms,
         "bound_ms": ala_bound,
         "bound_by": ala_bound_by,
@@ -863,6 +1126,8 @@ def mimo_bd_phases(dev, smi):
         "launches": bd_launches,
         "max_abs_err": bd_err,
         "ms": bd_ms,
+        "timed_by": "wrapper_events",
+        "wrapper_ms": bd_ms,
         "plain_ms": bd_plain_ms,
         "bound_ms": bd_bound,
         "bound_by": bd_bound_by,
@@ -907,7 +1172,7 @@ def ptxas_info(log, kernel):
     out, name = {}, None
     for line in log.splitlines():
         if "entry function" in line:
-            m = re.search(rf"\d({kernel}I\w*?)EEvNS", line)
+            m = re.search(rf"\d({kernel}I\w*?)EEv", line)
             name = m.group(1) if m else None
         elif name and "spill" in line:
             out[name] = re.sub(r"\s+", " ", line.strip())
@@ -1102,6 +1367,8 @@ def ia_phases(dev, smi):
         "launches": ia_launches,
         "max_abs_err": ia_err,
         "ms": ia_ms,
+        "timed_by": "wrapper_events",
+        "wrapper_ms": ia_ms,
         "plain_ms": ia_plain_ms,
         "bound_ms": ia_bound,
         "bound_by": ia_bound_by,

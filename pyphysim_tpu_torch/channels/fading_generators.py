@@ -250,9 +250,8 @@ class RayleighSampleGenerator(FadingSampleGenerator):
         batch = state.counter.shape
         key = state.key.reshape(-1, 2)
         c = state.counter.reshape(-1)
-        words = streams.philox_words(key[:, 0], key[:, 1], c & 0xFFFFFFFF,
-                                     torch.ones_like(c), m)
-        z = streams.words_to_normal(words) * np.float32(np.sqrt(0.5))
+        z = streams.philox_draw("normal", key[:, 0], key[:, 1], (c, 0), 1,
+                                m) * np.float32(np.sqrt(0.5))
         samples = torch.complex(z[:, 0::2], z[:, 1::2]).reshape(batch + shape)
         return samples, self.skip(state, num_samples)
 

@@ -49,7 +49,9 @@ _SIGNATURES = {
                            _i, _i, _i, _f, _f, _f, _f, _i, _ll, _ll, _ll, _ll,
                            _vp],
     "philox_fill": [_vp, _vp, _vp, _ll, _vp],
+    "philox_stream_fill": [_vp, _ll, _ll, _ll, _i, ctypes.c_uint, _vp, _vp],
     "block_fir": [_vp, _vp, _vp, _i, _i, _i, _vp, _vp],
+    "block_fir_plan": [_i, _i, _i, _i, _vp],
     "mc_alamouti_prng": [_vp, _i, _i, _i, _i, _f, ctypes.c_uint, _ll, _vp],
     "mc_alamouti_inject": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                            _f, _ll, _ll, _ll, _ll, _vp],

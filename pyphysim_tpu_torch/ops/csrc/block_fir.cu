@@ -10,70 +10,316 @@
 // What bounds it on the card: memory bytes. At the flagship geometry
 // (block_size 564, T = 16, D = 44, R = 8192 rows) the kernel must read x
 // (37 MB) and the taps (1 MB) and write y (40 MB): ~23 us at 3.35 TB/s,
-// against ~9 us for its 0.59 GFLOP at the 67 TFLOP/s f32 rate. So the
-// design moves each byte once and keeps the arithmetic out of the way:
-//   * one block per row; the row's samples are staged once in shared
-//     memory (564 x 8 B = 4.5 KB), the taps and offsets beside them, with
-//     coalesced float2 loads;
-//   * threads sweep the output samples, each summing at most T complex
-//     products from shared memory with the bounds test 0 <= m - d_i <
-//     block_size (the TPU kernel's zero padding is not needed);
-//   * coalesced float2 stores, each output written once;
-//   * a ragged row count needs no padding: the grid has one block per row.
+// against ~9 us for its 0.59 GFLOP at the 67 TFLOP/s f32 rate. The first
+// form (one block of 128 threads a row, a run-time tap loop with two bounds
+// tests a product) issued ~12 instructions per (output, tap) pair, more
+// time than the bytes take. This form keeps the issue under the bytes:
+//   * a warp owns kRowsPerWarp consecutive rows and walks them through a
+//     ring of kStages row buffers in shared memory, filled by 16-byte
+//     cp.async (8-byte where a row is not 16-byte aligned): the next rows'
+//     loads are in flight while a row computes, and warps never wait on
+//     each other (a TMA bulk copy a row into an mbarrier measured no
+//     faster);
+//   * each buffer holds the row between D - 1 zeros before it and zeros
+//     after it up to the last output's 32-wide chunk, so no product needs
+//     a bounds test (the zeros are written once, the rows land between);
+//   * the tap loop is unrolled over a compile-time bound (16 / 32 / 64
+//     instances, picked by T, a uniform test skips the unused taps) with
+//     the offsets in the parameter bank; at most 16 taps are held in
+//     registers for the whole row;
+//   * a lane accumulates kChunks outputs 32 apart (a warp covers
+//     32 * kChunks adjacent outputs a pass): for each tap one address and
+//     kChunks conflict-free 8-byte shared loads feed 4 * kChunks FMAs,
+//     ~5 instructions a pair. Adjacent outputs a lane would read shared
+//     memory at a 32-byte stride (8-way bank conflicts) and store partial
+//     sectors; 32 apart, a warp's loads and its float2 stores are
+//     contiguous (an output row is 4,856 B, so 16-byte stores would be
+//     misaligned on every odd row);
+//   * the tail of a row (chunks short of a full pass) goes one chunk at a
+//     time; a ragged row count needs no padding: each warp stops at the
+//     last row.
 // The offsets are a fixed-size struct passed by value (T <= 64), so a
-// launch copies nothing from the host. This simple form reaches about a
-// third of the byte bound on an H100 SXM (PERF.md): each block waits for
-// its row's loads before it computes. Keeping the next rows' loads in
-// flight while one row computes is the way to the bound.
+// launch copies nothing from the host. make_plan is the one place that
+// decides the instance, the buffers, the warps and the grid; the host reads
+// it through block_fir_plan.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
 constexpr int kMaxTaps = 64;
-constexpr int kThreads = 128;
-constexpr int kMaxBlockSize = 6144;  // 48 KB of float2 in shared memory
+constexpr int kMaxBlockSize = 6144;
+constexpr int kWarps = 4;          // warps a block (each on its own rows)
+constexpr int kRowsPerWarp = 8;    // consecutive rows a warp walks through
+constexpr int kStages = 2;         // row buffers a warp: rows in flight
+constexpr int kChunks = 4;         // outputs a lane per pass, 32 apart
+constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may opt in
 
 struct TapOffsets {
   int n;
   int d[kMaxTaps];
 };
 
-__global__ void __launch_bounds__(kThreads)
-    block_fir_kernel(const float2* __restrict__ x,
-                     const float2* __restrict__ taps, float2* __restrict__ y,
-                     int block_size, int out_len, TapOffsets offs) {
-  extern __shared__ float2 xs[];
-  __shared__ float2 ts[kMaxTaps];
-  __shared__ int ds[kMaxTaps];
-  const long long row = blockIdx.x;
-  const float2* xr = x + row * block_size;
-  for (int j = threadIdx.x; j < block_size; j += kThreads) xs[j] = xr[j];
-  if (threadIdx.x < offs.n) {
-    ts[threadIdx.x] = taps[row * offs.n + threadIdx.x];
-    ds[threadIdx.x] = offs.d[threadIdx.x];
-  }
-  __syncthreads();
+struct Geometry {
+  int rows, block_size, out_len, num_taps;
+  int row0;     // the row's first element in a stage (after taps and pad)
+  int stage;    // elements of one stage buffer
+  int chunks;   // 32-wide output chunks of a row
+};
 
-  float2* yr = y + row * out_len;
-  for (int m = threadIdx.x; m < out_len; m += kThreads) {
-    float re = 0.f, im = 0.f;
-    for (int i = 0; i < offs.n; ++i) {
-      const int j = m - ds[i];
-      if (j >= 0 && j < block_size) {
-        const float2 h = ts[i];
-        const float2 v = xs[j];
-        re = fmaf(h.x, v.x, re);
-        re = fmaf(-h.y, v.y, re);
-        im = fmaf(h.x, v.y, im);
-        im = fmaf(h.y, v.x, im);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start loading row `row` (its taps and samples) into `stage`; every lane
+// of the warp calls this, and commits one cp.async group either way.
+__device__ __forceinline__ void load_row(float2* stage, const float2* x,
+                                         const float2* taps,
+                                         const Geometry& g, long long row,
+                                         int lane) {
+  const float2* xr = x + row * g.block_size;
+  const float2* tr = taps + row * g.num_taps;
+  float2* dst = stage + g.row0;
+  for (int i = lane; i < g.num_taps; i += 32) cp_async8(stage + i, tr + i);
+  if ((reinterpret_cast<uintptr_t>(xr) & 15) == 0) {
+    const int pairs = g.block_size >> 1;
+    for (int k = lane; k < pairs; k += 32) {
+      cp_async16(dst + 2 * k, xr + 2 * k);
+    }
+    if ((g.block_size & 1) && lane == 0) {
+      cp_async8(dst + g.block_size - 1, xr + g.block_size - 1);
+    }
+  } else {
+    for (int k = lane; k < g.block_size; k += 32) {
+      cp_async8(dst + k, xr + k);
+    }
+  }
+  cp_async_commit();
+}
+
+// Taps a lane keeps in registers for a whole row (above 16 it reads each
+// tap from shared memory once a pass).
+template <int kMaxT>
+constexpr int kRegTaps = kMaxT <= 16 ? kMaxT : 1;
+
+// kC chunks of 32 outputs starting at chunk c of the row in `stage`:
+// lane `lane` sums output (c + j) * 32 + lane for j < kC. kFull: the row
+// has exactly kMaxT taps, so no tap is tested.
+template <int kMaxT, bool kFull, int kC>
+__device__ __forceinline__ void fir_chunks(const float2* stage,
+                                           const float2 (&h)[kRegTaps<kMaxT>],
+                                           const TapOffsets& offs,
+                                           const Geometry& g, float2* yr,
+                                           int c, int lane) {
+  float2 acc[kC];
+#pragma unroll
+  for (int j = 0; j < kC; ++j) acc[j] = make_float2(0.f, 0.f);
+  const float2* xs = stage + g.row0 + c * 32 + lane;
+#pragma unroll
+  for (int i = 0; i < kMaxT; ++i) {
+    if (kFull || i < offs.n) {
+      float2 t;
+      if constexpr (kMaxT <= 16) {
+        t = h[i];
+      } else {
+        t = stage[i];
+      }
+      const float2* p = xs - offs.d[i];
+#pragma unroll
+      for (int j = 0; j < kC; ++j) {
+        const float2 v = p[32 * j];
+        acc[j].x = fmaf(t.x, v.x, acc[j].x);
+        acc[j].x = fmaf(-t.y, v.y, acc[j].x);
+        acc[j].y = fmaf(t.x, v.y, acc[j].y);
+        acc[j].y = fmaf(t.y, v.x, acc[j].y);
       }
     }
-    yr[m] = make_float2(re, im);
+  }
+#pragma unroll
+  for (int j = 0; j < kC; ++j) {
+    const int m = (c + j) * 32 + lane;
+    if (m < g.out_len) yr[m] = acc[j];
   }
 }
 
+template <int kMaxT, bool kFull, int kS>
+__global__ void __launch_bounds__(kWarps * 32)
+    block_fir_kernel(const float2* __restrict__ x,
+                     const float2* __restrict__ taps, float2* __restrict__ y,
+                     const __grid_constant__ Geometry g,
+                     const __grid_constant__ TapOffsets offs) {
+  extern __shared__ __align__(16) float2 smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  float2* ring = smem + (long long)warp * kS * g.stage;
+  const long long first =
+      ((long long)blockIdx.x * warps + warp) * kRowsPerWarp;
+  if (first >= g.rows) return;                  // the whole warp
+  const int nrows = (int)min((long long)kRowsPerWarp, g.rows - first);
+
+  // zeros around every stage's row, written once
+  const int tap_slots = (g.num_taps + 1) & ~1;
+  for (int s = 0; s < kS; ++s) {
+    float2* st = ring + s * g.stage;
+    for (int k = tap_slots + lane; k < g.row0; k += 32) {
+      st[k] = make_float2(0.f, 0.f);
+    }
+    for (int k = g.row0 + g.block_size + lane; k < g.stage; k += 32) {
+      st[k] = make_float2(0.f, 0.f);
+    }
+  }
+  __syncwarp();
+
+#pragma unroll
+  for (int s = 0; s < kS - 1; ++s) {
+    if (s < nrows) {
+      load_row(ring + s * g.stage, x, taps, g, first + s, lane);
+    } else {
+      cp_async_commit();
+    }
+  }
+  for (int k = 0; k < nrows; ++k) {
+    const int next = k + kS - 1;
+    if (next < nrows) {
+      load_row(ring + (next % kS) * g.stage, x, taps, g, first + next, lane);
+    } else {
+      cp_async_commit();
+    }
+    const int s = k % kS;
+    cp_async_wait<kS - 1>();
+    __syncwarp();
+
+    const float2* stage = ring + s * g.stage;
+    float2 h[kRegTaps<kMaxT>];
+#pragma unroll
+    for (int i = 0; i < kRegTaps<kMaxT>; ++i) {
+      h[i] = i < g.num_taps ? stage[i] : make_float2(0.f, 0.f);
+    }
+    float2* yr = y + (first + k) * g.out_len;
+    int c = 0;
+    for (; c + kChunks <= g.chunks; c += kChunks) {
+      fir_chunks<kMaxT, kFull, kChunks>(stage, h, offs, g, yr, c, lane);
+    }
+    for (; c < g.chunks; ++c) {
+      fir_chunks<kMaxT, kFull, 1>(stage, h, offs, g, yr, c, lane);
+    }
+    __syncwarp();        // every lane is done with the stage it refills next
+  }
+}
+
+// How one call runs: the instance (tap_bound, the least of 16 / 32 / 64
+// that holds T, and full, T equal to it), the row buffers a warp (kStages,
+// or 1 where kStages do not fit), the warps a block (at most kWarps, as
+// many as fit), the shared bytes and the grid.
+struct Plan {
+  int tap_bound, full, stages, warps;
+  long long smem_bytes, blocks;
+  Geometry g;
+};
+
+// 0, or cudaErrorInvalidValue for a shape the kernel does not take.
+int make_plan(int rows, int block_size, int num_taps, int last_offset,
+              Plan* p) {
+  if (num_taps < 1 || num_taps > kMaxTaps || block_size < 1 ||
+      block_size > kMaxBlockSize || rows < 0 || last_offset < num_taps - 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Geometry& g = p->g;
+  g.rows = rows;
+  g.block_size = block_size;
+  g.num_taps = num_taps;
+  g.out_len = block_size + last_offset;
+  g.chunks = (g.out_len + 31) / 32;
+  // taps, D - 1 zeros rounded up to even, the row, zeros to the last chunk
+  g.row0 = ((num_taps + 1) & ~1) + ((last_offset + 1) & ~1);
+  g.stage = g.row0 + 32 * g.chunks;
+  const long long per_stage = 8LL * g.stage;
+  p->stages = kStages * per_stage <= kMaxSmem ? kStages : 1;
+  p->warps = (int)std::min<long long>(kWarps,
+                                      kMaxSmem / (p->stages * per_stage));
+  if (p->warps < 1) return (int)cudaErrorInvalidValue;
+  p->tap_bound = num_taps <= 16 ? 16 : num_taps <= 32 ? 32 : 64;
+  p->full = num_taps == p->tap_bound;
+  p->smem_bytes = p->warps * p->stages * per_stage;
+  const long long per_block = (long long)p->warps * kRowsPerWarp;
+  p->blocks = (rows + per_block - 1) / per_block;
+  return 0;
+}
+
+template <int kMaxT, bool kFull, int kS>
+int launch(const float2* x, const float2* taps, float2* y, const Plan& p,
+           const TapOffsets& offs, cudaStream_t stream) {
+  if (p.smem_bytes > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        block_fir_kernel<kMaxT, kFull, kS>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem_bytes);
+    if (rc != cudaSuccess) return (int)rc;
+  }
+  block_fir_kernel<kMaxT, kFull, kS>
+      <<<(unsigned int)p.blocks, p.warps * 32, (size_t)p.smem_bytes,
+         stream>>>(x, taps, y, p.g, offs);
+  return 0;
+}
+
+template <int kMaxT, int kS>
+int launch_full(const float2* x, const float2* taps, float2* y,
+                const Plan& p, const TapOffsets& offs, cudaStream_t stream) {
+  return p.full ? launch<kMaxT, true, kS>(x, taps, y, p, offs, stream)
+                : launch<kMaxT, false, kS>(x, taps, y, p, offs, stream);
+}
+
+template <int kS>
+int launch_taps(const float2* x, const float2* taps, float2* y,
+                const Plan& p, const TapOffsets& offs, cudaStream_t stream) {
+  if (p.tap_bound == 16) return launch_full<16, kS>(x, taps, y, p, offs,
+                                                    stream);
+  if (p.tap_bound == 32) return launch_full<32, kS>(x, taps, y, p, offs,
+                                                    stream);
+  return launch_full<64, kS>(x, taps, y, p, offs, stream);
+}
+
 }  // namespace
+
+// The plan of a call at these sizes (last_offset: d_{T-1}) as 12 int64:
+// tap_bound, full, stages, warps, the row's first element in a buffer,
+// the elements of a buffer, 32-wide output chunks a row, outputs a row,
+// shared bytes a block, blocks, rows a warp, output chunks a lane.
+extern "C" int block_fir_plan(int rows, int block_size, int num_taps,
+                              int last_offset, long long* out) {
+  Plan p;
+  const int rc = make_plan(rows, block_size, num_taps, last_offset, &p);
+  if (rc != 0) return rc;
+  const long long v[12] = {p.tap_bound, p.full,    p.stages,     p.warps,
+                           p.g.row0,    p.g.stage, p.g.chunks,   p.g.out_len,
+                           p.smem_bytes, p.blocks, kRowsPerWarp, kChunks};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
+  return 0;
+}
 
 // x (rows, block_size), taps (rows, num_taps) and y (rows, block_size +
 // offsets[num_taps - 1]) are contiguous complex64 on the device; offsets is
@@ -82,19 +328,26 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int block_fir(const void* x, const void* taps, void* y, int rows,
                          int block_size, int num_taps, const void* offsets,
                          void* stream) {
-  if (num_taps < 1 || num_taps > kMaxTaps || block_size < 1 ||
-      block_size > kMaxBlockSize || rows < 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (rows == 0) return 0;
+  if (num_taps < 1 || num_taps > kMaxTaps) return (int)cudaErrorInvalidValue;
   const int* d = static_cast<const int*>(offsets);
   TapOffsets offs = {};
   offs.n = num_taps;
-  for (int i = 0; i < num_taps; ++i) offs.d[i] = d[i];
-  const int out_len = block_size + d[num_taps - 1];
-  block_fir_kernel<<<rows, kThreads, block_size * sizeof(float2),
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float2*>(x), static_cast<const float2*>(taps),
-      static_cast<float2*>(y), block_size, out_len, offs);
+  for (int i = 0; i < num_taps; ++i) {
+    if (d[i] < 0 || (i > 0 && d[i] <= d[i - 1])) {
+      return (int)cudaErrorInvalidValue;
+    }
+    offs.d[i] = d[i];
+  }
+  Plan p;
+  int rc = make_plan(rows, block_size, num_taps, d[num_taps - 1], &p);
+  if (rc != 0) return rc;
+  if (rows == 0) return 0;
+  const auto* xp = static_cast<const float2*>(x);
+  const auto* tp = static_cast<const float2*>(taps);
+  auto* yp = static_cast<float2*>(y);
+  const auto s = static_cast<cudaStream_t>(stream);
+  rc = p.stages == kStages ? launch_taps<kStages>(xp, tp, yp, p, offs, s)
+                           : launch_taps<1>(xp, tp, yp, p, offs, s);
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }

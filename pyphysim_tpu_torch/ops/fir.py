@@ -8,8 +8,10 @@ versions of one function:
 
   * :func:`block_fir`, the wrapper: on CUDA tensors it launches the
     hand-written kernel ``ops/csrc/block_fir.cu`` (its source note says what
-    bounds it and what its design does about that), on CPU tensors it runs
-    the plain version. There is no fallback from one to the other.
+    bounds it and what its design does about that; the kernel picks its
+    own instance and shape, :func:`kernel_plan` reads them), on CPU
+    tensors it runs the plain version. There is no fallback from one to
+    the other.
   * :func:`block_fir_reference`, the plain PyTorch version: one shifted
     multiply-add per tap, as the TPU kernel's body does.
   * :func:`block_fir_fft`, the per-block FFT convolution (the JAX package's
@@ -24,34 +26,107 @@ which one it went through.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+import functools
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from .sparse_dft import sparse_dft
 
 __all__ = ["block_fir", "block_fir_reference", "block_fir_fft",
-           "MAX_TAPS", "MAX_BLOCK_SIZE"]
+           "kernel_plan", "kernel_profile", "loop_trips", "MAX_TAPS",
+           "MAX_BLOCK_SIZE"]
 
 MAX_TAPS = 64              # the kernel's offsets struct
-MAX_BLOCK_SIZE = 6144      # the kernel stages a row in 48 KB of shared memory
+MAX_BLOCK_SIZE = 6144      # as the first form, which staged a row in 48 KB
+_PLAN_KEYS = ("tap_bound", "full", "stages", "warps", "row0",
+              "stage_elements", "chunks", "out_len", "smem_bytes", "blocks",
+              "rows_per_warp", "kChunks")
+
+
+def kernel_plan(rows: int, block_size: int, tap_offsets: Sequence[int],
+                plan_fn=None) -> Dict[str, int]:
+    """How the kernel runs ``rows`` rows of ``block_size`` samples with
+    the taps at ``tap_offsets``, as ``block_fir.cu`` ``make_plan`` decides
+    it (the C function ``block_fir_plan`` of the built library, or
+    ``plan_fn``, a tuner's variant's): its instance
+    (``tap_bound``, the least of 16 / 32 / 64 that holds T, and ``full``,
+    T equal to it), the row buffers a warp (``stages``), the warps a
+    block, the elements of a row buffer, the shared bytes, the grid and
+    the threads launched. Needs the built library, so the card; raises
+    ``ValueError`` for a shape the kernel does not take."""
+    from . import _build
+    offsets = _offsets(tuple(tap_offsets))
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    fn = plan_fn or _build.load().block_fir_plan
+    if fn(int(rows), int(block_size), len(offsets), offsets[-1], out):
+        raise ValueError(f"the block_fir kernel takes 1 to {MAX_TAPS} "
+                         f"taps, 1 <= block_size <= {MAX_BLOCK_SIZE} and a "
+                         f"span whose row buffer fits in shared memory; "
+                         f"got {len(offsets)} taps, block_size "
+                         f"{block_size}, span {offsets[-1] + 1}")
+    plan = dict(zip(_PLAN_KEYS, out))
+    plan["full"] = bool(plan["full"])
+    plan["threads"] = plan["blocks"] * plan["warps"] * 32
+    return plan
+
+
+@functools.lru_cache(maxsize=64)
+def _offsets(tap_offsets: Tuple[int, ...]) -> Tuple[int, ...]:
+    offsets = tuple(int(d) for d in tap_offsets)
+    if not offsets or offsets[0] < 0 or \
+            any(b <= a for a, b in zip(offsets, offsets[1:])):
+        raise ValueError("tap_offsets must be increasing and non-negative")
+    return offsets
 
 
 def _check(x_blocks: torch.Tensor, taps: torch.Tensor,
            tap_offsets: Sequence[int], block_size: int) -> Tuple[int, ...]:
-    offsets = tuple(int(d) for d in tap_offsets)
+    offsets = _offsets(tuple(tap_offsets))
     if x_blocks.dim() != 2 or x_blocks.shape[1] != block_size:
         raise ValueError(f"x_blocks must be (R, {block_size}), got "
                          f"{tuple(x_blocks.shape)}")
     if taps.dim() != 2 or taps.shape != (x_blocks.shape[0], len(offsets)):
         raise ValueError(f"taps must be (R, T) = ({x_blocks.shape[0]}, "
                          f"{len(offsets)}), got {tuple(taps.shape)}")
-    if not offsets or offsets[0] < 0 or \
-            any(b <= a for a, b in zip(offsets, offsets[1:])):
-        raise ValueError("tap_offsets must be increasing and non-negative")
     if taps.device != x_blocks.device:
         raise ValueError("x_blocks and taps must be on one device")
     return offsets
+
+
+def kernel_profile(rows: int, block_size: int,
+                   tap_offsets: Sequence[int]) -> Dict[str, object]:
+    """What ``ops/sass.py`` needs to count the instructions of one launch:
+    the instance's mangled-name pattern and the threads launched (its
+    loops' trips come from the listing, :func:`loop_trips`)."""
+    plan = kernel_plan(rows, block_size, tap_offsets)
+    return {"pattern": (f"block_fir_kernelILi{plan['tap_bound']}"
+                        f"ELb{int(plan['full'])}ELi{plan['stages']}EE"),
+            "threads": plan["threads"], "plan": plan, "rows": rows}
+
+
+def loop_trips(loops: Sequence[Dict[str, int]],
+               profile: Dict[str, object]) -> List[float]:
+    """Each loop's trips, in listing order, from its opcodes
+    (``sass.loop_ops``): the loop holding the most FFMAs is a warp's row
+    loop (its rows, averaged over the warps launched), the next the
+    pass loop (``chunks // kChunks`` a row), the third the tail
+    (``chunks % kChunks``); every other loop (the zero fills and the
+    copies, unrolled by the compiler with remainders) counts one trip,
+    a few per cent of the issue not resolved."""
+    plan = profile["plan"]
+    ranked = sorted((i for i, ops in enumerate(loops)
+                     if ops.get("FFMA", 0)),
+                    key=lambda i: -loops[i]["FFMA"])
+    if len(ranked) != 3:
+        raise ValueError(f"{len(ranked)} loops with FFMAs in the block_fir "
+                         f"listing, expected 3 (rows, passes, tail)")
+    trips = [1.0] * len(loops)
+    warps = plan["threads"] // 32
+    trips[ranked[0]] = profile["rows"] / warps
+    trips[ranked[1]] = plan["chunks"] // plan["kChunks"]
+    trips[ranked[2]] = plan["chunks"] % plan["kChunks"]
+    return trips
 
 
 def block_fir(x_blocks: torch.Tensor, taps: torch.Tensor,
@@ -116,12 +191,18 @@ def _launch(x_blocks: torch.Tensor, taps: torch.Tensor,
     rows = x.shape[0]
     y = torch.empty((rows, block_size + offsets[-1]), dtype=torch.complex64,
                     device=x.device)
-    host_offsets = (ctypes.c_int * len(offsets))(*offsets)
-    lib = _build.load()
-    rc = lib.block_fir(x.data_ptr(), t.data_ptr(), y.data_ptr(), rows,
-                       block_size, len(offsets),
-                       ctypes.cast(host_offsets, ctypes.c_void_p),
-                       torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _build.load().block_fir(
+        x.data_ptr(), t.data_ptr(), y.data_ptr(), rows, block_size,
+        len(offsets), _host_offsets(offsets),
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "block_fir")
     block_fir.launch_count += 1
     return y
+
+
+@functools.lru_cache(maxsize=64)
+def _host_offsets(offsets: Tuple[int, ...]) -> ctypes.c_void_p:
+    """A host int array of the offsets, as the pointer the C function
+    takes (the pointer keeps its array alive, the cache the pointer)."""
+    return ctypes.cast((ctypes.c_int * len(offsets))(*offsets),
+                       ctypes.c_void_p)

@@ -65,8 +65,8 @@ from typing import Tuple, Union
 
 import torch
 
-__all__ = ["philox4x32_10", "to_int32_bits", "phase_stream_bits",
-           "symbol_stream_bits", "alamouti_stream_bits", "bd_stream_bits",
+__all__ = ["philox4x32_10", "philox4x32_10_int", "to_int32_bits",
+           "phase_stream_bits", "symbol_stream_bits", "alamouti_stream_bits", "bd_stream_bits",
            "ia_stream_bits", "ALAMOUTI_CHANNEL_KEY", "ALAMOUTI_NOISE_KEY",
            "ALAMOUTI_DATA_KEY", "BD_CHANNEL_KEY", "IA_CHANNEL_KEY"]
 
@@ -106,6 +106,20 @@ def philox4x32_10(c0: Word, c1: Word, c2: Word, c3: Word,
         hi0, lo0 = _mulhilo(_M0, c0)
         hi1, lo1 = _mulhilo(_M1, c2)
         c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def philox4x32_10_int(c0: int, c1: int, c2: int, c3: int, k0: int,
+                      k1: int) -> Tuple[int, int, int, int]:
+    """:func:`philox4x32_10` of one counter under one key in Python ints:
+    the same four words, with no tensor ops (a stream split draws one)."""
+    for i in range(10):
+        if i:
+            k0 = (k0 + _W0) & _MASK
+            k1 = (k1 + _W1) & _MASK
+        p0, p1 = _M0 * c0, _M1 * c2
+        c0, c1, c2, c3 = ((p1 >> 32) ^ c1 ^ k0, p1 & _MASK,
+                          (p0 >> 32) ^ c3 ^ k1, p0 & _MASK)
     return c0, c1, c2, c3
 
 

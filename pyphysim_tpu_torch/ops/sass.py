@@ -56,7 +56,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 __all__ = ["PIPE_RATES", "SMS", "CLOCK_HZ", "ERFINV_TAIL", "function_sass",
-           "pipe_counts", "issue_bound_ms"]
+           "loop_ops", "pipe_counts", "issue_bound_ms"]
 
 SMS = 132                 # H100 SXM
 CLOCK_HZ = 1.98e9         # boost clock (67 TFLOP/s f32 = 132 * 128 * 2 * it)
@@ -170,6 +170,40 @@ def _parse(sass: str) -> List[_Insn]:
     return insns
 
 
+def _body(sass: str) -> Tuple[List[_Insn], int]:
+    """The instructions before the terminating self-branch, and the address
+    of the last unconditional ``EXIT``."""
+    insns = _parse(sass)
+    end = next((i.addr for i in insns
+                if i.op == "BRA" and i.target == i.addr), None)
+    if end is None:
+        raise ValueError("no terminating self-branch in the listing")
+    body = [i for i in insns if i.addr < end]
+    exits = [i.addr for i in body if i.op == "EXIT" and i.pred is None]
+    if not exits:
+        raise ValueError("no unconditional EXIT in the listing")
+    return body, exits[-1]
+
+
+def loop_ops(sass: str) -> List[Dict[str, int]]:
+    """The loops of one kernel's listing as :func:`pipe_counts` sees them
+    (backward branches up to the last ``EXIT``, in listing order): for
+    each, how many of each opcode its range holds, nested loops' included.
+    A kernel whose loop structure follows its shape (unrolled copies,
+    remainders) can name its loops' trips from their contents."""
+    body, main_end = _body(sass)
+    out = []
+    for i in body:
+        if i.op == "BRA" and i.target is not None and \
+                i.target <= i.addr <= main_end:
+            ops: Dict[str, int] = {}
+            for j in body:
+                if i.target <= j.addr <= i.addr:
+                    ops[j.op] = ops.get(j.op, 0) + 1
+            out.append(ops)
+    return out
+
+
 def pipe_counts(sass: str, loop_trips: Union[float, Sequence[float]] = 1,
                 loops: int = 0) -> Dict[str, float]:
     """Instructions issued per thread, by pipe (``fp32``, ``imad``,
@@ -181,16 +215,7 @@ def pipe_counts(sass: str, loop_trips: Union[float, Sequence[float]] = 1,
     trip count for every loop, or a sequence of ``loops`` of them, one per
     backward branch in listing order (a trip may be fractional: the mean
     over the threads counted)."""
-    insns = _parse(sass)
-    end = next((i.addr for i in insns
-                if i.op == "BRA" and i.target == i.addr), None)
-    if end is None:
-        raise ValueError("no terminating self-branch in the listing")
-    body = [i for i in insns if i.addr < end]
-    exits = [i.addr for i in body if i.op == "EXIT" and i.pred is None]
-    if not exits:
-        raise ValueError("no unconditional EXIT in the listing")
-    main_end = exits[-1]
+    body, main_end = _body(sass)
     nxt = {a.addr: b.addr for a, b in zip(body, body[1:])}
     by_addr = {i.addr: i for i in body}
 

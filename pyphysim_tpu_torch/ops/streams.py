@@ -16,45 +16,176 @@ makes independent sub-streams, as ``jax.random.split`` does. These are not
 ``jax.random``'s numbers; tests that compare the two packages inject numpy
 inputs instead.
 
-:func:`philox_words` is the shared core: per-row keys and counters in,
-``(n, m)`` words out. The Rayleigh generator's state uses it too.
+:func:`philox_draw` is the shared core: per-row keys and counters in,
+``(n, m)`` words, uniforms or normals out (:func:`philox_words` is its
+words); the Rayleigh generator's state uses it too. On CUDA tensors it is
+one launch of the kernel ``ops/csrc/philox_fill.cu``, on CPU tensors the
+plain version :func:`philox_draw_reference` (Philox in torch int64 ops,
+~300 small kernels a draw), whose bits the kernel reproduces. There is no
+fallback from one to the other.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from .philox import philox4x32_10
+from .philox import philox4x32_10, philox4x32_10_int
 
-__all__ = ["AttemptStreams", "philox_words", "words_to_uniform",
-           "words_to_normal", "uniform", "normal", "bits"]
+__all__ = ["AttemptStreams", "philox_words", "philox_draw",
+           "philox_draw_reference", "pack_words", "packed_values",
+           "words_to_uniform", "words_to_normal", "uniform", "normal",
+           "bits"]
 
 _MASK = 0xFFFFFFFF
 _TWO_PI = 6.283185307179586
+_KINDS = ("bits", "uniform", "normal")
 Shape = Union[int, Sequence[int]]
+# a key or counter word: an int (every row), an (n,) int64 tensor of words
+# in [0, 2**32), or (tensor, shift): the low 32 bits of ``tensor >> shift``
+WordArg = Union[int, torch.Tensor, Tuple[torch.Tensor, int]]
+Packed = Tuple[Optional[torch.Tensor], int, int, int]
 
 
 def _shape(shape: Shape) -> Tuple[int, ...]:
     return (int(shape),) if isinstance(shape, int) else tuple(shape)
 
 
-def philox_words(k0, k1, c2, c3, m: int) -> torch.Tensor:
+def philox_words(k0: WordArg, k1: WordArg, c2: WordArg, c3: WordArg,
+                 m: int) -> torch.Tensor:
     """``(n, m)`` int64 words in [0, 2**32): row ``r`` is Philox4x32-10
     under the key ``(k0[r], k1[r])`` at the counters ``(j, 0, c2[r],
     c3[r])``, ``j = 0 .. ceil(m / 4) - 1``, four words per counter.
-    ``k0`` / ``k1`` are ints or (n,) int64 tensors, ``c2`` / ``c3``
-    (n,) int64 tensors; all on one device."""
-    c2 = c2.reshape(-1, 1)
-    c3 = c3.reshape(-1, 1)
-    k0, k1 = (k.reshape(-1, 1) if isinstance(k, torch.Tensor) else int(k)
-              for k in (k0, k1))
-    j = torch.arange((m + 3) // 4, dtype=torch.int64, device=c2.device)
-    words = torch.stack(philox4x32_10(j[None, :], 0, c2, c3, k0, k1),
-                        dim=-1)                      # (n, m/4, 4)
-    return words.reshape(c2.shape[0], -1)[:, :m]
+    Each word is an int or an (n,) int64 tensor (or a ``(tensor, shift)``
+    pair, see :func:`pack_words`), all tensors on one device; ``c2`` or
+    ``c3`` is a tensor."""
+    return philox_draw("bits", k0, k1, c2, c3, m)
+
+
+def pack_words(k0: WordArg, k1: WordArg, c2: WordArg, c3: WordArg
+               ) -> Tuple[int, torch.device, List[Packed]]:
+    """The four key and counter words as the fill kernel reads them:
+    ``(n, device, [(column or None, stride, shift, value)] * 4)``. An int
+    is the ``value`` of every row; a tensor ``t`` or a pair ``(t, shift)``
+    is read at ``t[r * stride] >> shift``, its low 32 bits (so a chunk of
+    64-bit attempts ``a`` gives its low and high words as ``(a, 0)`` and
+    ``(a, 32)``, with nothing computed on the host)."""
+    packed, n, dev = [], None, None
+    for w in (k0, k1, c2, c3):
+        t, shift = w if isinstance(w, tuple) else (w, 0)
+        if not isinstance(t, torch.Tensor):
+            packed.append((None, 0, 0, int(t) & _MASK))
+            continue
+        t = t.reshape(-1) if t.dim() != 1 else t
+        if t.dtype != torch.int64:
+            t = t.to(torch.int64)
+        if n is None:
+            n, dev = t.shape[0], t.device
+        elif t.shape[0] != n or t.device != dev:
+            raise ValueError("the key and counter columns must have one "
+                             "length and one device")
+        if not 0 <= int(shift) < 64:
+            raise ValueError(f"shift {shift} outside [0, 64)")
+        packed.append((t, t.stride(0), int(shift), 0))
+    if n is None:
+        raise ValueError("at least one key or counter word must be a "
+                         "tensor")
+    return n, dev, packed
+
+
+def packed_values(packed: Sequence[Packed]) -> List[Union[int, torch.Tensor]]:
+    """The words a packing names, in torch: what the kernel reads for each
+    row (a tensor column as ``(t >> shift) & 0xFFFFFFFF``, an int as
+    itself). The plain version draws from these."""
+    return [value if t is None else (t >> shift) & _MASK
+            for t, _, shift, value in packed]
+
+
+def philox_draw(kind: str, k0: WordArg, k1: WordArg, c2: WordArg,
+                c3: WordArg, m: int, mask: int = _MASK) -> torch.Tensor:
+    """``(n, m)`` draws from the Philox words of :func:`philox_words`:
+    ``kind`` "bits" gives the words AND ``mask`` (int64), "uniform"
+    float32 uniforms in [0, 1) (:func:`words_to_uniform`), "normal"
+    float32 standard normals (:func:`words_to_normal` of ``m`` rounded up
+    to even words, the first ``m`` kept). One launch of the fill kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
+    n, dev, packed = pack_words(k0, k1, c2, c3)
+    if dev.type == "cuda":
+        out, launch = _fill_launcher(kind, n, dev, packed, int(m), mask)
+        if out.numel():
+            launch()
+        return out
+    if dev.type == "cpu":
+        return _draw_plain(kind, packed, int(m), mask)
+    raise RuntimeError(f"no route for device {dev}")
+
+
+philox_draw.launch_count = 0
+philox_draw.reference_count = 0
+
+
+def philox_draw_reference(kind: str, k0: WordArg, k1: WordArg, c2: WordArg,
+                          c3: WordArg, m: int,
+                          mask: int = _MASK) -> torch.Tensor:
+    """The plain version of :func:`philox_draw` on any device: Philox in
+    torch int64 ops, then the conversions."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
+    return _draw_plain(kind, pack_words(k0, k1, c2, c3)[2], int(m), mask)
+
+
+def _draw_plain(kind: str, packed: Sequence[Packed], m: int,
+                mask: int) -> torch.Tensor:
+    philox_draw.reference_count += 1
+    k0, k1, c2, c3 = packed_values(packed)
+    if kind == "normal":
+        words = _philox_words_plain(k0, k1, c2, c3, m + (m & 1))
+        return words_to_normal(words)[:, :m]
+    words = _philox_words_plain(k0, k1, c2, c3, m)
+    if kind == "uniform":
+        return words_to_uniform(words)
+    return words if mask == _MASK else words & mask
+
+
+def _fill_launcher(kind: str, n: int, dev: torch.device,
+                   packed: Sequence[Packed], m: int, mask: int):
+    """``(out, launch)``: the output of one draw and a function that
+    launches the fill kernel into it on the current stream."""
+    from . import _build
+    dtype = torch.int64 if kind == "bits" else torch.float32
+    out = torch.empty((n, m), dtype=dtype, device=dev)
+    m_words = m + (m & 1) if kind == "normal" else m
+    spec = []
+    for t, stride, shift, value in packed:
+        spec += (0 if t is None else t.data_ptr(), stride, shift, value)
+    words = (ctypes.c_longlong * 16)(*spec)
+    args = (out.data_ptr(), n, m, m_words, _KINDS.index(kind), mask & _MASK,
+            ctypes.addressof(words),
+            torch.cuda.current_stream(dev).cuda_stream)
+    fill = _build.load().philox_stream_fill
+
+    def launch(words=words):     # the host array lives as long as this
+        _build.check(fill(*args), "philox_stream_fill")
+        philox_draw.launch_count += 1
+    return out, launch
+
+
+def _philox_words_plain(k0, k1, c2, c3, m: int) -> torch.Tensor:
+    """The torch route of :func:`philox_words`, on values (ints or (n,)
+    int64 tensors, at least one a tensor)."""
+    k0, k1, c2, c3 = (w.reshape(-1, 1) if isinstance(w, torch.Tensor)
+                      else int(w) for w in (k0, k1, c2, c3))
+    col = next(w for w in (c2, c3, k0, k1) if isinstance(w, torch.Tensor))
+    j = torch.arange((m + 3) // 4, dtype=torch.int64, device=col.device)
+    words = torch.stack(torch.broadcast_tensors(
+        *philox4x32_10(j[None, :], 0, c2, c3, k0, k1)),
+        dim=-1)                                      # (n, m/4, 4)
+    return words.reshape(col.shape[0], -1)[:, :m]
 
 
 def words_to_uniform(words: torch.Tensor) -> torch.Tensor:
@@ -107,38 +238,40 @@ class AttemptStreams:
         """``num`` independent sub-streams (the counterpart of
         ``jax.random.split``); the child salts are Philox words of the
         parent's salt, so a tree of splits never repeats a salt."""
-        child = philox4x32_10(self.salt, 0x5EED, 0, 0, self.seed, 0x57A17)[0]
-        base = int(child)
+        base = philox4x32_10_int(self.salt, 0x5EED, 0, 0, self.seed,
+                                 0x57A17)[0]
         return [AttemptStreams(self.seed, self.attempts,
                                (base + 0x9E3779B9 * (i + 1)) & _MASK)
                 for i in range(num)]
 
     def bits(self, shape: Shape) -> torch.Tensor:
         """(n, *shape) int64 words in [0, 2**32)."""
-        shape = _shape(shape)
-        m = math.prod(shape)
-        a = self.attempts
-        words = philox_words(self.seed, self.salt, a & _MASK,
-                             (a >> 32) & _MASK, m)
-        return words.reshape((self.n,) + shape)
+        return self._draw("bits", shape)
 
     def uniform(self, shape: Shape) -> torch.Tensor:
         """(n, *shape) float32 uniforms in [0, 1)."""
-        return words_to_uniform(self.bits(shape))
+        return self._draw("uniform", shape)
 
     def normal(self, shape: Shape) -> torch.Tensor:
         """(n, *shape) float32 standard normals (Box-Muller)."""
-        shape = _shape(shape)
-        m = math.prod(shape)
-        flat = self.bits(m + (m & 1))
-        return words_to_normal(flat)[:, :m].reshape((self.n,) + shape)
+        return self._draw("normal", shape)
 
     def integers(self, high: int, shape: Shape) -> torch.Tensor:
         """(n, *shape) int64 in [0, high), ``high`` a power of two up to
         2**32 (exact: the low bits of uniform words)."""
         if high < 1 or high & (high - 1) or high > 2 ** 32:
             raise ValueError("high must be a power of two <= 2**32")
-        return self.bits(shape) & (high - 1)
+        return self._draw("bits", shape, high - 1)
+
+    def _draw(self, kind: str, shape: Shape,
+              mask: int = _MASK) -> torch.Tensor:
+        """One :func:`philox_draw` of ``kind`` over this chunk's attempts:
+        the counter words are the attempt's low and high 32 bits."""
+        shape = _shape(shape)
+        a = self.attempts
+        out = philox_draw(kind, self.seed, self.salt, (a, 0), (a, 32),
+                          math.prod(shape), mask)
+        return out.reshape((self.n,) + shape)
 
 
 def _draw(source, shape: Shape, device, kind: str) -> torch.Tensor:

@@ -10,7 +10,11 @@ inputs.
 * ``channels/fading.py`` ``tdl_filter_block_fft`` under both
   ``BLOCK_CONV_IMPL`` routes against the JAX function and against JAX
   ``tdl_filter`` with the taps held per block (``atol`` 1e-5).
-* On the card (``cuda`` marker): the CUDA kernel against its plain version.
+* The trips of the kernel's SASS loops (``loop_trips``), on the CPU.
+* On the card (``cuda`` marker): the CUDA kernel against its plain version,
+  at the flagship geometry and at rows of 4,520 B and tap counts above 16;
+  the kernel's own plan (``kernel_plan``, read from the built library's
+  ``block_fir_plan``: its instance by tap count, row buffers, warps, grid).
 """
 
 import jax.numpy as jnp
@@ -49,6 +53,10 @@ def test_flagship_offsets():
 @pytest.mark.parametrize("rows,block_size,offsets", [
     (70, 64, [0, 3, 7, 20]),             # ragged: not a multiple of 64 rows
     (8, 564, TU_OFFSETS),                # the flagship geometry
+    (9, 565, TU_OFFSETS),                # a row of 4,520 B, not 16-byte whole
+    (12, 100, list(range(0, 60, 3))),    # 20 taps: the 32-tap instance
+    (5, 64, list(range(0, 128, 2))),     # 64 taps: the widest instance
+    (1, 33, [0]),                        # one row, one tap, odd block
 ])
 def test_block_fir_matches_jax(rows, block_size, offsets):
     rng = np.random.default_rng(rows + block_size)
@@ -77,6 +85,92 @@ def test_block_fir_checks_its_inputs():
         fir.block_fir(x, t[:3], [0, 3], 16)
     with pytest.raises(ValueError, match="increasing"):
         fir.block_fir(x, t, [3, 3], 16)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,bound,full", [
+    (1, 16, False), (15, 16, False), (16, 16, True), (17, 32, False),
+    (32, 32, True), (33, 64, False), (64, 64, True)])
+def test_kernel_plan_picks_the_instance_by_tap_count(T, bound, full):
+    """On the card: the kernel's own plan (``block_fir_plan``) picks the
+    least of 16 / 32 / 64 that holds T."""
+    _needs_card()
+    plan = fir.kernel_plan(100, 564, tuple(range(0, 2 * T, 2)))
+    assert (plan["tap_bound"], plan["full"]) == (bound, full)
+
+
+@pytest.mark.cuda
+def test_kernel_plan_at_the_flagship_geometry():
+    """On the card: taps (16), D - 1 zeros rounded to even (44), then 19
+    chunks of 32 outputs; two buffers a warp, four warps a block, eight
+    rows a warp, four chunks a lane."""
+    _needs_card()
+    for rows, blocks in ((8192, 256), (1000, 32), (1, 1)):
+        plan = fir.kernel_plan(rows, 564, tuple(TU_OFFSETS))
+        assert plan["row0"] == 16 + 44
+        assert plan["chunks"] == 19 and plan["out_len"] == 607
+        assert plan["stage_elements"] == 60 + 19 * 32
+        assert (plan["stages"], plan["warps"]) == (2, 4)
+        assert (plan["rows_per_warp"], plan["kChunks"]) == (8, 4)
+        assert plan["smem_bytes"] == 4 * 2 * 8 * 668
+        assert plan["blocks"] == blocks
+        assert plan["threads"] == blocks * 128
+    # a row of 4,520 B keeps the same plan
+    assert fir.kernel_plan(1000, 565, tuple(TU_OFFSETS))["chunks"] == 19
+    profile = fir.kernel_profile(1000, 564, TU_OFFSETS)
+    assert profile["pattern"] == "block_fir_kernelILi16ELb1ELi2EE"
+    assert profile["threads"] == 32 * 128
+
+
+@pytest.mark.cuda
+def test_kernel_plan_shrinks_to_what_fits_and_raises_beyond():
+    """On the card: a long span takes one buffer a warp and one warp a
+    block once two do not fit in 227 KB; a span whose one buffer does not
+    fit raises, as do more than 64 taps and a block above 6,144."""
+    _needs_card()
+    plan = fir.kernel_plan(10, 6144, (0, 5000))
+    assert (plan["stages"], plan["warps"]) == (1, 1)
+    assert plan["smem_bytes"] <= 232448
+    assert fir.kernel_plan(10, 6144, (0, 300))["stages"] == 2
+    with pytest.raises(ValueError, match="span 20001"):
+        fir.kernel_plan(10, 6144, (0, 20000))
+    with pytest.raises(ValueError, match="65 taps"):
+        fir.kernel_plan(10, 64, tuple(range(65)))
+    with pytest.raises(ValueError, match="block_size 6145"):
+        fir.kernel_plan(10, 6145, (0, 1))
+
+
+def _profile(rows, chunks, k_chunks, threads):
+    """A profile as ``kernel_profile`` gives it, with the plan entries
+    ``loop_trips`` reads."""
+    return {"rows": rows, "threads": threads,
+            "plan": {"chunks": chunks, "kChunks": k_chunks,
+                     "threads": threads}}
+
+
+@pytest.mark.parametrize("rows,chunks,k_chunks,threads", [
+    (1000, 19, 4, 32 * 128),      # the flagship plan at 1,000 rows
+    (8192, 19, 8, 256 * 128),     # 8 chunks a lane: 2 passes, 3 tail
+    (1, 2, 4, 128),               # one row, no full pass
+])
+def test_loop_trips_name_rows_passes_and_tail(rows, chunks, k_chunks,
+                                              threads):
+    """The loop with the most FFMAs is the row loop (rows over the warps
+    launched), the next the pass loop, the third the tail; copies and
+    zero fills one trip each."""
+    profile = _profile(rows, chunks, k_chunks, threads)
+    loops = [{"STS": 4}, {"LDGSTS": 4}, {"FFMA": 256, "LDS": 64},
+             {"FFMA": 64}, {"FFMA": 320, "LDGSTS": 4}]
+    trips = fir.loop_trips(loops, profile)
+    assert trips == [1.0, 1.0, chunks // k_chunks, chunks % k_chunks,
+                     rows / (threads // 32)]
+    with pytest.raises(ValueError, match="expected 3"):
+        fir.loop_trips(loops[:3], profile)
 
 
 def _ir_pair(rng, batch, num_blocks):
@@ -150,4 +244,26 @@ def test_block_fir_kernel_matches_plain(rows):
     torch.cuda.synchronize()
     assert fir.block_fir.launch_count == before + 1
     ref = fir.block_fir_reference(x, taps, TU_OFFSETS, 564)
+    assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,block_size,offsets", [
+    (8192, 564, TU_OFFSETS), (1000, 564, TU_OFFSETS), (1, 564, TU_OFFSETS),
+    (1000, 565, TU_OFFSETS), (1000, 564, list(range(0, 100, 5))),
+    (256, 564, list(range(0, 128, 2))), (7, 33, [0])])
+def test_block_fir_kernel_geometries(rows, block_size, offsets):
+    """On the card: every instance (16 / 32 / 64 taps, full or not) and a
+    row that is not 16-byte whole, against the plain version within 1e-5
+    of max |y|."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    g = torch.Generator(device="cuda").manual_seed(rows + block_size)
+    x = torch.randn(rows, block_size, dtype=torch.complex64, device="cuda",
+                    generator=g)
+    taps = torch.randn(rows, len(offsets), dtype=torch.complex64,
+                       device="cuda", generator=g)
+    y = fir.block_fir(x, taps, offsets, block_size)
+    torch.cuda.synchronize()
+    ref = fir.block_fir_reference(x, taps, offsets, block_size)
     assert float((y - ref).abs().max()) <= 1e-5 * float(ref.abs().max())

@@ -100,6 +100,19 @@ def test_trips_per_loop(trips, a, b):
     assert got == pytest.approx(want, rel=1e-12)
 
 
+def test_loop_ops_list_each_loop_in_listing_order():
+    """Each backward branch's range and its opcodes; a loop inside another
+    counts in both."""
+    assert sass.loop_ops(_listing(_TWO_LOOPS)) == [
+        {"FFMA": 1, "IADD3": 1, "ISETP": 1, "BRA": 1},
+        {"FMUL": 1, "MUFU": 1, "ISETP": 1, "BRA": 1}]
+    nested = _TWO_LOOPS[:9] + [(0x090, "@!P2", "BRA 0x10"),
+                               (0x0a0, "", "EXIT"), (0x0b0, "", "BRA 0xb0")]
+    outer = sass.loop_ops(_listing(nested))[2]
+    assert outer == {"FFMA": 1, "IADD3": 1, "ISETP": 2, "BRA": 3,
+                     "FMUL": 1, "MUFU": 1}
+
+
 def test_trips_per_loop_must_match_the_loops():
     with pytest.raises(ValueError, match="3 trip counts for 2 loops"):
         sass.pipe_counts(_listing(_TWO_LOOPS), loop_trips=[1, 2, 3], loops=2)
