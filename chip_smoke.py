@@ -23,6 +23,13 @@ against its plain PyTorch version on the card:
     plain version at every point of the kernel's menu and at the bench
     widths, the bulk app and the batched chain (``ia_step``), the per-key
     stream-selection app, and their times (phases 20-26).
+  * the comp_BD CoMP scenario (EnhancedBD / WhiteningBD stream sacrifice
+    under external interference, ``apps/comp_BD/simulate_comp_torch.py``):
+    its batched solvers on the card against the same functions on the CPU,
+    ``bench.py``'s stage at full width through the runner's bulk path (its
+    draws through the ``philox_stream_fill`` kernel), chunk invariance,
+    every metric and the non-square configuration, the host engine, and
+    the stage's times (phases 27-31). This path reaches no TPU kernel.
 
 One line per phase; any failure raises and the script exits non-zero.
 There is no CPU fallback: without a CUDA device it fails before printing
@@ -80,6 +87,17 @@ IA_PARITY_TILE = 64                 # inject parity: 32,768 solves per cell
 IA_PLAIN_SLICE = 32                 # reps per plain-version call
 IA_CHAIN_BATCH = 4096                                        # ia_step
 IA_REL_TOL = 2e-4                   # |kernel - plain| / |plain| per cell
+# comp_BD scenario (bench.py _bench_comp_bd_scenario, :550-615): SNR 20 dB,
+# Pe 10 dBm, random drops, metrics None / capacity / Whitening
+COMP_BD_SER_CAPACITY = (0.0015, 0.03)
+COMP_BD_SER_NONE = (0.025, 0.15)
+COMP_BD_CHUNK = 4096                # bench.py's batch_size
+COMP_BD_REPS = 16384                # bench.py's timed reps
+COMP_BD_METRICS = ["None", "capacity", "Whitening"]
+COMP_BD_SOLVER_DRAWS = 4096         # batched solvers: card against CPU
+COMP_BD_SINR_RTOL = 1e-3            # solvers: error floor (see phase 27)
+COMP_BD_FLIP_LIMIT = 8              # Ns flips (near ties) per 4,096 draws
+COMP_BD_SMALL_REPS = 2048           # every metric, and the non-square file
 
 
 def phase(name, **fields):
@@ -296,6 +314,11 @@ def main() -> int:
     phases_8_to_12 = chain_phases(dev, smi, fill_err)
     phases_13_to_19 = mimo_bd_phases(dev, smi)
     phases_20_to_26 = ia_phases(dev, smi)
+    comp_bd_fill_err = comp_bd_phases(dev, smi)
+    for entry in phases_8_to_12:
+        if entry["name"] == "philox_stream_fill":
+            entry["max_abs_err"] = max(entry["max_abs_err"],
+                                       comp_bd_fill_err)
 
     print(smi)
     print(json.dumps({"kernels": [
@@ -392,17 +415,31 @@ def recorded_draws(step):
 def fill_main_path_parity(dev, name, chain, batch):
     """Phase 10, the fill at the main path's own shapes: every draw one
     step of ``chain`` makes over ``batch`` attempts across 2**32 (symbol
-    bits, channel uniforms, noise normals), the fill against its plain
-    version, bits and uniforms bit for bit, normals within
-    ``FILL_ULP_LIMIT`` ulps. The noise draws span several grids of the
-    fill's launch, so its grid-stride loop runs. Returns the largest
-    |kernel - plain|."""
+    bits, channel uniforms, noise normals), held by
+    :func:`fill_draws_parity`. Returns the largest |kernel - plain|."""
     import torch
-    from pyphysim_tpu_torch.ops.streams import (AttemptStreams, philox_draw,
-                                                philox_draw_reference)
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
     a = torch.arange(2 ** 32 - batch // 2, 2 ** 32 + batch - batch // 2,
                      dtype=torch.int64, device=dev)
     draws = recorded_draws(lambda: chain.step(AttemptStreams(99, a), 10.0))
+    kinds = sorted(k for k, *_ in draws)
+    if kinds != ["bits", "normal", "uniform"]:
+        raise AssertionError(f"fill_main_path {name}: a step drew {kinds}, "
+                             f"expected symbol bits, channel uniforms and "
+                             f"noise normals")
+    return fill_draws_parity(name, draws)
+
+
+def fill_draws_parity(name, draws):
+    """The fill against its plain version at each draw of ``draws`` (from
+    :func:`recorded_draws`), with the draw's own keys, attempts, width and
+    mask: bits (masked as drawn) and uniforms bit for bit, normals within
+    ``FILL_ULP_LIMIT`` ulps. The widest draws span several grids of the
+    fill's launch, so its grid-stride loop runs. Returns the largest
+    |kernel - plain|."""
+    import torch
+    from pyphysim_tpu_torch.ops.streams import (philox_draw,
+                                                philox_draw_reference)
     err = 0.0
     for kind, s, m, mask in draws:
         args = (kind, s.seed, s.salt, (s.attempts, 0), (s.attempts, 32), m,
@@ -413,19 +450,15 @@ def fill_main_path_parity(dev, name, chain, batch):
         differ = int((got != plain).sum())
         ulps = float_ulps(got, plain) if kind == "normal" else 0
         counters = s.n * -(-(m + (m & 1 if kind == "normal" else 0)) // 4)
-        phase("fill_main_path", step=name, kind=kind, shape=f"{s.n}x{m}",
-              counters=counters, grids=counters / FILL_GRID_COUNTERS,
+        phase("fill_main_path", step=name, kind=kind, mask=hex(mask),
+              shape=f"{s.n}x{m}", counters=counters,
+              grids=counters / FILL_GRID_COUNTERS,
               differ_from_plain=differ, max_ulps=ulps,
               ulp_limit=FILL_ULP_LIMIT)
         if (kind != "normal" and differ) or ulps > FILL_ULP_LIMIT:
             raise AssertionError(f"fill_main_path {name} {kind} {s.n}x{m}: "
                                  f"the fill differs from its plain version")
         err = max(err, float((got.double() - plain.double()).abs().max()))
-    kinds = sorted(k for k, *_ in draws)
-    if kinds != ["bits", "normal", "uniform"]:
-        raise AssertionError(f"fill_main_path {name}: a step drew {kinds}, "
-                             f"expected symbol bits, channel uniforms and "
-                             f"noise normals")
     return err
 
 
@@ -1374,6 +1407,257 @@ def ia_phases(dev, smi):
         "bound_by": ia_bound_by,
         "library_ms": None,
     }
+
+
+def comp_bd_runner(dev, metrics, rep_max, batch, config=None,
+                   engine="device"):
+    """``BDSimulationRunner`` at bench.py's point: SNR 20 dB, Pe 10 dBm,
+    random drops."""
+    import numpy as np
+    from apps.comp_BD.simulate_comp_torch import BDSimulationRunner
+    r = BDSimulationRunner(read_command_line_args=False, engine=engine,
+                           metrics=metrics, device=dev,
+                           default_config_file=config)
+    r.params.add("SNR", np.array([20.0]))
+    r.params.add("Pe_dBm", np.array([10.0]))
+    r.params.add("user_positioning_method", "Random")
+    r.rep_max, r.batch_size = rep_max, batch
+    r.update_progress_function_style = None
+    return r
+
+
+def comp_bd_sers(runner):
+    return {m: float(runner.results.get_result_values_list(f"ser_{m}")[0])
+            for m in runner.metrics}
+
+
+def comp_bd_solver_parity(dev):
+    """Phase 27: the main path's own draws (the first chunk of 4,096
+    attempts of the bench point) through the fill against its plain
+    version (:func:`fill_draws_parity`: the channel, ext-int channel,
+    ext-int signal and noise normals, and the data symbols' bits under the
+    mask M - 1), then ``enhanced_bd_batched`` (every metric) and
+    ``whitening_bd_batched`` on them, on the card against the same
+    functions on the CPU. Returns the fill's largest |kernel - plain|.
+
+    Stream counts may flip on near ties of the candidates' metric, and
+    validity masks differ as rarely (each at most COMP_BD_FLIP_LIMIT). The
+    users' rows differ by up to ~50 dB here, so float32 rounding moves the
+    SINRs of ill-conditioned draws by per cents on any backend: each
+    backend's float32 result is held to a float64 run of the same
+    algorithm (on the CPU): the card's error may exceed ``max(
+    COMP_BD_SINR_RTOL, 4 x the CPU's)`` on at most COMP_BD_FLIP_LIMIT
+    draws, and its 99.9th percentile and largest error over the draws may
+    be at most twice the CPU's (or COMP_BD_SINR_RTOL). For whitening the
+    quantity is each user's effective channel after its filter, ``W_k H_k
+    Ms_k`` (the identity, but for the streams the 6x6 pseudo-inverse
+    drops at or below 1e-3 of the draw's largest singular value, as in the
+    JAX package)."""
+    import torch
+    from apps.comp_BD.simulate_comp_torch import _solver_cases
+    from pyphysim_tpu_torch.comm.batched import (enhanced_bd_batched,
+                                                 whitening_bd_batched)
+    r = comp_bd_runner(dev, None, 1, 1)
+    p = r.params.get_unpacked_params_list()[0]
+    c = r._point(p)
+    draws = {}
+    fills = recorded_draws(lambda: draws.update(
+        r._draw(p, c, 0, COMP_BD_SOLVER_DRAWS)))
+    full = 0xFFFFFFFF
+    layout = [("normal", full), ("normal", full), ("bits", c["M"] - 1),
+              ("normal", full), ("normal", full)]
+    if [(kind, mask) for kind, _, _, mask in fills] != layout:
+        raise AssertionError(f"comp_bd: the draws of a chunk are {fills}, "
+                             f"expected {layout}")
+    fill_err = fill_draws_parity("comp_bd", fills)
+    H, R, K, pt = draws["H"], draws["R"], c["K"], c["pt"]
+    Hc, Rc = H.cpu(), R.cpu()
+    H64, R64 = Hc.to(torch.complex128), Rc.to(torch.complex128)
+
+    def rel_err(x, ref):
+        """Per draw: the largest |x - ref| / |ref| (elementwise)."""
+        d = (x - ref).abs() / ref.abs().clamp(min=1e-30)
+        return d.flatten(1).amax(dim=-1)
+
+    def check(name, flips, bad_valid, card_err, cpu_err, **fields):
+        over = card_err > torch.clamp(4 * cpu_err, min=COMP_BD_SINR_RTOL)
+        phase("comp_bd_solvers", solver=name, draws=COMP_BD_SOLVER_DRAWS,
+              ns_flips=flips, valid_mismatches=bad_valid,
+              card_max_err=float(card_err.max()),
+              cpu_max_err=float(cpu_err.max()),
+              card_p999_err=float(card_err.quantile(0.999)),
+              cpu_p999_err=float(cpu_err.quantile(0.999)),
+              draws_over=int(over.sum()), **fields)
+        worse = [float(card_err.quantile(q)) >
+                 max(COMP_BD_SINR_RTOL, 2 * float(cpu_err.quantile(q)))
+                 for q in (0.999, 1.0)]
+        if flips > COMP_BD_FLIP_LIMIT or bad_valid > COMP_BD_FLIP_LIMIT \
+                or int(over.sum()) > COMP_BD_FLIP_LIMIT or any(worse):
+            raise AssertionError(f"comp_bd_solvers {name}: the card's "
+                                 "float32 error exceeds the CPU's")
+
+    for name, metric, kw in _solver_cases(r.metrics, r.modulator, c["L"]):
+        g = [x.cpu() for x in enhanced_bd_batched(H, R, K, pt,
+                                                  metric=metric, **kw)]
+        w = enhanced_bd_batched(Hc, Rc, K, pt, metric=metric, **kw)
+        e = enhanced_bd_batched(H64, R64, K, pt, metric=metric, **kw)
+        flips = (g[2] != w[2]).any(dim=-1)
+        ok = g[4] & w[4] & ~flips & (g[2] == e[2]).all(dim=-1)
+        check(f"enhanced_bd_batched {name}", int(flips.sum()),
+              int((g[4] != w[4]).sum()), rel_err(g[3], e[3])[ok],
+              rel_err(w[3], e[3])[ok], valid=int(w[4].sum()),
+              what="per-stream SINR")
+
+    def effective(out):
+        nr = c["nr"]
+        h = H64.to(out[0].dtype)
+        return torch.stack([out[1][:, k] @ h[:, k * nr:(k + 1) * nr, :] @
+                            out[0][:, k] for k in range(K)], dim=1)
+
+    g = [x.cpu() for x in whitening_bd_batched(H, R, K, pt)]
+    w = whitening_bd_batched(Hc, Rc, K, pt)
+    e = whitening_bd_batched(H64, R64, K, pt)
+    eff = [effective(out) for out in (g, w, e)]
+    kept = [torch.diagonal(x, dim1=-2, dim2=-1).real.round() for x in eff]
+    flips = (kept[0] != kept[1]).flatten(1).any(dim=-1)
+    ok = g[2] & w[2] & ~flips & (kept[0] == kept[2]).flatten(1).all(-1)
+
+    def abs_err(x):
+        return (x.to(torch.complex128) - eff[2]).abs().flatten(1).amax(-1)
+
+    check("whitening_bd_batched", int(flips.sum()),
+          int((g[2] != w[2]).sum()), abs_err(eff[0])[ok],
+          abs_err(eff[1])[ok], valid=int(w[2].sum()),
+          dropped_streams=int((kept[1] == 0).sum()),
+          what="W_k H_k Ms_k, absolute")
+    return fill_err
+
+
+def comp_bd_phases(dev, smi):
+    """Phases 27-31: the comp_BD scenario (``apps/comp_BD/
+    simulate_comp_torch.py``), whose path reaches no TPU kernel: its
+    batched solvers on the card against the CPU, bench.py's stage at full
+    width through the runner's bulk path (its draws through the
+    ``philox_stream_fill`` kernel: five launches a chunk), chunk
+    invariance, every metric and the non-square file at reduced reps, the
+    host engine, and the stage's times. Returns the fill's largest
+    |kernel - plain| on the path's draws (phase 27)."""
+    import os
+
+    import numpy as np
+    import torch
+    from apps.comp_BD.simulate_comp_torch import CONFIG_DIR
+    from pyphysim_tpu_torch.ops.streams import philox_draw
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "bin"))
+    from profile_chain_torch import host_ms, kernels, trace
+
+    # 27. the fill at the path's draws, and the batched solvers on the card
+    # against the CPU
+    fill_err = comp_bd_solver_parity(dev)
+
+    # 28. bench.py's stage: a warm-up chunk, then 16,384 reps timed
+    comp_bd_runner(dev, COMP_BD_METRICS, COMP_BD_CHUNK,
+                   COMP_BD_CHUNK).simulate()
+    runner = comp_bd_runner(dev, COMP_BD_METRICS, COMP_BD_REPS,
+                            COMP_BD_CHUNK)
+    philox_draw.launch_count = 0
+    philox_draw.reference_count = 0
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    runner.simulate()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - tic
+    fills, plain = philox_draw.launch_count, philox_draw.reference_count
+    sers = comp_bd_sers(runner)
+    skipped = runner.results.get_result_values_list("num_skipped_reps")
+    phase("comp_bd_path", snr_db=20.0, pe_dbm=10.0,
+          ser=compact(sers), runned_reps=runner.runned_reps,
+          skipped=skipped, chunks=runner.chunks_dispatched,
+          seconds=seconds, reps_per_s=COMP_BD_REPS / seconds,
+          philox_stream_fill_launches=fills, plain_draws=plain)
+    check_range("comp_bd ser_capacity", sers["capacity"],
+                COMP_BD_SER_CAPACITY)
+    check_range("comp_bd ser_None", sers["None"], COMP_BD_SER_NONE)
+    if not sers["capacity"] < sers["None"]:
+        raise AssertionError(f"comp_bd: ser_capacity not below ser_None "
+                             f"{sers}")
+    # five draws a chunk (channels, ext-int channels, data, ext-int
+    # signal, noise), each one launch of the fill kernel
+    check_launches("comp_bd philox_stream_fill", fills,
+                   5 * runner.chunks_dispatched, plain)
+
+    # 29. chunk invariance: attempts 4..7 alone and inside a chunk of 8
+    r = comp_bd_runner(dev, None, 8, 8)
+    bulk = r._gen_bulk_kernel(r.params.get_unpacked_params_list()[0])
+    whole, part = bulk(0, 8), bulk(4, 4)
+    exact, worst = True, 0.0
+    for name in sorted(whole):
+        a, b = (v[0] if isinstance(v, tuple) else v
+                for v in (whole[name], part[name]))
+        a = a[4:]
+        if a.dtype in (torch.bool, torch.int64):
+            if not torch.equal(a, b):
+                raise AssertionError(f"comp_bd chunk invariance: {name}")
+        else:
+            exact = exact and bool(torch.equal(a, b))
+            worst = max(worst, float(((a - b).abs() /
+                                      b.abs().clamp(min=1e-30)).max()))
+    phase("comp_bd_chunk_invariance", counts_and_masks_equal=True,
+          floats_bitwise_equal=exact, max_rel_float_diff=worst)
+    if worst > COMP_BD_SINR_RTOL:
+        raise AssertionError("comp_bd chunk invariance: floats differ")
+
+    # 30. every metric (bench point) and the non-square file, reduced reps;
+    # the host engine for a few repetitions on the card
+    for config in ("bd_config_file.txt", "bd_config_file_nonsquare.txt"):
+        r = comp_bd_runner(dev, None, COMP_BD_SMALL_REPS,
+                           COMP_BD_SMALL_REPS,
+                           config=os.path.join(CONFIG_DIR, config))
+        r.simulate()
+        sers = comp_bd_sers(r)
+        sinr = {m: float(r.results.get_result_values_list(f"sinr_{m}")[0])
+                for m in r.metrics}
+        phase("comp_bd_metrics", config=config,
+              nr_nt=f"{r.params['Nr']}x{r.params['Nt']}",
+              runned_reps=r.runned_reps, ser=compact(sers),
+              mean_sinr=compact(sinr))
+        if not all(0.0 <= v < 1.0 for v in sers.values()) or \
+                not all(np.isfinite(v) and v > 0 for v in sinr.values()):
+            raise AssertionError(f"comp_bd metrics {config}: {sers} {sinr}")
+        if not sers["capacity"] < sers["None"]:
+            raise AssertionError(f"comp_bd metrics {config}: capacity "
+                                 f"not below None {sers}")
+    host = comp_bd_runner(dev, None, 8, 8, engine="host")
+    host.simulate()
+    sers = comp_bd_sers(host)
+    phase("comp_bd_host_engine", runned_reps=host.runned_reps,
+          ser=compact(sers))
+    if not all(np.isfinite(v) for v in sers.values()):
+        raise AssertionError(f"comp_bd host engine: {sers}")
+
+    # 31. times: the stage's reps/s (phase 28), host ms a chunk (drops and
+    # path loss for 4,096 attempts), and one chunk's kernels and device
+    # busy share from a profiler trace
+    p = runner.params.get_unpacked_params_list()[0]
+    drops_ms = host_ms(lambda: runner._scenario_pathloss(
+        p, 0, COMP_BD_CHUNK), repeat=5)
+    bulk = runner._gen_bulk_kernel(p)
+    chunk_ms = best_ms(lambda: bulk(0, COMP_BD_CHUNK))
+    events, wall_us = trace(lambda: bulk(0, COMP_BD_CHUNK), repeat=1)
+    device_ms = sum(t for _, t, _ in events) / 1e3
+    top = sorted((round(t / 1e3, 3), n, key[:60])
+                 for key, t, n in events if t > 0)[::-1][:6]
+    phase("comp_bd_times", card=repr(smi), chunk=COMP_BD_CHUNK,
+          metrics=",".join(COMP_BD_METRICS),
+          reps_per_s=COMP_BD_REPS / seconds, stage_seconds=seconds,
+          host_drops_ms_a_chunk=drops_ms, chunk_ms=chunk_ms,
+          kernels_a_chunk=kernels(events, repeat=1),
+          device_ms_a_chunk=device_ms, traced_chunk_wall_ms=wall_us / 1e3,
+          device_busy_share=device_ms * 1e3 / wall_us,
+          busy_share_of_untraced_chunk=device_ms / chunk_ms,
+          top_device_kernels=compact(top))
+    return fill_err
 
 
 if __name__ == "__main__":

@@ -7,9 +7,11 @@ block ``(k, l)`` the link from transmitter ``l`` to receiver ``k``;
 interference covariances (``calc_Q`` / ``calc_JP_Q``), per-stream Bkl
 matrices and SINRs (Cadambe2008 eq. 28), post receive filters, and a
 ``torch.Generator`` each for the channel and the noise draws.
+``MultiUserChannelMatrixExtInt`` adds external interference sources as
+extra transmit-only users (extra columns of ``big_H``) with their
+covariances at each receiver.
 
-The TDL grids (``MuChannel``, ``MuMimoChannel``) and the external
-interference variant wait for a later slice.
+The TDL grids (``MuChannel``, ``MuMimoChannel``) wait for a later slice.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from .._device import DeviceLike, require_cuda
 from ..utils.misc import randn_c
 
-__all__ = ["MultiUserChannelMatrix"]
+__all__ = ["MultiUserChannelMatrix", "MultiUserChannelMatrixExtInt"]
 
 IntArray = Union[int, np.ndarray]
 
@@ -356,5 +358,227 @@ class MultiUserChannelMatrix:
         for k in range(self._K):
             bkl = self._calc_JP_Bkl_cov_matrix_all_l(F, k,
                                                      self.noise_var or 0.0)
+            out.append(self._calc_JP_SINR_k(k, F[k], U[k], bkl))
+        return out
+
+
+class MultiUserChannelMatrixExtInt(MultiUserChannelMatrix):
+    """Interference channel with external interference sources, modeled as
+    extra transmit-only users: the last ``extIntK`` column blocks of
+    ``big_H``, with no receive antennas of their own."""
+
+    def __init__(self, device: DeviceLike = "cuda") -> None:
+        super().__init__(device)
+        self._extIntK = 0
+        self._extIntNt = np.array([], dtype=int)
+
+    # -- properties --------------------------------------------------------
+
+    @property
+    def extIntK(self) -> int:
+        return self._extIntK
+
+    @property
+    def extIntNt(self) -> np.ndarray:
+        return self._extIntNt
+
+    @property
+    def K(self) -> int:
+        return self._K - self._extIntK
+
+    @property
+    def Nr(self) -> np.ndarray:
+        return self._Nr[:self.K]
+
+    @property
+    def Nt(self) -> np.ndarray:
+        return self._Nt[:self.K]
+
+    @property
+    def big_H_no_ext_int(self) -> Optional[torch.Tensor]:
+        bh = self.big_H
+        return None if bh is None else bh[..., :, :int(self._tx_off[self.K])]
+
+    @property
+    def H_no_ext_int(self):
+        """(K, K) object array of the users' blocks (no ext-int columns)."""
+        full = self.H
+        return None if full is None else full[:self.K, :self.K]
+
+    # -- construction ------------------------------------------------------
+
+    @staticmethod
+    def _prepare_input_parans(Nr, Nt, K, NtE):
+        """The antenna arrays extended with the external sources (no
+        receive antennas, ``NtE`` transmit antennas each)."""
+        Nr = np.full(K, Nr, dtype=int) if np.isscalar(Nr) else \
+            np.asarray(Nr, dtype=int)
+        Nt = np.full(K, Nt, dtype=int) if np.isscalar(Nt) else \
+            np.asarray(Nt, dtype=int)
+        if np.isscalar(NtE):
+            extIntK = 1
+            extIntNt = np.array([NtE], dtype=int)
+        else:
+            extIntK = len(NtE)
+            extIntNt = np.asarray(NtE, dtype=int)
+        full_Nr = np.concatenate([Nr, np.zeros(extIntK, dtype=int)])
+        full_Nt = np.concatenate([Nt, extIntNt])
+        return full_Nr, full_Nt, K + extIntK, extIntK, extIntNt
+
+    def randomize(self, Nr, Nt, K, NtE,  # type: ignore[override]
+                  generator: Optional[torch.Generator] = None) -> None:
+        """Draw a new iid CN(0, 1) channel, ext-int columns included."""
+        full_Nr, full_Nt, full_K, extK, extNt = \
+            self._prepare_input_parans(Nr, Nt, K, NtE)
+        self._extIntK, self._extIntNt = extK, extNt
+        super().randomize(full_Nr, full_Nt, full_K, generator)
+
+    def init_from_channel_matrix(self, channel_matrix, Nr, Nt, K,
+                                 NtE) -> None:  # type: ignore[override]
+        """Install a given (sum Nr, sum Nt + sum NtE) matrix."""
+        full_Nr, full_Nt, full_K, extK, extNt = \
+            self._prepare_input_parans(Nr, Nt, K, NtE)
+        self._extIntK, self._extIntNt = extK, extNt
+        super().init_from_channel_matrix(channel_matrix, full_Nr, full_Nt,
+                                         full_K)
+
+    def set_pathloss(self, pathloss_matrix=None,  # type: ignore[override]
+                     ext_int_pathloss=None) -> None:
+        """Per-link path loss (K, K) plus the (K, extIntK) loss from each
+        external source to each receiver."""
+        if pathloss_matrix is None:
+            super().set_pathloss(None)
+            return
+        K, extK = self.K, self._extIntK
+        full = np.ones((K + extK, K + extK))
+        full[:K, :K] = np.asarray(pathloss_matrix)
+        if ext_int_pathloss is not None:
+            full[:K, K:] = np.asarray(ext_int_pathloss).reshape(K, extK)
+        super().set_pathloss(full)
+
+    def get_Hk_without_ext_int(self, k: int) -> torch.Tensor:
+        """Row of ``big_H`` for receiver ``k`` without the ext-int
+        columns."""
+        return self.get_Hk(k)[..., :, :int(self._tx_off[self.K])]
+
+    def get_Hk_with_ext_int(self, k: int) -> torch.Tensor:
+        return self.get_Hk(k)
+
+    # -- transmission ------------------------------------------------------
+
+    def corrupt_data(self, data, ext_int_data=None,  # type: ignore[override]
+                     generator: Optional[torch.Generator] = None):
+        """``data``: per-user signals; ``ext_int_data``: per-source
+        signals. Returns the per-receiver outputs (numpy in, numpy out)."""
+        all_data = list(data) + list(ext_int_data or [])
+        concat = torch.cat([self._tensor(d) for d in all_data], dim=-2)
+        big_out = self.corrupt_concatenated_data(concat, generator)
+        out = [big_out[..., self._rx_off[k]:self._rx_off[k + 1], :]
+               for k in range(self.K)]
+        return _host_like(out, data)
+
+    # -- external interference covariance ----------------------------------
+
+    def calc_cov_matrix_extint_without_noise(
+            self, pe: float = 1.0) -> List[torch.Tensor]:
+        """Covariance of the external interference at each receiver:
+        ``pe * sum_e H_k,e H_k,e^H``."""
+        out = []
+        for k in range(self.K):
+            nr = int(self._Nr[k])
+            acc = torch.zeros((nr, nr), dtype=torch.complex64,
+                              device=self.device)
+            for e in range(self._extIntK):
+                he = self.get_Hkl(k, self.K + e)
+                acc = acc + (he @ he.mH) * pe
+            out.append(acc)
+        return out
+
+    def calc_cov_matrix_extint_plus_noise(
+            self, pe: float = 1.0) -> List[torch.Tensor]:
+        """Ext-int covariance plus the noise variance on the diagonal."""
+        return [r + self._noise_eye(k) for k, r in enumerate(
+            self.calc_cov_matrix_extint_without_noise(pe))]
+
+    # -- Q and SINR with the external interference -------------------------
+
+    def calc_Q(self, k: int, F_all_users: Sequence,  # type: ignore[override]
+               pe: float = 1.0) -> torch.Tensor:
+        return self._calc_Q_impl(k, F_all_users) + \
+            self.calc_cov_matrix_extint_plus_noise(pe)[k]
+
+    def calc_JP_Q(self, k: int,  # type: ignore[override]
+                  F_all_users: Sequence, pe: float = 1.0) -> torch.Tensor:
+        return self._calc_JP_Q_impl_no_ext(k, F_all_users) + \
+            self.calc_cov_matrix_extint_plus_noise(pe)[k]
+
+    def _calc_JP_Q_impl_no_ext(self, k: int,
+                               F_all_users: Sequence) -> torch.Tensor:
+        nr = int(self._Nr[k])
+        q = torch.zeros((nr, nr), dtype=torch.complex64, device=self.device)
+        hk = self.get_Hk_without_ext_int(k)
+        for j in range(self.K):
+            if j == k:
+                continue
+            hf = hk @ self._tensor(F_all_users[j])
+            q = q + hf @ hf.mH
+        return q
+
+    def _calc_Q_impl(self, k: int, F_all_users: Sequence) -> torch.Tensor:
+        nr = int(self._Nr[k])
+        q = torch.zeros((nr, nr), dtype=torch.complex64, device=self.device)
+        for j in range(self.K):
+            if j == k:
+                continue
+            hf = self.get_Hkl(k, j) @ self._tensor(F_all_users[j])
+            q = q + hf @ hf.mH
+        return q
+
+    def calc_SINR(self, F: Sequence, U: Sequence,  # type: ignore[override]
+                  pe: float = 1.0) -> List[torch.Tensor]:
+        """Per-stream SINRs with the external interference in the Bkl
+        covariances."""
+        reks = self.calc_cov_matrix_extint_plus_noise(pe)
+        out = []
+        for k in range(self.K):
+            bkl = self._calc_Bkl_cov_matrix_all_l(F, k, reks[k])
+            out.append(self._calc_SINR_k(k, F[k], U[k], bkl))
+        return out
+
+    def _calc_Bkl_cov_matrix_first_part(self, F_all_users: Sequence, k: int,
+                                        N0_or_Rek=0.0) -> torch.Tensor:
+        first = self._as_Rek(N0_or_Rek, int(self._Nr[k]))
+        for j in range(self.K):
+            hv = self.get_Hkl(k, j) @ self._tensor(F_all_users[j])
+            first = first + hv @ hv.mH
+        return first
+
+    def _calc_JP_Bkl_cov_matrix_first_part(  # type: ignore[override]
+            self, F_all_users: Sequence, k: int, noise_power=0.0):
+        first = self._as_Rek(noise_power, int(self._Nr[k]))
+        hk = self.get_Hk_without_ext_int(k)
+        for j in range(self.K):
+            hv = hk @ self._tensor(F_all_users[j])
+            first = first + hv @ hv.mH
+        return first
+
+    def _calc_JP_Bkl_cov_matrix_second_part(self, Fk, k: int,
+                                            l: int) -> torch.Tensor:
+        hv = self.get_Hk_without_ext_int(k) @ \
+            self._tensor(Fk)[..., :, l:l + 1]
+        return hv @ hv.mH
+
+    def _calc_JP_SINR_k(self, k: int, Fk, Uk, Bkl_all_l) -> torch.Tensor:
+        return self._sinr_impl(self.get_Hk_without_ext_int(k), Fk, Uk,
+                               Bkl_all_l)
+
+    def calc_JP_SINR(self, F: Sequence, U: Sequence,  # type: ignore[override]
+                     pe: float = 1.0) -> List[torch.Tensor]:
+        """Per-stream SINRs under joint processing, the external
+        interference in the Bkl covariances."""
+        reks = self.calc_cov_matrix_extint_plus_noise(pe)
+        out = []
+        for k in range(self.K):
+            bkl = self._calc_JP_Bkl_cov_matrix_all_l(F, k, reks[k])
             out.append(self._calc_JP_SINR_k(k, F[k], U[k], bkl))
         return out

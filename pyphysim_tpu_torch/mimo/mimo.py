@@ -26,7 +26,7 @@ import torch
 
 from .._device import DeviceLike, require_cuda
 from ..utils.conversion import linear2dB
-from ..utils.misc import gmd
+from ..utils.misc import gmd, pinv
 
 __all__ = ["MimoBase", "Blast", "MRT", "MRC", "SVDMimo", "GMDMimo",
            "Alamouti", "calc_post_processing_SINRs",
@@ -111,8 +111,9 @@ class MimoBase:
 
     @staticmethod
     def _calcZeroForceFilter(channel: torch.Tensor) -> torch.Tensor:
-        """Zero forcing: the pseudo-inverse of the channel."""
-        return torch.linalg.pinv(channel)
+        """Zero forcing: the pseudo-inverse of the channel, with the JAX
+        package's cutoff (``utils.misc.pinv``)."""
+        return pinv(channel)
 
     @staticmethod
     def _calcMMSEFilter(channel: torch.Tensor,

@@ -170,7 +170,7 @@ class PSK(Modulator):
     def calcTheoreticalSER(self, SNR):
         """High-SNR approximation ``2 Q(sqrt(2 snr) sin(pi/M))``."""
         snr = dB2Linear(SNR)
-        return 2.0 * qfunc(np.sqrt(2.0 * snr) * math.sin(np.pi / self._M))
+        return 2.0 * qfunc(_sqrt(2.0 * snr) * math.sin(np.pi / self._M))
 
     def calcTheoreticalBER(self, SNR):
         """Gray-coding approximation ``SER / K``."""
@@ -206,7 +206,7 @@ class BPSK(Modulator):
 
     def calcTheoreticalSER(self, SNR):
         """``Q(sqrt(2 snr))`` exactly."""
-        return qfunc(np.sqrt(2.0 * dB2Linear(SNR)))
+        return qfunc(_sqrt(2.0 * dB2Linear(SNR)))
 
     def calcTheoreticalBER(self, SNR):
         return self.calcTheoreticalSER(SNR)
@@ -285,7 +285,7 @@ class QAM(Modulator):
     def _calcTheoreticalSingleCarrierErrorRate(self, SNR):
         snr = dB2Linear(SNR)
         return (2.0 * (1.0 - 1.0 / math.sqrt(self._M)) *
-                qfunc(np.sqrt(snr * 3.0 / (self._M - 1.0))))
+                qfunc(_sqrt(snr * 3.0 / (self._M - 1.0))))
 
     def calcTheoreticalSER(self, SNR):
         """``1 - (1 - Psc)^2`` with the per-carrier error rate Psc."""
@@ -306,3 +306,9 @@ def _inv_gray(p: torch.Tensor) -> torch.Tensor:
         out = out ^ (out >> sh)
         sh *= 2
     return out
+
+
+def _sqrt(x):
+    """Square root of a host number / array or of a tensor (on its
+    device), for the theoretical curves."""
+    return torch.sqrt(x) if isinstance(x, torch.Tensor) else np.sqrt(x)

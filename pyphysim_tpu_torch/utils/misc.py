@@ -8,7 +8,10 @@ decomposition (``gmd``, for ``mimo.GMDMimo``), the bf16 rounding of complex
 values (``round_bf16``, for the chain's bf16 signal path), the host-side
 numpy helpers
 of the interference-alignment solvers (``randn_c_RS``, ``peig`` / ``leig``,
-``update_inv_sum_diag``, ``get_principal_component_matrix``), and the
+``update_inv_sum_diag``, ``get_principal_component_matrix``), the linear
+algebra of the block-diagonalization family (``pinv`` with the JAX
+package's cutoff, ``least_right_singular_vectors``,
+``calc_whitening_matrix``, ``calc_shannon_sum_capacity``), and the
 host-side formatting helpers the runner uses for file names and progress.
 The rest of that module waits for the slices that need it.
 """
@@ -38,6 +41,11 @@ __all__ = [
     "leig",
     "update_inv_sum_diag",
     "get_principal_component_matrix",
+    "PINV_RCOND",
+    "pinv",
+    "least_right_singular_vectors",
+    "calc_whitening_matrix",
+    "calc_shannon_sum_capacity",
     "pretty_time",
     "get_range_representation",
     "replace_dict_values",
@@ -346,6 +354,88 @@ def get_principal_component_matrix(A: np.ndarray,
     u, s, vh = np.linalg.svd(A, full_matrices=False)
     n = num_components
     return (u[..., :n] * s[..., None, :n]) @ vh[..., :n, :n]
+
+
+# ---------------------------------------------------------------------------
+# Linear algebra of the block-diagonalization family (numpy or torch)
+# ---------------------------------------------------------------------------
+
+# Relative cutoff of every pseudo-inverse, the JAX package's
+# (``ops/cplx.py`` ``pinv``): its float32 Gram-route SVD returns the zero
+# singular values of a rank-deficient input at ~3e-4 of the largest, so
+# anything conditioned worse than 1e3 is truncated there.
+PINV_RCOND = 1e-3
+
+
+def pinv(a, rcond: float = PINV_RCOND):
+    """Moore-Penrose pseudo-inverse of ``a`` (..., m, n) that drops the
+    singular values at or below ``rcond`` times the largest, as the JAX
+    package's does. A tensor goes through ``torch.linalg.pinv`` (its SVD
+    needs no refinement), numpy through ``np.linalg.pinv``; both keep a
+    singular value only when it is strictly above the cutoff.
+
+    >>> w = pinv(np.diag([1.0, 1e-4]))
+    >>> w.tolist()                          # the weak direction is dropped
+    [[1.0, 0.0], [0.0, 0.0]]
+    """
+    if isinstance(a, torch.Tensor):
+        return torch.linalg.pinv(a, rtol=rcond)
+    return np.linalg.pinv(np.asarray(a), rcond=rcond)
+
+
+def least_right_singular_vectors(A, n: int):
+    """Split the right singular vectors of ``A`` by singular value (on the
+    host): ``(V0, V1, S)``, where ``V0`` holds the ``n`` least significant
+    right singular vectors, ``V1`` the others and ``S`` the singular values
+    of ``V1``'s columns, all in ASCENDING singular-value order (the columns
+    of a full SVD without a singular value, the null space, come first).
+
+    >>> A = np.array([[1.0, 0.0, 0.0], [0.0, 2.0, 0.0]])
+    >>> V0, V1, S = least_right_singular_vectors(A, 1)
+    >>> np.abs(V0[:, 0]).tolist(), S.tolist()
+    ([0.0, 0.0, 1.0], [1.0, 2.0])
+    """
+    A = np.asarray(A)
+    _, s, vh = np.linalg.svd(A, full_matrices=True)
+    V = np.conj(vh.T)[:, ::-1]
+    s_asc = s[::-1]
+    num_null = V.shape[1] - s_asc.size
+    return V[:, :n], V[:, n:], s_asc[max(n - num_null, 0):]
+
+
+def calc_whitening_matrix(cov_matrix):
+    """Whitening matrix ``W`` with ``W^H R W = I``: ``W = V diag(w)^-1/2``
+    from the eigendecomposition of the Hermitian covariance ``R`` (numpy or
+    a batched tensor). Eigenvalues are floored at ``1e-12`` of the largest
+    (and at a tiny absolute floor), so a singular covariance gives a finite
+    whitener.
+
+    >>> R = np.array([[4.0, 0.0], [0.0, 1.0]])
+    >>> W = calc_whitening_matrix(R)
+    >>> bool(np.allclose(W.conj().T @ R @ W, np.eye(2)))
+    True
+    """
+    if isinstance(cov_matrix, torch.Tensor):
+        w, v = torch.linalg.eigh(cov_matrix)
+        floor = torch.clamp(w[..., -1:] * 1e-12, min=1e-37)
+        w = torch.maximum(w, floor)
+        return v * (w[..., None, :] ** -0.5).to(v.dtype)
+    w, v = np.linalg.eigh(cov_matrix)
+    floor = np.maximum(w[..., -1:] * 1e-12,
+                       1e-300 if w.dtype == np.float64 else 1e-37)
+    w = np.maximum(w, floor)
+    return v * (w[..., None, :] ** -0.5)
+
+
+def calc_shannon_sum_capacity(sinrs):
+    """Sum of ``log2(1 + sinr)`` over all streams (numpy or a tensor).
+
+    >>> float(calc_shannon_sum_capacity(np.array([1.0, 3.0])))
+    3.0
+    """
+    if isinstance(sinrs, torch.Tensor):
+        return torch.log2(1.0 + sinrs).sum()
+    return np.sum(np.log2(1.0 + np.asarray(sinrs)))
 
 
 # ---------------------------------------------------------------------------

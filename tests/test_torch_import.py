@@ -77,6 +77,24 @@ IA_MODULES = [
 ]
 SLICE_MODULES += IA_MODULES
 
+COMP_BD_MODULES = [
+    "pyphysim_tpu_torch.subspace.projections",
+    "pyphysim_tpu_torch.subspace.metrics",
+    "pyphysim_tpu_torch.subspace",
+    "pyphysim_tpu_torch.comm.blockdiagonalization",
+    "pyphysim_tpu_torch.channels.pathloss",
+    "pyphysim_tpu_torch.cell.shapes",
+    "pyphysim_tpu_torch.cell.cell",
+    "pyphysim_tpu_torch.cell",
+    "pyphysim_tpu_torch.simulations.simulationhelpers",
+    "apps.comp_BD.simulate_comp_torch",
+    "apps.comp_BD.simulate_comp_bd_torch",
+    "apps.comp_BD.simulate_comp_simple_torch",
+    "apps.comp_BD.simulate_comp_with_ext_int_simple_torch",
+    "apps.simple_BD_with_whitening_torch",
+]
+SLICE_MODULES += COMP_BD_MODULES
+
 
 def _run(code: str) -> str:
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -102,11 +120,11 @@ def test_slice_modules_import_neither_jax_nor_triton():
     assert _run(code).strip() == "[]"
 
 
-@pytest.mark.parametrize("name", IA_MODULES)
+@pytest.mark.parametrize("name", IA_MODULES + COMP_BD_MODULES)
 def test_ia_module_names_neither_jax_nor_the_jax_package(name):
-    """The IA slice's sources import nothing of jax or pyphysim_tpu (the
-    interpreter-level check is test_slice_modules_import_neither_jax_nor_
-    triton)."""
+    """The IA and comp_BD slices' sources import nothing of jax or
+    pyphysim_tpu (the interpreter-level check is
+    test_slice_modules_import_neither_jax_nor_triton)."""
     import ast
     import importlib.util
     path = importlib.util.find_spec(name).origin
@@ -153,10 +171,14 @@ def test_cuda_request_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert require_cuda("cpu") == torch.device("cpu")
     assert require_cuda(None) == torch.device("cpu")
+    from apps.comp_BD.simulate_comp_bd_torch import CompBDSimulationRunner
+    from apps.comp_BD.simulate_comp_torch import BDSimulationRunner
+    from pyphysim_tpu_torch.channels import MultiUserChannelMatrixExtInt
     runners = (OfdmMcKernelSimulationRunner, AlamoutiMcKernelSimulationRunner,
                MimoSimulationRunner, BatchedBDCapacityRunner,
                BDKernelCapacityRunner, IaMcKernelSimulationRunner,
-               StreamSelectionRunner)
+               StreamSelectionRunner, BDSimulationRunner,
+               CompBDSimulationRunner)
     for make in (lambda: require_cuda("cuda"),
                  lambda: require_cuda(torch.device("cuda", 0)),
                  lambda: OFDM(64, 8, 32, device="cuda"),
@@ -166,6 +188,7 @@ def test_cuda_request_raises_without_cuda(monkeypatch):
                  lambda: MonteCarloBD(),
                  lambda: MonteCarloMaxSinr(),
                  lambda: MultiUserChannelMatrix(),
+                 lambda: MultiUserChannelMatrixExtInt(),
                  lambda: generate_jakes_samples(30.0),
                  *(lambda cls=cls: cls(read_command_line_args=False)
                    for cls in runners)):
@@ -227,6 +250,18 @@ def test_public_entry_points_default_to_the_card():
         ia_kernel.from_jax_attrs, MultiUserChannelMatrix,
         IaMcKernelSimulationRunner, StreamSelectionRunner, solve_all,
         simple_ia_run, FadingSampleGenerator, generate_jakes_samples]
+    from apps.comp_BD import (simulate_comp_simple_torch,
+                              simulate_comp_with_ext_int_simple_torch)
+    from apps.comp_BD.simulate_comp_bd_torch import CompBDSimulationRunner
+    from apps.comp_BD.simulate_comp_torch import BDSimulationRunner
+    from apps.simple_BD_with_whitening_torch import run as simple_bd_run
+    from pyphysim_tpu_torch.channels import MultiUserChannelMatrixExtInt
+    entry_points += [
+        BDSimulationRunner, CompBDSimulationRunner,
+        MultiUserChannelMatrixExtInt, simulate_comp_simple_torch.simulate,
+        simulate_comp_with_ext_int_simple_torch.simulate,
+        simulate_comp_with_ext_int_simple_torch.simulate_device,
+        simple_bd_run]
     for fn in entry_points:
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", f"{fn.__qualname__} defaults to {default}"

@@ -255,3 +255,29 @@ def test_fill_beyond_one_grid_matches_the_plain_version(kind):
     plain = streams.philox_draw_reference(kind, *args)
     torch.cuda.synchronize()
     assert torch.equal(got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", [1, 3, 0xFF])
+def test_fill_masked_bits_match_the_plain_version(mask):
+    """On the card, bits under a mask narrower than the word (what
+    ``AttemptStreams.integers(mask + 1)`` draws; the comp_BD data symbols
+    take mask 3 at 3,000 a row) over a split stream's attempts across
+    2**32: one launch, equal to the plain version and to the CPU route bit
+    for bit, and every word within the mask."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    n, m = 512, 3000
+    s = AttemptStreams.from_range(21, 2 ** 32 - n // 2, n, "cuda").split(5)[2]
+    args = (s.seed, s.salt, (s.attempts, 0), (s.attempts, 32), m, mask)
+    before = streams.philox_draw.launch_count
+    got = streams.philox_draw("bits", *args)
+    assert streams.philox_draw.launch_count == before + 1
+    plain = streams.philox_draw_reference("bits", *args)
+    cpu = streams.philox_draw("bits", s.seed, s.salt, (s.attempts.cpu(), 0),
+                              (s.attempts.cpu(), 32), m, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain)
+    assert torch.equal(got.cpu(), cpu)
+    assert int(got.min()) == 0 and int(got.max()) == mask
+    assert torch.equal(s.integers(mask + 1, (m,)), got)
