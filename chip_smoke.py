@@ -30,6 +30,22 @@ against its plain PyTorch version on the card:
     draws through the ``philox_stream_fill`` kernel), chunk invariance,
     every metric and the non-square configuration, the host engine, and
     the stage's times (phases 27-31). This path reaches no TPU kernel.
+  * the MIMO and multiuser TDL channels (phases 32-37): the MIMO
+    block-static route (``TdlMimoChannel.corrupt_data`` with a block size,
+    one ``block_fir`` launch over every (rx, tx) pair's blocks) at 64
+    attempts x 4x4 x 32 OFDM blocks of 564 samples, then 2x3 and 2x3 on
+    the uplink (``mimo_fir``), each held to block_fir's plain version at
+    its rows, to the FFT route and to per-sample filtering; a K = 3
+    ``MuMimoChannel`` interference sweep (QPSK on 300 of 512 carriers, 14
+    OFDM symbols, SNR 10 / 20 / 30 dB, 4,096 attempts in chunks of 256,
+    the JAX test's path losses and equal power) through the runner's
+    per-key path, against the CPU route on the same attempts
+    (``mu_mimo_path``); the LS / MMSE estimation sweep (Nr 4, the comb-2
+    SRS of 300 subcarriers, 16,384 realizations) against its theory
+    (``estimation_path``); ``apps/simple_precoded_srs_torch.py`` and
+    ``apps/ia/simulate_ia_torch.py`` on the card against the CPU, and
+    ``apps/ia/simulate_greedy_ia_torch.py`` once (``srs_app``,
+    ``ia_app``, ``greedy_ia_app``); and their times (``mimo_times``).
 
 One line per phase; any failure raises and the script exits non-zero.
 There is no CPU fallback: without a CUDA device it fails before printing
@@ -39,9 +55,12 @@ Run from the repository root: ``python3 chip_smoke.py`` (one card, a few
 minutes including the nvcc builds, one per source, in parallel).
 """
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 BER_CORNERS = {5.0: (0.08, 0.22), 15.0: (0.02, 0.06), 30.0: (2e-4, 6e-3)}
@@ -98,6 +117,55 @@ COMP_BD_SOLVER_DRAWS = 4096         # batched solvers: card against CPU
 COMP_BD_SINR_RTOL = 1e-3            # solvers: error floor (see phase 27)
 COMP_BD_FLIP_LIMIT = 8              # Ns flips (near ties) per 4,096 draws
 COMP_BD_SMALL_REPS = 2048           # every metric, and the non-square file
+# MIMO block-static route (bench.py's COST259-TU, Jakes 30 Hz, Ts 50 ns,
+# L 16): attempts x (Nr, Nt) x OFDM blocks of 564 samples
+MIMO_ATTEMPTS, MIMO_BLOCKS, MIMO_BLOCK = 64, 32, 564
+MIMO_REL_TOL = 1e-5                 # route vs route: max |diff| / max |y|
+MU_REPS, MU_CHUNK = 4096, 256       # the K = 3 interference sweep
+MU_SER_BAND = (0.05, 0.95)          # the JAX test's band, equal power
+MU_FLIP_SHARE = 1e-4                # card vs CPU: symbol flips / symbols
+EST_REPS, EST_CHUNK = 16384, 4096   # LS / MMSE realizations
+EST_REL_TOL = 0.03                  # sample MSE vs theory
+IA_APP_CONFIG = """[Scenario]
+SNR = 20
+M = 4
+modulator = PSK
+NSymbs = 100
+K = 3
+Nr = 2
+Nt = 2
+Ns = 1
+[IA Algorithm]
+max_iterations = 5,60
+initialize_with = random
+[General]
+max_bit_errors = 1000000
+unpacked_parameters = SNR, max_iterations, initialize_with
+rep_max = 8
+"""
+GREEDY_APP_CONFIG = """[Grid]
+cell_radius = 1.0
+num_cells = 3
+num_clusters = 1
+[Scenario]
+NSymbs = 100
+SNR = 20
+M = 4
+modulator = PSK
+Nr = 3
+Nt = 3
+Ns = 3
+N0 = -116.4
+scenario = Random, NoPathLoss
+[IA Algorithm]
+max_iterations = 60
+initialize_with = random
+stream_sel_method = greedy
+[General]
+rep_max = 4
+max_bit_errors = 1000000
+unpacked_parameters = SNR, stream_sel_method, scenario, initialize_with
+"""
 
 
 def phase(name, **fields):
@@ -315,10 +383,16 @@ def main() -> int:
     phases_13_to_19 = mimo_bd_phases(dev, smi)
     phases_20_to_26 = ia_phases(dev, smi)
     comp_bd_fill_err = comp_bd_phases(dev, smi)
-    for entry in phases_8_to_12:
-        if entry["name"] == "philox_stream_fill":
-            entry["max_abs_err"] = max(entry["max_abs_err"],
-                                       comp_bd_fill_err)
+    mimo = mimo_phases(dev, smi)
+    fir_entry, fill_entry = phases_8_to_12
+    fill_entry["max_abs_err"] = max(fill_entry["max_abs_err"],
+                                    comp_bd_fill_err)
+    fill_entry["launches"] += mimo.pop("fill_launches")
+    # block_fir: the MIMO route's launches, parity and geometry
+    fir_entry["launches"] += mimo.pop("launches")
+    fir_entry["max_abs_err"] = max(fir_entry["max_abs_err"],
+                                   mimo.pop("max_abs_err"))
+    fir_entry.update(mimo)
 
     print(smi)
     print(json.dumps({"kernels": [
@@ -1659,6 +1733,382 @@ def comp_bd_phases(dev, smi):
           top_device_kernels=compact(top))
     return fill_err
 
+
+
+def mimo_inputs(dev, nr, nt, switched=False, seed=61):
+    """A MIMO channel at the smoke's geometry, its attempts' Jakes states
+    and random signals (the transmitting side's antennas, each
+    ``MIMO_BLOCKS`` blocks of ``MIMO_BLOCK`` samples)."""
+    from pyphysim_tpu_torch.channels import (COST259_TUx,
+                                             JakesSampleGenerator,
+                                             TdlMimoChannel)
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+    from pyphysim_tpu_torch.utils.misc import randn_c
+    ch = TdlMimoChannel(JakesSampleGenerator(30.0, 1 / 20e6, 16,
+                                             shape=(nr, nt), device=dev),
+                        COST259_TUx)
+    ch.switched_direction = switched
+    s_state, s_x = AttemptStreams.from_range(seed, 0, MIMO_ATTEMPTS,
+                                             dev).split(2)
+    x = randn_c(s_x, nr if switched else nt, MIMO_BLOCKS * MIMO_BLOCK)
+    return ch, ch.init_state(s_state), x
+
+
+def mimo_rows(ir_block, x):
+    """The (x rows, tap rows) the MIMO kernel route hands to block_fir:
+    every (r, t) pair's blocks, the signal repeated for each r."""
+    taps = ir_block.tap_values_sparse                # (n, T, Nr, Nt, nb)
+    n, T, nr, nt, nb = taps.shape
+    x_rows = x.reshape(n, 1, nt, nb, MIMO_BLOCK).expand(
+        n, nr, nt, nb, MIMO_BLOCK).reshape(-1, MIMO_BLOCK)
+    return x_rows, taps.movedim(1, -1).reshape(-1, T)
+
+
+def rel_diff(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def mimo_route(dev, name, nr, nt, switched=False):
+    """One MIMO block-static run through ``TdlMimoChannel.corrupt_data``
+    (the kernel route), held to block_fir's plain version at its rows, to
+    the FFT route and to per-sample filtering with block-constant taps.
+    Returns (block_fir launches, |kernel - plain|, the route's rows)."""
+    import torch
+    from pyphysim_tpu_torch.channels import TdlImpulseResponse, fading
+    from pyphysim_tpu_torch.ops import fir
+    ch, state, x = mimo_inputs(dev, nr, nt, switched)
+    fir.block_fir.launch_count = 0
+    fir.block_fir.reference_count = 0
+    y, ir_block, _ = ch.corrupt_data(state, x, block_size=MIMO_BLOCK)
+    torch.cuda.synchronize()
+    launches = fir.block_fir.launch_count
+    plain_calls = fir.block_fir.reference_count
+    check_launches(f"{name} block_fir", launches, 1, plain_calls)
+    ir_use = ir_block.transposed() if switched else ir_block
+    x_rows, t_rows = mimo_rows(ir_use, x)
+    offsets = ir_block.tap_indexes_sparse
+    got = fir.block_fir(x_rows, t_rows, offsets, MIMO_BLOCK)
+    ref = fir.block_fir_reference(x_rows, t_rows, offsets, MIMO_BLOCK)
+    fir_err = float((got - ref).abs().max())
+    fir_rel = rel_diff(got, ref)
+    saved = fading.BLOCK_CONV_IMPL
+    fading.BLOCK_CONV_IMPL = "fft"
+    try:
+        y_fft = fading.tdl_filter_block_fft_mimo(ir_use, x, MIMO_BLOCK)
+    finally:
+        fading.BLOCK_CONV_IMPL = saved
+    per_sample = TdlImpulseResponse(
+        ir_use.tap_values_sparse.repeat_interleave(MIMO_BLOCK, dim=-1),
+        ir_block.channel_profile, True)
+    y_ps = fading.tdl_filter(per_sample, x)
+    fft_rel, ps_rel = rel_diff(y, y_fft), rel_diff(y, y_ps)
+    phase(name, attempts=MIMO_ATTEMPTS, nr_nt=f"{nr}x{nt}",
+          switched_direction=switched, blocks=MIMO_BLOCKS,
+          block_size=MIMO_BLOCK, rows=x_rows.shape[0], out=tuple(y.shape),
+          block_fir_launches=launches, block_fir_plain_calls=plain_calls,
+          kernel_vs_plain_rel=fir_rel, fir_limit=FIR_REL_TOL,
+          kernel_route_vs_fft_route_rel=fft_rel,
+          kernel_route_vs_per_sample_rel=ps_rel, route_limit=MIMO_REL_TOL)
+    if not fir_rel <= FIR_REL_TOL:
+        raise AssertionError(f"{name}: block_fir disagrees with its plain "
+                             f"version at the MIMO rows: {fir_rel}")
+    if not (fft_rel <= MIMO_REL_TOL and ps_rel <= MIMO_REL_TOL):
+        raise AssertionError(f"{name}: the kernel route disagrees with the "
+                             f"FFT route ({fft_rel}) or per-sample "
+                             f"filtering ({ps_rel})")
+    return launches, fir_err, x_rows.shape[0]
+
+
+def mu_runner(dev, pathloss):
+    """The K = 3 interference sweep's runner (``MU_REPS`` attempts in
+    chunks of ``MU_CHUNK``)."""
+    from apps.mimo.mu_mimo_interference_torch import \
+        MuMimoInterferenceRunner
+    r = MuMimoInterferenceRunner(pathloss=pathloss, device=dev,
+                                 read_command_line_args=False)
+    r.rep_max, r.batch_size = MU_REPS, MU_CHUNK
+    return r
+
+
+def mu_errors(runner, snr_db, start, n, dev):
+    """Per-attempt symbol errors of attempts [start, start + n) at
+    ``snr_db``, their streams on ``dev``."""
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+    from pyphysim_tpu_torch.simulations import kernel_stream_seed
+    idx = [float(v) for v in runner.params["SNR"]].index(snr_db)
+    seed = kernel_stream_seed(runner.base_seed, idx)
+    return runner.symbol_errors(AttemptStreams.from_range(seed, start, n,
+                                                          dev),
+                                10 ** (snr_db / 10)).cpu()
+
+
+@contextlib.contextmanager
+def scratch_dir(config_name, config_text):
+    """A scratch folder holding one config file, the current directory
+    while the block runs (the apps write their results there)."""
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, config_name), "w") as f:
+            f.write(config_text)
+        os.chdir(tmp)
+        try:
+            yield
+        finally:
+            os.chdir(here)
+
+
+def ia_app_runs(dev, draws_seed):
+    """``simulate_ia_torch`` (closed form and Max-SINR) on ``dev``, its
+    channels and noise from a seeded numpy stream, in a scratch folder."""
+    import numpy as np
+    from apps.ia import simulate_ia_torch as app
+    rng = {}
+
+    def setup(r):
+        r.ia_solver.set_precoder_seed(11)
+        r.update_progress_function_style = None
+        g = rng.setdefault(type(r).__name__,
+                           np.random.default_rng(draws_seed))
+        r.channel_draws = lambda: tuple(
+            ((g.standard_normal((6, n)) + 1j * g.standard_normal((6, n))) /
+             np.sqrt(2)).astype(np.complex64) for n in (6, 100))
+
+    with scratch_dir("ia_config_file.txt", IA_APP_CONFIG):
+        return app.main_simulate(["Closed Form", "Max SINR"],
+                                 "ia_config_file.txt",
+                                 read_command_line_args=False, device=dev,
+                                 setup=setup)
+
+
+def greedy_app_run(dev):
+    """``simulate_greedy_ia_torch`` once on ``dev``, in a scratch folder."""
+    from apps.ia.simulate_greedy_ia_torch import IAStreamSelSimulationRunner
+    with scratch_dir("greedy_config_file.txt", GREEDY_APP_CONFIG):
+        r = IAStreamSelSimulationRunner("greedy_config_file.txt",
+                                        read_command_line_args=False,
+                                        device=dev)
+        r.update_progress_function_style = None
+        r.simulate()
+        return r
+
+
+def mimo_phases(dev, smi):
+    """Phases 32-37: the MIMO block-static route through block_fir at
+    64 attempts x 4x4 x 32 blocks of 564 (then 2x3 and the uplink), the
+    K = 3 MuMimoChannel interference sweep and the LS / MMSE estimation
+    sweep through the runner's per-key path, the SRS and IA apps on the
+    card against the CPU, and their times. Returns what block_fir's and
+    the fill's ``kernels`` entries gain."""
+    import numpy as np
+    import torch
+    from apps import simple_precoded_srs_torch as srs_app
+    from apps.channel_estimation_sweep_torch import EstimationSweepRunner
+    from apps.mimo.mu_mimo_interference_torch import JAX_TEST_PATHLOSS
+    from pyphysim_tpu_torch.channels import fading
+    from pyphysim_tpu_torch.ops import fir
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams, philox_draw
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "bin"))
+    from profile_chain_torch import kernels, trace
+    start = time.perf_counter()
+
+    # 32. the 4x4 route; 33. 2x3, and 2x3 on the uplink
+    if fading.BLOCK_CONV_IMPL not in ("auto", "kernel"):
+        raise AssertionError("the default block convolution is not the "
+                             "kernel")
+    launches, fir_err = 0, 0.0
+    for name, nr, nt, switched in (("mimo_fir", 4, 4, False),
+                                   ("mimo_fir_2x3", 2, 3, False),
+                                   ("mimo_fir_2x3_uplink", 2, 3, True)):
+        n, err, rows = mimo_route(dev, name, nr, nt, switched)
+        launches += n
+        fir_err = max(fir_err, err)
+
+    # 34. the K = 3 interference sweep on the per-key path: the JAX test's
+    # path losses, then equal power
+    sers, fill_launches = {}, 0
+    for case, pl in (("pathloss", JAX_TEST_PATHLOSS), ("equal", None)):
+        runner = mu_runner(dev, pl)
+        philox_draw.launch_count = 0
+        philox_draw.reference_count = 0
+        fir.block_fir.launch_count = 0
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        runner.simulate()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - tic
+        fills, plain = philox_draw.launch_count, philox_draw.reference_count
+        sers[case] = [float(v) for v in
+                      runner.results.get_result_values_list("ser")]
+        snrs = [float(v) for v in runner.results.params["SNR"]]
+        # the card against the CPU route on the chunk of attempts 0..255
+        flips = {}
+        cpu = mu_runner("cpu", pl)
+        for snr in snrs:
+            a = mu_errors(runner, snr, 0, MU_CHUNK, dev)
+            b = mu_errors(cpu, snr, 0, MU_CHUNK, "cpu")
+            flips[snr] = int((a - b).abs().sum())
+        # chunk invariance: attempts 256..511 alone and inside 0..511
+        whole = mu_errors(runner, snrs[0], 0, 2 * MU_CHUNK, dev)
+        part = mu_errors(runner, snrs[0], MU_CHUNK, MU_CHUNK, dev)
+        invariant = bool(torch.equal(whole[MU_CHUNK:], part))
+        symbols = MU_CHUNK * runner.symbols_per_attempt
+        phase("mu_mimo_path", case=case, K=runner.K, snr_db=snrs,
+              ser=sers[case], runned_reps=runner.runned_reps,
+              chunks=runner.chunks_dispatched, seconds=seconds,
+              attempts_per_s=len(snrs) * MU_REPS / seconds,
+              fill_launches=fills, plain_draws=plain,
+              block_fir_launches=fir.block_fir.launch_count,
+              card_vs_cpu_flips=compact(flips),
+              flip_limit=MU_FLIP_SHARE * symbols,
+              chunk_invariant=invariant)
+        check_launches(f"mu_mimo_path {case} fill", fills,
+                       3 * runner.chunks_dispatched, plain)
+        fill_launches += fills
+        if max(flips.values()) > MU_FLIP_SHARE * symbols or not invariant:
+            raise AssertionError(f"mu_mimo_path {case}: card vs CPU flips "
+                                 f"{flips} or chunk invariance {invariant}")
+    for ser in sers["equal"]:
+        check_range("mu_mimo_path equal-power SER", ser, MU_SER_BAND)
+    if not sers["pathloss"][-1] < sers["equal"][-1]:
+        raise AssertionError(f"mu_mimo_path: the weaker interferers do not "
+                             f"lower the SER {sers}")
+
+    # 35. LS / MMSE through the per-key path (Nr 4, the comb-2 SRS pilots)
+    est = EstimationSweepRunner(Nr=4, device=dev,
+                                read_command_line_args=False)
+    est.rep_max, est.batch_size = EST_REPS, EST_CHUNK
+    philox_draw.launch_count = 0
+    philox_draw.reference_count = 0
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    est.simulate()
+    torch.cuda.synchronize()
+    est_seconds = time.perf_counter() - tic
+    fills, plain = philox_draw.launch_count, philox_draw.reference_count
+    ls = [float(v) for v in est.results.get_result_values_list("ls_mse")]
+    mm = [float(v) for v in est.results.get_result_values_list("mmse_mse")]
+    npows = [float(v) for v in est.results.params["noise_power"]]
+    theory = [est.theory(p) for p in npows]
+    phase("estimation_path", Nr=est.Nr, pilots=est.num_pilots,
+          noise_power=npows, realizations=EST_REPS, ls_mse=ls,
+          ls_theory=[t[0] for t in theory], mmse_mse=mm,
+          mmse_theory=[t[1] for t in theory], rel_limit=EST_REL_TOL,
+          chunks=est.chunks_dispatched, fill_launches=fills,
+          plain_draws=plain, seconds=est_seconds)
+    check_launches("estimation_path fill", fills,
+                   2 * est.chunks_dispatched, plain)
+    fill_launches += fills
+    for i, (t_ls, t_mm) in enumerate(theory):
+        if not (abs(ls[i] / t_ls - 1) <= EST_REL_TOL and
+                abs(mm[i] / t_mm - 1) <= EST_REL_TOL):
+            raise AssertionError(f"estimation_path: MSE off its theory at "
+                                 f"noise {npows[i]}: {ls[i]} vs {t_ls}, "
+                                 f"{mm[i]} vs {t_mm}")
+    if not mm[1] < ls[1]:
+        raise AssertionError("estimation_path: MMSE not below LS at 1.0")
+
+    # 36. the SRS app and the IA apps on the card against the CPU
+    gen = torch.Generator().manual_seed(3)
+    state = srs_app.channel("cpu").init_state(gen, (3, 3))
+    on_card = srs_app.run(dev, type(state)(*(v.to(dev) for v in state)))
+    on_cpu = srs_app.run("cpu", state)
+    srs_diff = max(abs(a - b) for k in on_cpu
+                   for a, b in zip(on_card[k], on_cpu[k]))
+    phase("srs_app", links=len(on_card), max_mse_diff_db=srs_diff,
+          limit_db=0.05,
+          mse_db=compact({f"{an}{ue}": [round(v, 3) for v in on_card[an, ue]]
+                          for an, ue in on_card}))
+    if not srs_diff <= 0.05:
+        raise AssertionError(f"srs_app: card vs CPU {srs_diff} dB")
+    card_runs, cpu_runs = ia_app_runs(dev, 5), ia_app_runs("cpu", 5)
+    for a, b in zip(card_runs, cpu_runs):
+        caps = [np.array(r.results.get_result_values_list("sum_capacity"),
+                         float) for r in (a, b)]
+        bers = [np.array(r.results.get_result_values_list("ber"), float)
+                for r in (a, b)]
+        cap_rel = float(np.max(np.abs(caps[0] / caps[1] - 1)))
+        ber_diff = float(np.max(np.abs(bers[0] - bers[1])))
+        phase("ia_app", runner=type(a).__name__, runned_reps=a.runned_reps,
+              sum_capacity=caps[0].tolist(), ber=bers[0].tolist(),
+              card_vs_cpu_capacity_rel=cap_rel, card_vs_cpu_ber=ber_diff)
+        if not (cap_rel <= 1e-4 and ber_diff <= 2e-3):
+            raise AssertionError(f"ia_app {type(a).__name__}: card vs CPU "
+                                 f"capacity {cap_rel}, BER {ber_diff}")
+    greedy = greedy_app_run(dev)
+    g_caps = [float(v) for v in
+              greedy.results.get_result_values_list("sum_capacity")]
+    g_bers = [float(v) for v in greedy.results.get_result_values_list("ber")]
+    phase("greedy_ia_app", runned_reps=greedy.runned_reps,
+          sum_capacity=g_caps, ber=g_bers)
+    if not all(np.isfinite(g_caps + g_bers)) or min(g_caps) <= 0:
+        raise AssertionError(f"greedy_ia_app: {g_caps} {g_bers}")
+
+    # 37. times: block_fir and both routes at the MIMO geometry; the
+    # interference sweep's chunk (draws and forward apart, busy share);
+    # the estimation sweep's realizations per second
+    ch, state, x = mimo_inputs(dev, 4, 4)
+    ir_block, _ = ch._generate_strided_impulse_response(state, MIMO_BLOCKS,
+                                                        MIMO_BLOCK)
+    x_rows, t_rows = mimo_rows(ir_block, x)
+    offsets = [int(d) for d in ir_block.tap_indexes_sparse]
+    rows = x_rows.shape[0]
+    args = (x_rows, t_rows, offsets, MIMO_BLOCK)
+    fir_ms = graph_ms(lambda: fir.block_fir(*args))
+    plain_ms = best_ms(lambda: fir.block_fir_reference(*args))
+    fft_rows_ms = best_ms(lambda: fir.block_fir_fft(*args), inner=10)
+    fir_nbytes = fir_bytes(rows, MIMO_BLOCK, offsets)
+    fir_bound, fir_bound_by = bound_ms(
+        nbytes=fir_nbytes, flops=8 * rows * MIMO_BLOCK * len(offsets))
+    span = offsets[-1] + 1
+    dense = torch.zeros(rows, span, dtype=torch.complex64, device=dev)
+    dense[:, offsets] = t_rows
+    weight = dense.flip(-1)[:, None, :].contiguous()
+
+    def conv1d():
+        return torch.nn.functional.conv1d(x_rows[None], weight,
+                                          padding=span - 1, groups=rows)[0]
+    conv_ms = best_ms(conv1d, inner=3)
+    routes = {}
+    for impl in ("kernel", "fft"):
+        fading.BLOCK_CONV_IMPL = impl
+        try:
+            routes[impl] = best_ms(lambda: fading.tdl_filter_block_fft_mimo(
+                ir_block, x, MIMO_BLOCK), inner=3)
+        finally:
+            fading.BLOCK_CONV_IMPL = "auto"
+    runner = mu_runner(dev, JAX_TEST_PATHLOSS)
+    streams = AttemptStreams.from_range(99, 0, MU_CHUNK, dev)
+    snr, n_sym = 100.0, runner.symbols_per_attempt
+    s_data, s_channel, s_noise = streams.split(3)
+    mu_ms = best_ms(lambda: runner.symbol_errors(streams, snr))
+    draws_ms = best_ms(lambda: (s_data.integers(4, (runner.K, n_sym)),
+                                runner.mu.init_state(s_channel),
+                                s_noise.normal((2, n_sym))))
+    events, wall_us = trace(lambda: runner.symbol_errors(streams, snr),
+                            repeat=3)
+    device_ms = sum(t for _, t, _ in events) / 1e3 / 3
+    phase("mimo_times", card=repr(smi), block_fir_rows=rows,
+          block_fir_ms=fir_ms, block_fir_bound_ms=fir_bound,
+          block_fir_bound_by=fir_bound_by,
+          block_fir_share_of_bound=fir_bound / fir_ms,
+          block_fir_bytes=fir_nbytes, block_fir_plain_ms=plain_ms,
+          block_fir_fft_rows_ms=fft_rows_ms, block_fir_conv1d_ms=conv_ms,
+          mimo_kernel_route_ms=routes["kernel"],
+          mimo_fft_route_ms=routes["fft"],
+          mu_chunk=MU_CHUNK, mu_chunk_ms=mu_ms, mu_draws_ms=draws_ms,
+          mu_forward_ms=mu_ms - draws_ms, mu_device_ms=device_ms,
+          mu_kernels_a_chunk=kernels(events, repeat=3),
+          mu_device_busy_share=device_ms * 3e3 / wall_us,
+          mu_attempts_per_s=MU_CHUNK / mu_ms * 1e3,
+          estimation_realizations_per_s=len(npows) * EST_REPS / est_seconds,
+          phases_32_to_37_seconds=time.perf_counter() - start)
+    return {"launches": launches, "max_abs_err": fir_err,
+            "fill_launches": fill_launches, "mimo_rows": rows,
+            "mimo_ms": fir_ms, "mimo_bound_ms": fir_bound,
+            "mimo_bound_by": fir_bound_by, "mimo_plain_ms": plain_ms,
+            "mimo_library_ms": conv_ms, "mimo_fft_route_ms": routes["fft"],
+            "mimo_kernel_route_ms": routes["kernel"]}
 
 if __name__ == "__main__":
     sys.exit(main())

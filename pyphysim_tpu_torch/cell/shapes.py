@@ -109,11 +109,18 @@ class Shape(Coordinate):
     # -- geometry ----------------------------------------------------------
 
     def is_point_inside_shape(self, point: complex) -> bool:
-        """Point-in-polygon test against the shape's vertices."""
-        from matplotlib import path
-        mpl_path = path.Path(
-            from_complex_array_to_real_matrix(self.vertices))
-        return bool(mpl_path.contains_point([point.real, point.imag]))
+        """Point-in-polygon test against the shape's vertices, by the
+        even-odd rule: a ray from the point to +x crosses the border an
+        odd number of times (numpy alone, so that it runs where matplotlib
+        is not installed)."""
+        v = self.vertices
+        xi, yi = v.real, v.imag
+        xj, yj = np.roll(xi, 1), np.roll(yi, 1)
+        x, y = point.real, point.imag
+        with np.errstate(divide="ignore", invalid="ignore"):
+            x_cross = xi + (y - yi) * (xj - xi) / (yj - yi)
+        crosses = ((yi > y) != (yj > y)) & (x < x_cross)
+        return bool(np.count_nonzero(crosses) % 2)
 
     def get_border_point(self, angle: float,
                          ratio: Optional[float] = None) -> complex:

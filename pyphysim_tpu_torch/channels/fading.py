@@ -1,6 +1,6 @@
 """Tapped-delay-line (TDL) channels.
 
-Counterpart of ``pyphysim_tpu/channels/fading.py`` for SISO channels:
+Counterpart of ``pyphysim_tpu/channels/fading.py``:
 
   * :class:`TdlChannelProfile` — tap powers/delays, mean excess delay, RMS
     delay spread, discretization to a sample grid (merge coincident taps,
@@ -12,16 +12,27 @@ Counterpart of ``pyphysim_tpu/channels/fading.py`` for SISO channels:
     ``generate_impulse_response_f``, ``corrupt_data`` per-sample or
     block-static, ``corrupt_data_in_freq_domain``) and the stateful
     convenience form (``seed``, ``corrupt_data(signal)``,
-    ``get_last_impulse_response``).
-  * :func:`tdl_filter` (per-sample taps) and :func:`tdl_filter_block_fft`
-    (block-static taps, through ``ops/fir.py``; the backend is
-    :data:`BLOCK_CONV_IMPL`).
+    ``get_last_impulse_response``), SISO or MIMO (a generator shape
+    ``(Nr, Nt)``, :meth:`TdlChannel.set_num_antennas`), with the uplink
+    (``switched_direction``); :class:`TdlMimoChannel`.
+  * :func:`tdl_filter` (per-sample taps), :func:`tdl_filter_block_fft` and
+    :func:`tdl_filter_block_fft_mimo` (block-static taps, through
+    ``ops/fir.py``; the backend is :data:`BLOCK_CONV_IMPL`).
 
-Layout: tap values are ``batch + (T, num_samples)`` — the JAX package's
-``(T, num_samples)`` with any leading batch dimensions (one realization
-per row, where the JAX package would ``vmap``); signals are
-``batch + (num_samples,)``. The MIMO channel (``TdlMimoChannel``,
-``tdl_filter_block_fft_mimo``) waits for the ``mimo/`` slice.
+Layout: tap values are ``batch + (T, num_samples)`` (SISO) or ``batch +
+(T, Nr, Nt, num_samples)`` (MIMO) — the JAX package's per-realization
+layout with any leading batch dimensions (one realization per row, where
+the JAX package would ``vmap``; a multiuser channel's links are the last
+batch axis). Signals are ``batch + (num_samples,)`` (SISO) or ``batch +
+(Nt, num_samples)`` (MIMO; ``(Nr, num_samples)`` on the uplink). An
+impulse response says which it holds (:attr:`TdlImpulseResponse.mimo`).
+
+The JAX package's odd corners are kept: a plain :class:`TdlChannel` with a
+MIMO shape and a ``block_size`` filters per sample with the block taps
+repeated and returns that per-sample response, while
+:class:`TdlMimoChannel` filters block by block and returns the per-block
+response; :func:`tdl_filter` refuses the uplink, which
+:class:`TdlMimoChannel` serves by transposing the taps.
 """
 
 from __future__ import annotations
@@ -36,12 +47,14 @@ from .._device import DeviceLike, require_cuda
 from ..ops.fir import block_fir, block_fir_fft
 from ..ops.sparse_dft import sparse_dft
 from ..utils.conversion import dB2Linear, linear2dB
+from ..utils.misc import full_precision
 from .fading_generators import (JakesSampleGenerator, JakesState,
                                 RayleighSampleGenerator)
 
 __all__ = ["TdlChannelProfile", "TdlImpulseResponse", "TdlChannel",
-           "tdl_filter", "tdl_filter_block_fft", "BLOCK_CONV_IMPL",
-           "COST259_TUx", "COST259_RAx", "COST259_HTx"]
+           "TdlMimoChannel", "tdl_filter", "tdl_filter_block_fft",
+           "tdl_filter_block_fft_mimo", "BLOCK_CONV_IMPL", "COST259_TUx",
+           "COST259_RAx", "COST259_HTx"]
 
 
 class TdlChannelProfile:
@@ -166,26 +179,33 @@ COST259_HTx = TdlChannelProfile(
 class TdlImpulseResponse:
     """Impulse response samples of a (discretized) TDL channel.
 
-    ``tap_values``: complex64 ``batch + (num_sparse_taps, num_samples)``;
+    ``tap_values``: complex64 ``batch + (num_sparse_taps, num_samples)``,
+    or ``batch + (num_sparse_taps, Nr, Nt, num_samples)`` when ``mimo``;
     the tap positions come from the (static) discretized profile.
     """
 
     def __init__(self, tap_values: torch.Tensor,
-                 channel_profile: TdlChannelProfile) -> None:
+                 channel_profile: TdlChannelProfile,
+                 mimo: bool = False) -> None:
         if not channel_profile.is_discretized:
             raise RuntimeError("TdlImpulseResponse requires a discretized "
                                "channel profile")
         self._tap_values_sparse = tap_values
         self._channel_profile = channel_profile
+        self._mimo = bool(mimo)
 
     @classmethod
     def from_numpy(cls, tap_values, profile: TdlChannelProfile,
-                   device: DeviceLike = "cuda") -> "TdlImpulseResponse":
+                   device: DeviceLike = "cuda",
+                   mimo: Optional[bool] = None) -> "TdlImpulseResponse":
         """From numpy complex tap values, e.g. a JAX impulse response's
-        ``tap_values_sparse`` passed through ``np.asarray``."""
+        ``tap_values_sparse`` passed through ``np.asarray``: ``(T, N)``, or
+        ``(T, Nr, Nt, N)`` for MIMO (``mimo=None`` takes 4 axes for MIMO),
+        with any leading batch axes."""
         dev = require_cuda(device)
-        return cls(torch.as_tensor(np.asarray(tap_values, np.complex64),
-                                   device=dev), profile)
+        taps = np.asarray(tap_values, np.complex64)
+        return cls(torch.as_tensor(taps, device=dev), profile,
+                   taps.ndim == 4 if mimo is None else mimo)
 
     @property
     def channel_profile(self) -> TdlChannelProfile:
@@ -194,6 +214,16 @@ class TdlImpulseResponse:
     @property
     def tap_values_sparse(self) -> torch.Tensor:
         return self._tap_values_sparse
+
+    @property
+    def mimo(self) -> bool:
+        """Whether the taps carry ``(Nr, Nt)`` antenna axes."""
+        return self._mimo
+
+    @property
+    def tap_axis(self) -> int:
+        """The (negative) axis of the taps: -2, or -4 for MIMO."""
+        return -4 if self._mimo else -2
 
     @property
     def tap_indexes_sparse(self) -> np.ndarray:
@@ -215,26 +245,34 @@ class TdlImpulseResponse:
 
     @property
     def tap_values(self) -> torch.Tensor:
-        """Dense tap values including the zero taps:
-        ``batch + (num_taps_with_padding, num_samples)``."""
-        sparse = self._tap_values_sparse
+        """Dense tap values including the zero taps: the sparse layout
+        with ``num_taps_with_padding`` taps."""
+        sparse = self._tap_values_sparse.movedim(self.tap_axis, 0)
         D = self._channel_profile.num_taps_with_padding
-        dense = sparse.new_zeros(sparse.shape[:-2] + (D, sparse.shape[-1]))
-        dense[..., self.tap_indexes_sparse, :] = sparse
-        return dense
+        dense = sparse.new_zeros((D,) + sparse.shape[1:])
+        dense[self.tap_indexes_sparse] = sparse
+        return dense.movedim(0, self.tap_axis)
 
     def get_freq_response(self, fft_size: int) -> torch.Tensor:
-        """``batch + (num_samples, fft_size)``: the frequency axis last, as
-        in the JAX package. Taps at delays >= fft_size are dropped (numpy
-        FFT truncation)."""
-        taps = self._tap_values_sparse
+        """``batch + [(Nr, Nt)] + (num_samples, fft_size)``: the frequency
+        axis last, as in the JAX package. Taps at delays >= fft_size are
+        dropped (numpy FFT truncation)."""
+        taps = self._tap_values_sparse.movedim(self.tap_axis, -1)
         w = sparse_dft(self.tap_indexes_sparse, range(fft_size), fft_size,
                        taps.device)
-        return taps.transpose(-1, -2) @ w
+        return full_precision(torch.matmul)(taps, w)
 
-    def __mul__(self, value: float) -> "TdlImpulseResponse":
+    def transposed(self) -> "TdlImpulseResponse":
+        """The MIMO response with the antenna axes swapped (``H^T`` per
+        tap and sample: the uplink of a downlink channel)."""
+        if not self._mimo:
+            raise ValueError("only a MIMO response has antenna axes")
+        return TdlImpulseResponse(self._tap_values_sparse.transpose(-3, -2),
+                                  self._channel_profile, True)
+
+    def __mul__(self, value) -> "TdlImpulseResponse":
         return TdlImpulseResponse(self._tap_values_sparse * value,
-                                  self._channel_profile)
+                                  self._channel_profile, self._mimo)
 
     __rmul__ = __mul__
 
@@ -246,7 +284,7 @@ class TdlImpulseResponse:
             return responses[0]
         return TdlImpulseResponse(
             torch.cat([r.tap_values_sparse for r in responses], dim=-1),
-            responses[0].channel_profile)
+            responses[0].channel_profile, responses[0].mimo)
 
 
 class TdlChannel:
@@ -265,6 +303,10 @@ class TdlChannel:
     Stateful convenience: ``corrupt_data(signal)`` (and the frequency-domain
     form) with the signal alone threads an internal state, drawn from
     :meth:`seed`'s generator, and returns only the output.
+
+    A generator shape ``(Nr, Nt)`` makes the channel MIMO (taps ``(T, Nr,
+    Nt)`` a sample); ``switched_direction`` sends the signal the other way
+    (from the ``Nr`` side to the ``Nt`` side).
     """
 
     def __init__(self, fading_generator, channel_profile:
@@ -298,6 +340,7 @@ class TdlChannel:
         self._channel_profile = channel_profile
         self._fading_generator = fading_generator
         self._set_fading_generator_shape(fading_generator.shape)
+        self.switched_direction = False
         self._last_impulse_response: Optional[TdlImpulseResponse] = None
         self._state = None
         self._seed = 0
@@ -322,6 +365,28 @@ class TdlChannel:
             powers.reshape((n,) + tail), dtype=torch.float32,
             device=self._fading_generator.device)
 
+    def set_num_antennas(self, num_rx_antennas: Optional[int],
+                         num_tx_antennas: Optional[int]) -> None:
+        """Make the channel MIMO with these antenna counts, or SISO with
+        both None."""
+        if num_rx_antennas is None and num_tx_antennas is None:
+            self._set_fading_generator_shape(None)
+        else:
+            self._set_fading_generator_shape(
+                (num_rx_antennas, num_tx_antennas))
+
+    @property
+    def mimo(self) -> bool:
+        return len(self._fading_generator.shape) == 3
+
+    @property
+    def num_rx_antennas(self) -> Optional[int]:
+        return self._fading_generator.shape[1] if self.mimo else None
+
+    @property
+    def num_tx_antennas(self) -> Optional[int]:
+        return self._fading_generator.shape[2] if self.mimo else None
+
     @property
     def channel_profile(self) -> TdlChannelProfile:
         return self._channel_profile
@@ -341,11 +406,12 @@ class TdlChannel:
 
     # -- functional API ----------------------------------------------------
 
-    def init_state(self, source):
+    def init_state(self, source, batch: Tuple[int, ...] = ()):
         """A fresh fading state from an explicit random source (a
         ``torch.Generator``, or an ``AttemptStreams`` for one state per
-        attempt)."""
-        return self._fading_generator.init_state(source)
+        attempt), with ``batch`` leading axes of independent states after
+        those."""
+        return self._fading_generator.init_state(source, batch)
 
     def generate_impulse_response_f(
             self, state, num_samples: int = 1
@@ -353,8 +419,13 @@ class TdlChannel:
         """``num_samples`` per-sample impulse responses: fading samples
         scaled by sqrt(tap power)."""
         samples, state = self._fading_generator.generate(state, num_samples)
+        return self._response(samples), state
+
+    def _response(self, samples: torch.Tensor) -> TdlImpulseResponse:
+        """Fading samples (``batch + shape + (N,)``) scaled by sqrt(tap
+        power)."""
         return TdlImpulseResponse(samples * self._tap_scale,
-                                  self._channel_profile), state
+                                  self._channel_profile, self.mimo)
 
     def _generate_strided_impulse_response(self, state, num_blocks: int,
                                            stride: int):
@@ -377,13 +448,7 @@ class TdlChannel:
                                 torch.sin(phase).sum(dim=ray_axis) * scale)
         new_state = JakesState(phi_l=state.phi_l, psi_l=state.psi_l,
                                t0=t0 + num_blocks * stride * gen.Ts)
-        return TdlImpulseResponse(samples * self._tap_scale,
-                                  self._channel_profile), new_state
-
-    def _check_siso(self) -> None:
-        if len(self._fading_generator.shape) != 1:
-            raise NotImplementedError(
-                "the MIMO TDL channel is not ported yet")
+        return self._response(samples), new_state
 
     def corrupt_data(self, state_or_signal, signal=None,
                      block_size: Optional[int] = None):
@@ -392,14 +457,18 @@ class TdlChannel:
         Functional form ``corrupt_data(state, signal)`` returns ``(output,
         impulse_response, new_state)``; the convenience form
         ``corrupt_data(signal)`` threads the internal state and returns the
-        output only. Signal ``batch + (N,)`` -> output ``batch + (N + D -
-        1,)``.
+        output only. SISO: signal ``batch + (N,)`` -> output ``batch + (N +
+        D - 1,)``; MIMO: ``batch + (Nt, N)`` -> ``batch + (Nr, N + D -
+        1)``.
 
         ``block_size``: hold the channel constant over blocks of that many
-        samples (one Jakes evaluation per block; the returned impulse
-        response then has one sample per block) and filter through
-        :func:`tdl_filter_block_fft`. ``None`` generates per-sample
-        responses and filters through :func:`tdl_filter`.
+        samples (one Jakes evaluation per block). SISO filters through
+        :func:`tdl_filter_block_fft` and returns one response sample per
+        block; MIMO, as the JAX package's plain channel, repeats each
+        block's taps over its samples, filters through :func:`tdl_filter`
+        and returns that per-sample response (:class:`TdlMimoChannel`
+        filters block by block). ``None`` generates per-sample responses
+        and filters through :func:`tdl_filter`.
         """
         if signal is None or isinstance(signal, int):
             if isinstance(signal, int):
@@ -414,19 +483,28 @@ class TdlChannel:
         return torch.as_tensor(signal).to(self.device, torch.complex64)
 
     def _corrupt_data_impl(self, state, signal, block_size: Optional[int]):
-        self._check_siso()
         signal = self._as_signal(signal)
         num_samples = signal.shape[-1]
         if block_size is None:
             ir, state = self.generate_impulse_response_f(state, num_samples)
-            return tdl_filter(ir, signal), ir, state
+            return (tdl_filter(ir, signal, self.switched_direction), ir,
+                    state)
+        ir_block, state = self._block_response(state, num_samples,
+                                               block_size)
+        if not self.mimo:
+            out = tdl_filter_block_fft(ir_block, signal, block_size)
+            return out, ir_block, state
+        ir = TdlImpulseResponse(
+            ir_block.tap_values_sparse.repeat_interleave(block_size, dim=-1),
+            self._channel_profile, True)
+        return tdl_filter(ir, signal, self.switched_direction), ir, state
+
+    def _block_response(self, state, num_samples: int, block_size: int):
         if num_samples % block_size != 0:
             raise ValueError(
                 "block_size must divide the number of transmitted samples")
-        ir_block, state = self._generate_strided_impulse_response(
+        return self._generate_strided_impulse_response(
             state, num_samples // block_size, stride=block_size)
-        out = tdl_filter_block_fft(ir_block, signal, block_size)
-        return out, ir_block, state
 
     def corrupt_data_in_freq_domain(self, state_or_signal, signal=None,
                                     fft_size: Optional[int] = None,
@@ -434,7 +512,10 @@ class TdlChannel:
         """Block-static frequency-domain transmission: one impulse response
         per block of ``fft_size`` channel samples, each block of the signal
         (all ``fft_size`` carriers, or the ``carrier_indexes``) multiplied
-        by its frequency response at those carriers.
+        by its frequency response at those carriers. MIMO: signal ``batch +
+        (Nt, N)`` -> ``batch + (Nr, N)``, summed over the transmit antennas
+        (over the receive ones, from ``(Nr, N)`` to ``(Nt, N)``, with
+        ``switched_direction``).
 
         Functional form ``(state, signal, fft_size, carrier_indexes)`` ->
         ``(output, impulse_response, state)``; convenience form
@@ -453,7 +534,6 @@ class TdlChannel:
 
     def _corrupt_freq_impl(self, state, signal, fft_size: int,
                            carrier_indexes):
-        self._check_siso()
         signal = self._as_signal(signal)
         num_samples = signal.shape[-1]
         carriers = (np.arange(fft_size) if carrier_indexes is None
@@ -468,9 +548,17 @@ class TdlChannel:
             state, num_blocks, stride=fft_size)
         w = sparse_dft(ir.tap_indexes_sparse, carriers, fft_size,
                        signal.device)
-        freq = ir.tap_values_sparse.transpose(-1, -2) @ w  # batch+(nb, Nc)
+        # batch + [(Nr, Nt)] + (nb, Nc)
+        freq = full_precision(torch.matmul)(
+            ir.tap_values_sparse.movedim(ir.tap_axis, -1), w)
         blocks = signal.reshape(signal.shape[:-1] + (num_blocks, block_size))
-        return (blocks * freq).reshape(signal.shape), ir, state
+        if not self.mimo:
+            out = blocks * freq
+        elif self.switched_direction:
+            out = (freq * blocks.unsqueeze(-3)).sum(dim=-4)   # over r
+        else:
+            out = (freq * blocks.unsqueeze(-4)).sum(dim=-3)   # over t
+        return out.reshape(out.shape[:-2] + (num_samples,)), ir, state
 
     # -- stateful convenience ---------------------------------------------
 
@@ -503,6 +591,35 @@ class TdlChannel:
 BLOCK_CONV_IMPL = "auto"
 
 
+def _conv_route() -> str:
+    """:data:`BLOCK_CONV_IMPL` resolved: "kernel" or "fft"."""
+    impl = "kernel" if BLOCK_CONV_IMPL == "auto" else BLOCK_CONV_IMPL
+    if impl not in ("kernel", "fft"):
+        raise ValueError(f"unknown BLOCK_CONV_IMPL {BLOCK_CONV_IMPL!r}")
+    return impl
+
+
+def _overlap_add(y: torch.Tensor, block_size: int, D: int) -> torch.Tensor:
+    """Blocks ``(..., nb, block_size + D - 1)`` -> ``(..., nb * block_size
+    + D - 1)``: block b's tail lands on the head of block b + 1."""
+    nb = y.shape[-2]
+    main = y[..., :block_size]
+    tail = y[..., block_size:]
+    main[..., 1:, :D - 1] += tail[..., :-1, :]   # disjoint views of y
+    return torch.cat([main.reshape(y.shape[:-2] + (nb * block_size,)),
+                      tail[..., -1, :]], dim=-1)
+
+
+def _check_blocks(idx, n: int, block_size: int) -> Tuple[int, int]:
+    D = int(idx[-1]) + 1
+    if block_size < D - 1:
+        raise ValueError("block_size must be at least the channel span")
+    if n % block_size != 0:
+        raise ValueError(
+            "block_size must divide the number of transmitted samples")
+    return D, n // block_size
+
+
 def tdl_filter_block_fft(ir_block: TdlImpulseResponse,
                          signal: torch.Tensor,
                          block_size: int) -> torch.Tensor:
@@ -518,49 +635,131 @@ def tdl_filter_block_fft(ir_block: TdlImpulseResponse,
     """
     idx = ir_block.tap_indexes_sparse
     taps = ir_block.tap_values_sparse                     # batch + (T, nb)
-    D = int(idx[-1]) + 1
-    if block_size < D - 1:
-        raise ValueError("block_size must be at least the channel span")
-    n = signal.shape[-1]
-    if n % block_size != 0:
-        raise ValueError(
-            "block_size must divide the number of transmitted samples")
-    nb = n // block_size
+    D, nb = _check_blocks(idx, signal.shape[-1], block_size)
     batch = signal.shape[:-1]
     if taps.shape != batch + (len(idx), nb):
         raise ValueError(f"taps {tuple(taps.shape)} do not match the "
                          f"signal: want {batch + (len(idx), nb)}")
-    x_rows = signal.reshape(-1, block_size)
-    t_rows = taps.transpose(-1, -2).reshape(-1, len(idx))
-    impl = "kernel" if BLOCK_CONV_IMPL == "auto" else BLOCK_CONV_IMPL
-    if impl == "kernel":
-        y = block_fir(x_rows, t_rows, idx, block_size)
-    elif impl == "fft":
-        y = block_fir_fft(x_rows, t_rows, idx, block_size)
+    conv = block_fir if _conv_route() == "kernel" else block_fir_fft
+    y = conv(signal.reshape(-1, block_size),
+             taps.transpose(-1, -2).reshape(-1, len(idx)), idx, block_size)
+    return _overlap_add(y.reshape(batch + (nb, block_size + D - 1)),
+                        block_size, D)
+
+
+def tdl_filter_block_fft_mimo(ir_block: TdlImpulseResponse,
+                              signal: torch.Tensor,
+                              block_size: int) -> torch.Tensor:
+    """MIMO variant of :func:`tdl_filter_block_fft`: receive antenna r
+    gets ``sum_t conv(x_t, h_{r,t})`` block by block.
+
+    ``ir_block``: taps ``batch + (T, Nr, Nt, num_blocks)``; ``signal``:
+    ``batch + (Nt, N)``. Returns ``batch + (Nr, N + D - 1)``.
+
+    Routes (:data:`BLOCK_CONV_IMPL`): ``"kernel"`` convolves every (r, t)
+    pair's blocks in ONE ``block_fir`` call, over the signal's blocks
+    repeated for each receive antenna, then sums over t. One launch over
+    repeated rows rather than one launch per receive antenna: the
+    wrapper's host work (50-60 us a call, PERF.md) exceeds the kernel's
+    time for one antenna's rows at the MIMO geometry, so Nr launches would
+    keep the card waiting on the host. ``"fft"`` is the JAX package's
+    route: the per-block spectra contracted over t, then one inverse FFT
+    per receive antenna.
+    """
+    idx = ir_block.tap_indexes_sparse
+    taps = ir_block.tap_values_sparse                # batch + (T, Nr, Nt, nb)
+    nt, n = signal.shape[-2:]
+    D, nb = _check_blocks(idx, n, block_size)
+    batch = signal.shape[:-2]
+    nr = taps.shape[-3]
+    if taps.shape != batch + (len(idx), nr, nt, nb):
+        raise ValueError(f"taps {tuple(taps.shape)} do not match the "
+                         f"signal: want {batch + (len(idx), nr, nt, nb)}")
+    x_blocks = signal.reshape(batch + (nt, nb, block_size))
+    h = taps.movedim(-4, -1)                         # batch + (Nr, Nt, nb, T)
+    if _conv_route() == "fft":
+        out_len = block_size + D - 1
+        L = ((out_len + 127) // 128) * 128
+        X = torch.fft.fft(x_blocks, n=L)             # batch + (Nt, nb, L)
+        H = full_precision(torch.matmul)(
+            h, sparse_dft(idx, range(L), L, signal.device))
+        y = torch.fft.ifft((H * X.unsqueeze(-4)).sum(dim=-3))[..., :out_len]
     else:
-        raise ValueError(f"unknown BLOCK_CONV_IMPL {BLOCK_CONV_IMPL!r}")
-    y = y.reshape(batch + (nb, block_size + D - 1))
-    main = y[..., :block_size]
-    tail = y[..., block_size:]
-    # block b's tail lands on the head of block b + 1 (disjoint views of y)
-    main[..., 1:, :D - 1] += tail[..., :-1, :]
-    return torch.cat([main.reshape(batch + (nb * block_size,)),
-                      tail[..., -1, :]], dim=-1)
+        x_rows = x_blocks.unsqueeze(-4).expand(
+            batch + (nr, nt, nb, block_size)).reshape(-1, block_size)
+        y = block_fir(x_rows, h.reshape(-1, len(idx)), idx, block_size)
+        y = y.reshape(batch + (nr, nt, nb, block_size + D - 1)).sum(dim=-3)
+    return _overlap_add(y, block_size, D)
 
 
-def tdl_filter(ir: TdlImpulseResponse, signal: torch.Tensor) -> torch.Tensor:
+def tdl_filter(ir: TdlImpulseResponse, signal: torch.Tensor,
+               switched_direction: bool = False) -> torch.Tensor:
     """Apply the time-varying sparse FIR of a per-sample impulse response:
     ``out[m] = sum_i h_i[m - d_i] x[m - d_i]``, one shifted multiply-add
     per tap. SISO: taps ``batch + (T, N)``, signal ``batch + (N,)`` ->
-    ``batch + (N + D - 1,)``."""
+    ``batch + (N + D - 1,)``. MIMO: taps ``batch + (T, Nr, Nt, N)``, signal
+    ``batch + (Nt, N)`` -> ``batch + (Nr, N + D - 1)``, contracted over the
+    transmit antennas. The uplink (``switched_direction``) raises, as in
+    the JAX package: :class:`TdlMimoChannel` transposes the taps
+    instead."""
     idx = ir.tap_indexes_sparse
     taps = ir.tap_values_sparse
     n = signal.shape[-1]
-    if taps.shape[-2:] != (len(idx), n):
-        raise ValueError(f"taps {tuple(taps.shape)} do not match "
-                         f"{len(idx)} taps x {n} samples")
-    prod = taps * signal[..., None, :]                    # batch + (T, N)
-    out = signal.new_zeros(prod.shape[:-2] + (n + int(idx[-1]),))
+    if not ir.mimo:
+        if taps.shape[-2:] != (len(idx), n):
+            raise ValueError(f"taps {tuple(taps.shape)} do not match "
+                             f"{len(idx)} taps x {n} samples")
+        prod = taps * signal[..., None, :]                # batch + (T, N)
+    else:
+        if switched_direction:
+            raise NotImplementedError(
+                "switched_direction uplink is handled by TdlMimoChannel "
+                "transposing the impulse response")
+        if taps.shape[-4] != len(idx) or \
+                taps.shape[-2:] != signal.shape[-2:]:
+            raise ValueError(f"taps {tuple(taps.shape)} do not match "
+                             f"{len(idx)} taps and the signal "
+                             f"{tuple(signal.shape)}")
+        # batch + (T, Nr, N): contracted over t in float32 adds
+        prod = (taps * signal.unsqueeze(-3).unsqueeze(-4)).sum(dim=-2)
+    prod = prod.movedim(-3 if ir.mimo else -2, 0)          # taps first
+    out = signal.new_zeros(prod.shape[1:-1] + (n + int(idx[-1]),))
     for i, d in enumerate(idx):
-        out[..., d:d + n] += prod[..., i, :]
+        out[..., d:d + n] += prod[i]
     return out
+
+
+class TdlMimoChannel(TdlChannel):
+    """MIMO-shaped :class:`TdlChannel`: the generator's shape must be
+    ``(num_rx_antennas, num_tx_antennas)``. Block-static transmission
+    filters block by block (:func:`tdl_filter_block_fft_mimo`) and returns
+    the per-block response; the uplink (``switched_direction``) transposes
+    the per-tap channel matrices (the returned response stays
+    untransposed)."""
+
+    def __init__(self, fading_generator, channel_profile:
+                 Optional[TdlChannelProfile] = None,
+                 tap_powers_dB: Optional[np.ndarray] = None,
+                 tap_delays: Optional[np.ndarray] = None,
+                 Ts: Optional[float] = None) -> None:
+        if fading_generator.shape is None or \
+                len(fading_generator.shape) != 2:
+            raise RuntimeError(
+                "The provided fading_generator for TdlMimoChannel must "
+                "have a shape of (num_rx_antennas, num_tx_antennas)")
+        super().__init__(fading_generator, channel_profile, tap_powers_dB,
+                         tap_delays, Ts)
+
+    def _corrupt_data_impl(self, state, signal, block_size: Optional[int]):
+        signal = self._as_signal(signal)
+        num_samples = signal.shape[-1]
+        if block_size is None:
+            ir, state = self.generate_impulse_response_f(state, num_samples)
+            ir_use = ir.transposed() if self.switched_direction else ir
+            return tdl_filter(ir_use, signal), ir, state
+        ir_block, state = self._block_response(state, num_samples,
+                                               block_size)
+        ir_use = ir_block.transposed() if self.switched_direction \
+            else ir_block
+        out = tdl_filter_block_fft_mimo(ir_use, signal, block_size)
+        return out, ir_block, state

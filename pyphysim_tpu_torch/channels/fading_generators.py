@@ -17,7 +17,11 @@ Samples are complex64 tensors of shape ``batch + shape + (num_samples,)``
 realization per row, as the JAX package's ``vmap`` does): ``t0`` and the
 Rayleigh counter have the batch shape. ``init_state`` draws from an
 explicit random source: a ``torch.Generator`` (no batch) or an
-``ops.streams.AttemptStreams`` (one row per attempt).
+``ops.streams.AttemptStreams`` (one row per attempt), and ``batch`` adds
+leading axes of independent states after those (a multiuser channel's
+links). :func:`jakes_state_from_numpy` carries the JAX package's Jakes
+states over: one link's, or a multiuser channel's stacked link states,
+whose layout (links first) is the port's.
 
 Both derive from :class:`FadingSampleGenerator`, which also carries the
 reference's stateful host API (``set_seed``, ``generate_more_samples``,
@@ -40,7 +44,7 @@ from ..ops import streams
 
 __all__ = ["FadingSampleGenerator", "JakesSampleGenerator", "JakesState",
            "RayleighSampleGenerator", "RayleighState",
-           "generate_jakes_samples"]
+           "generate_jakes_samples", "jakes_state_from_numpy"]
 
 Shape = Union[int, Tuple[int, ...]]
 
@@ -94,7 +98,7 @@ class FadingSampleGenerator:
         self._shape = (_normalize_shape(new_shape)
                        if new_shape is not None else None)
 
-    def init_state(self, source):  # pragma: no cover - abstract
+    def init_state(self, source, batch=()):  # pragma: no cover - abstract
         raise NotImplementedError
 
     def generate(self, state, num_samples: int = 1):  # pragma: no cover
@@ -167,13 +171,15 @@ class JakesSampleGenerator(FadingSampleGenerator):
     def L(self) -> int:
         return self._L
 
-    def init_state(self, source) -> JakesState:
+    def init_state(self, source, batch: Tuple[int, ...] = ()) -> JakesState:
         """Draw fresh ray angles and phases, uniform in [0, 2 pi), from
         an explicit random source on ``self.device``: a
         ``torch.Generator`` gives one state, an ``AttemptStreams`` one
-        row per attempt; ``t0`` starts at 0."""
+        row per attempt, each with ``batch`` leading axes of independent
+        states; ``t0`` starts at 0."""
         shape = (self._L,) + (self._shape or ()) + (1,)
-        u = streams.uniform(source, (2,) + shape, self.device)
+        u = streams.uniform(source, tuple(batch) + (2,) + shape,
+                            self.device)
         lead = u.dim() - len(shape) - 1
         phi, psi = (v * (2.0 * np.pi) for v in u.unbind(dim=lead))
         return JakesState(phi_l=phi, psi_l=psi,
@@ -231,11 +237,12 @@ class RayleighSampleGenerator(FadingSampleGenerator):
     """iid CN(0, 1) samples (memoryless: ``skip`` only moves the
     counter, so later draws still differ)."""
 
-    def init_state(self, source) -> RayleighState:
+    def init_state(self, source,
+                   batch: Tuple[int, ...] = ()) -> RayleighState:
         """A fresh key drawn from an explicit random source (see
         :meth:`JakesSampleGenerator.init_state`); the counter starts at
         0."""
-        key = streams.bits(source, (2,), self.device)
+        key = streams.bits(source, tuple(batch) + (2,), self.device)
         return RayleighState(key, torch.zeros(key.shape[:-1],
                                               dtype=torch.int64,
                                               device=key.device))
@@ -282,3 +289,20 @@ def generate_jakes_samples(Fd: float, Ts: float = 1e-3,
         state = gen.init_state(source)
     samples, _ = gen.generate(state, num_samples)
     return samples
+
+
+def jakes_state_from_numpy(state, device: DeviceLike = "cuda") -> JakesState:
+    """The port's :class:`JakesState` of a JAX package ``JakesState`` (any
+    object with ``phi_l``, ``psi_l`` and ``t0`` that ``np.asarray`` takes),
+    or of a sequence of them, stacked along a new leading axis (attempts).
+
+    One link's state is ``(L,) + shape + (1,)`` with a scalar ``t0``; a
+    JAX ``MuChannel``'s stacked link states carry the links first,
+    ``(links, L) + shape + (1,)`` with ``t0`` of shape ``(links,)``, which
+    is the port's layout of links as the last batch axis."""
+    if hasattr(state, "phi_l"):
+        return JakesState.from_numpy(state.phi_l, state.psi_l, state.t0,
+                                     device)
+    return JakesState.from_numpy(
+        *(np.stack([np.asarray(getattr(s, f)) for s in state])
+          for f in ("phi_l", "psi_l", "t0")), device)

@@ -1,7 +1,23 @@
-"""Flat-fading multiuser MIMO interference channel as one block matrix.
+"""Multiuser channels: TDL interference grids and the flat-fading block
+channel matrix.
 
-Counterpart of ``MultiUserChannelMatrix`` in
-``pyphysim_tpu/channels/multiuser.py``: the channel is ONE dense complex64
+Counterpart of ``pyphysim_tpu/channels/multiuser.py``.
+
+:class:`MuChannel` / :class:`MuMimoChannel` are a (Krx x Ktx) grid of
+independently fading TDL links (SISO, or Nr x Nt MIMO), each with its own
+path loss; a receiver gets the sum over all transmitters. All links run in
+ONE batched :class:`~.fading.TdlChannel` call, the port's counterpart of
+the JAX package's single ``vmap`` over the links: the links are the last
+batch axis, row-major over the (rx, tx) grid (link ``r * Ktx + t``). So
+the states are ``batch + (links,)`` (``t0``) and ``batch + (links, L) +
+shape + (1,)`` (Jakes phases), the per-link outputs ``batch + (links,) +
+[(Nr,)] + (samples,)`` and the stacked impulse response's taps ``batch +
+(links, T) + [(Nr, Nt)] + (samples,)``, where the JAX package puts the
+link axis at position 1 of the taps. :meth:`MuChannel.
+get_last_impulse_response` returns one link's response in either case.
+
+:class:`MultiUserChannelMatrix` is the flat-fading MIMO interference
+channel as ONE dense complex64
 tensor ``big_H`` of shape (sum(Nr), sum(Nt)) with per-user antenna counts,
 block ``(k, l)`` the link from transmitter ``l`` to receiver ``k``;
 interference covariances (``calc_Q`` / ``calc_JP_Q``), per-stream Bkl
@@ -10,8 +26,6 @@ matrices and SINRs (Cadambe2008 eq. 28), post receive filters, and a
 ``MultiUserChannelMatrixExtInt`` adds external interference sources as
 extra transmit-only users (extra columns of ``big_H``) with their
 covariances at each receiver.
-
-The TDL grids (``MuChannel``, ``MuMimoChannel``) wait for a later slice.
 """
 
 from __future__ import annotations
@@ -24,8 +38,11 @@ import torch
 
 from .._device import DeviceLike, require_cuda
 from ..utils.misc import randn_c
+from .fading import TdlChannel, TdlChannelProfile, TdlImpulseResponse
+from .fading_generators import RayleighSampleGenerator
 
-__all__ = ["MultiUserChannelMatrix", "MultiUserChannelMatrixExtInt"]
+__all__ = ["MuChannel", "MuMimoChannel", "MultiUserChannelMatrix",
+           "MultiUserChannelMatrixExtInt"]
 
 IntArray = Union[int, np.ndarray]
 
@@ -41,6 +58,234 @@ def _host_like(out, like):
     if isinstance(out, list):
         return [o.cpu().numpy() for o in out]
     return out.cpu().numpy()
+
+
+class MuChannel:
+    """TDL multiuser (interference) channel: independently fading links on
+    a (num_rx users x num_tx users) grid, one batched channel call for all
+    of them (see the module docstring for the layouts). ``device`` places
+    the default Rayleigh generator (a given generator brings its own; it is
+    copied, not changed)."""
+
+    def __init__(self, N: Union[int, Sequence[int]], fading_generator=None,
+                 channel_profile: Optional[TdlChannelProfile] = None,
+                 tap_powers_dB: Optional[np.ndarray] = None,
+                 tap_delays: Optional[np.ndarray] = None,
+                 Ts: Optional[float] = None,
+                 device: DeviceLike = "cuda") -> None:
+        num_rx, num_tx = N if isinstance(N, (tuple, list)) else (N, N)
+        self._num_rx_users = int(num_rx)
+        self._num_tx_users = int(num_tx)
+        if fading_generator is None:
+            fading_generator = RayleighSampleGenerator(device=device)
+            if Ts is None and channel_profile is None and \
+                    tap_delays is None:
+                Ts = 1.0
+        self._tdl = TdlChannel(fading_generator.get_similar_fading_generator(),
+                               channel_profile=channel_profile,
+                               tap_powers_dB=tap_powers_dB,
+                               tap_delays=tap_delays, Ts=Ts)
+        self._pathloss_matrix: Optional[np.ndarray] = None
+        self._seed = 0
+        self._states = None
+        self._last_irs: Optional[TdlImpulseResponse] = None
+
+    def __repr__(self) -> str:
+        return (f"MuChannel with shape {self._num_rx_users}x"
+                f"{self._num_tx_users}")
+
+    # -- properties --------------------------------------------------------
+
+    @property
+    def num_rx_users(self) -> int:
+        return self._num_rx_users
+
+    @property
+    def num_tx_users(self) -> int:
+        return self._num_tx_users
+
+    @property
+    def num_links(self) -> int:
+        return self._num_rx_users * self._num_tx_users
+
+    @property
+    def switched_direction(self) -> bool:
+        return self._tdl.switched_direction
+
+    @switched_direction.setter
+    def switched_direction(self, value: bool) -> None:
+        self._tdl.switched_direction = value
+
+    @property
+    def channel_profile(self) -> TdlChannelProfile:
+        return self._tdl.channel_profile
+
+    @property
+    def num_taps(self) -> int:
+        return self._tdl.num_taps
+
+    @property
+    def num_taps_with_padding(self) -> int:
+        return self._tdl.num_taps_with_padding
+
+    @property
+    def num_tx_antennas(self) -> Optional[int]:
+        return self._tdl.num_tx_antennas
+
+    @property
+    def num_rx_antennas(self) -> Optional[int]:
+        return self._tdl.num_rx_antennas
+
+    @property
+    def device(self) -> torch.device:
+        return self._tdl.device
+
+    @property
+    def pathloss_matrix(self) -> Optional[np.ndarray]:
+        return self._pathloss_matrix
+
+    def set_pathloss(self,
+                     pathloss_matrix: Optional[np.ndarray] = None) -> None:
+        """Per-link (rx, tx) linear path loss matrix, each value in (0, 1]
+        (None: no path loss)."""
+        if pathloss_matrix is not None:
+            pl = np.asarray(pathloss_matrix, dtype=float)
+            if pl.shape != (self._num_rx_users, self._num_tx_users):
+                raise ValueError(f"pathloss_matrix must be "
+                                 f"{self._num_rx_users}x{self._num_tx_users}")
+            if not np.all((pl > 0) & (pl <= 1)):
+                raise ValueError("Pathloss must be a positive value lower "
+                                 "than or equal to 1")
+        self._pathloss_matrix = pathloss_matrix
+
+    # -- functional API ----------------------------------------------------
+
+    def init_state(self, source):
+        """The stacked link states from an explicit random source (a
+        ``torch.Generator``, or an ``AttemptStreams`` for one set of links
+        per attempt): links as the last batch axis."""
+        return self._tdl.init_state(source, (self.num_links,))
+
+    def _tile_signal(self, signal) -> torch.Tensor:
+        """The transmitters' signals (a list, or a tensor with the
+        transmitters on the axis before the per-user signal) repeated for
+        each receiver, so link ``r * T + t`` reads transmitter ``t``."""
+        user_dims = 2 if self._tdl.mimo else 1
+        if isinstance(signal, (list, tuple)):
+            sig = torch.stack([self._tdl._as_signal(s) for s in signal],
+                              dim=-1 - user_dims)
+        else:
+            sig = self._tdl._as_signal(signal)
+        lead = sig.shape[:-1 - user_dims]
+        tiled = sig.unsqueeze(-2 - user_dims).expand(
+            lead + (self._num_rx_users,) + sig.shape[-1 - user_dims:])
+        return tiled.reshape(lead + (self.num_links,) +
+                             sig.shape[-user_dims:])
+
+    def _finalize_links(self, outs: torch.Tensor, irs: TdlImpulseResponse):
+        """Apply the per-link path loss to the outputs and the responses,
+        sum over transmitters; the per-receiver outputs and the responses."""
+        R, T = self._num_rx_users, self._num_tx_users
+        link_axis = outs.dim() - (3 if self._tdl.mimo else 2)
+        if self._pathloss_matrix is not None:
+            scale = torch.as_tensor(
+                np.sqrt(np.asarray(self._pathloss_matrix, float)).ravel(),
+                dtype=torch.float32, device=outs.device)
+            outs = outs * scale.reshape(
+                (-1,) + (1,) * (outs.dim() - link_axis - 1))
+            tv = irs.tap_values_sparse
+            irs = TdlImpulseResponse(
+                tv * scale.reshape((-1,) + (1,) * (tv.dim() - link_axis - 1)),
+                irs.channel_profile, irs.mimo)
+        summed = outs.unflatten(link_axis, (R, T)).sum(dim=link_axis + 1)
+        return [summed.select(link_axis, r) for r in range(R)], irs
+
+    def corrupt_data(self, state_or_signal, signal=None):
+        """Per-sample transmission over every link. ``signal``: the
+        transmitters' signals, ``batch + (num_tx_users,) + [(Nt,)] +
+        (n,)`` or a list of ``batch + [(Nt,)] + (n,)``. Functional form
+        ``(states, signal) -> (outputs, irs, states)``: a list of the
+        receivers' ``batch + [(Nr,)] + (n + D - 1,)`` outputs (summed over
+        the transmitters), the stacked response and the new states;
+        convenience form ``(signal) -> outputs`` (numpy in, numpy out).
+
+        Per-sample Jakes fading holds every ray's phase before the ray sum:
+        ``L x links x T [x Nr x Nt] x n`` float32 values an attempt, twice
+        (cos and sin), 1.8e7 at K = 3, 16 rays, 16 taps and 8,000 samples.
+        Size an attempts batch to the device's memory by that count."""
+        if signal is None:
+            out, self._last_irs, self._states = self._corrupt_impl(
+                self._ensure_states(), state_or_signal)
+            return _host_like(out, state_or_signal)
+        return self._corrupt_impl(state_or_signal, signal)
+
+    def _corrupt_impl(self, states, signal):
+        outs, irs, states = self._tdl._corrupt_data_impl(
+            states, self._tile_signal(signal), None)
+        out, irs = self._finalize_links(outs, irs)
+        return out, irs, states
+
+    def corrupt_data_in_freq_domain(self, state_or_signal, signal=None,
+                                    fft_size=None, carrier_indexes=None):
+        """Block-static frequency-domain transmission over every link (the
+        arguments of :meth:`TdlChannel.corrupt_data_in_freq_domain`, the
+        signals and outputs of :meth:`corrupt_data`)."""
+        if signal is None or isinstance(signal, int):
+            if signal is not None:
+                fft_size, carrier_indexes = signal, fft_size
+            out, self._last_irs, self._states = self._corrupt_freq_impl(
+                self._ensure_states(), state_or_signal, fft_size,
+                carrier_indexes)
+            return _host_like(out, state_or_signal)
+        return self._corrupt_freq_impl(state_or_signal, signal, fft_size,
+                                       carrier_indexes)
+
+    def _corrupt_freq_impl(self, states, signal, fft_size, carrier_indexes):
+        outs, irs, states = self._tdl._corrupt_freq_impl(
+            states, self._tile_signal(signal), fft_size, carrier_indexes)
+        out, irs = self._finalize_links(outs, irs)
+        return out, irs, states
+
+    # -- stateful convenience ---------------------------------------------
+
+    def seed(self, seed: int) -> None:
+        """Seed the link states of the stateful convenience API."""
+        self._seed = int(seed)
+        self._states = None
+
+    def _ensure_states(self):
+        if self._states is None:
+            self._states = self.init_state(
+                torch.Generator(device=self.device).manual_seed(self._seed))
+        return self._states
+
+    def get_last_impulse_response(self, rx_idx: int, tx_idx: int,
+                                  irs: Optional[TdlImpulseResponse] = None
+                                  ) -> TdlImpulseResponse:
+        """The response of link (rx_idx, tx_idx): of the last stateful
+        call, or of the stacked response ``irs`` a functional call
+        returned."""
+        irs = self._last_irs if irs is None else irs
+        tv = irs.tap_values_sparse
+        link_axis = tv.dim() - (5 if irs.mimo else 3)
+        return TdlImpulseResponse(
+            tv.select(link_axis, rx_idx * self._num_tx_users + tx_idx),
+            irs.channel_profile, irs.mimo)
+
+
+class MuMimoChannel(MuChannel):
+    """:class:`MuChannel` whose links are (Nr x Nt) MIMO TDL channels."""
+
+    def __init__(self, N: Union[int, Sequence[int]], num_rx_antennas: int,
+                 num_tx_antennas: int, fading_generator=None,
+                 channel_profile: Optional[TdlChannelProfile] = None,
+                 tap_powers_dB: Optional[np.ndarray] = None,
+                 tap_delays: Optional[np.ndarray] = None,
+                 Ts: Optional[float] = None,
+                 device: DeviceLike = "cuda") -> None:
+        super().__init__(N, fading_generator, channel_profile,
+                         tap_powers_dB, tap_delays, Ts, device)
+        self._tdl.set_num_antennas(num_rx_antennas, num_tx_antennas)
 
 
 class MultiUserChannelMatrix:
@@ -211,13 +456,19 @@ class MultiUserChannelMatrix:
     # -- transmission ------------------------------------------------------
 
     def corrupt_concatenated_data(self, data,
-                                  generator: Optional[torch.Generator] = None):
+                                  generator: Optional[torch.Generator] = None,
+                                  noise=None):
         """``big_H @ data + noise`` (then the block-diagonal post filter,
-        if one is set). ``data``: (sum Nt, n); numpy in, numpy out."""
+        if one is set). ``data``: (sum Nt, n); numpy in, numpy out. The
+        noise is drawn from ``generator`` (the noise generator by default),
+        or is the given unit-variance ``noise`` (sum Nr, n), scaled by
+        ``sqrt(noise_var)``, so that two runs can see the same noise."""
         out = self.big_H @ self._tensor(data)
         if self.noise_var is not None and self.noise_var > 0:
             gen = self._noise_gen if generator is None else generator
-            noise = randn_c(gen, *out.shape) * math.sqrt(self.noise_var)
+            unit = randn_c(gen, *out.shape) if noise is None \
+                else self._tensor(noise)
+            noise = unit * math.sqrt(self.noise_var)
             self._last_noise = noise
             out = out + noise
         else:
@@ -226,11 +477,12 @@ class MultiUserChannelMatrix:
             out = self.big_W @ out
         return _host_like(out, data)
 
-    def corrupt_data(self, data, generator: Optional[torch.Generator] = None):
+    def corrupt_data(self, data, generator: Optional[torch.Generator] = None,
+                     noise=None):
         """Per-user variant: ``data`` a list of (Nt_k, n) arrays; returns a
         list of per-receiver outputs (after the post filter, if set)."""
         concat = torch.cat([self._tensor(d) for d in data], dim=-2)
-        big_out = self.corrupt_concatenated_data(concat, generator)
+        big_out = self.corrupt_concatenated_data(concat, generator, noise)
         out = [big_out[..., self._rx_off[k]:self._rx_off[k + 1], :]
                for k in range(self._K)]
         return _host_like(out, data)

@@ -37,14 +37,13 @@ channel, the singular values, the power constraints and the capacities are.
 
 from __future__ import annotations
 
-import functools
 from typing import List, Tuple
 
 import torch
 
 from ..subspace.projections import calcProjectionMatrix
 from ..utils.conversion import linear2dB
-from ..utils.misc import calc_whitening_matrix, pinv
+from ..utils.misc import calc_whitening_matrix, full_precision, pinv
 from .waterfilling import doWF_jit
 
 __all__ = ["bd_precoders_batched", "bd_receive_filter_batched",
@@ -55,21 +54,6 @@ __all__ = ["bd_precoders_batched", "bd_receive_filter_batched",
 # the stream-sacrifice metrics of enhanced_bd_batched (None: no reduction)
 ENHANCED_METRICS = (None, "naive", "fixed", "capacity",
                     "effective_throughput")
-
-
-def _full_precision(fn):
-    """Run ``fn`` with TF32 matrix products switched off (restored after)."""
-
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        saved = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = saved
-
-    return wrapper
 
 
 def _user_rows(H: torch.Tensor, k: int, nr_u: int) -> torch.Tensor:
@@ -122,7 +106,7 @@ def _block_power(blk: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
         dim=(-2, -1), keepdim=keepdim))
 
 
-@_full_precision
+@full_precision
 def bd_precoders_batched(H: torch.Tensor, num_users: int, iPu: float,
                          noise_var: float = 0.0, mode: str = "normalized"
                          ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -173,7 +157,7 @@ def bd_precoders_batched(H: torch.Tensor, num_users: int, iPu: float,
     return H @ Ms, Ms, Sigma
 
 
-@_full_precision
+@full_precision
 def bd_receive_filter_batched(newH: torch.Tensor) -> torch.Tensor:
     """Zero-forcing receive filter: the pseudo-inverse of the
     block-diagonalized channel, batched (singular values at or below 1e-3
@@ -191,7 +175,7 @@ def _canonicalize_phases(x: torch.Tensor) -> torch.Tensor:
     return x * (pivot.conj() / mag)
 
 
-@_full_precision
+@full_precision
 def _bd_conditioning_ok(H: torch.Tensor, sigmas) -> torch.Tensor:
     """Degenerate-draw detector, scale-invariant: a draw is healthy when
     every user's ASCENDING singular values are well conditioned relative
@@ -205,7 +189,7 @@ def _bd_conditioning_ok(H: torch.Tensor, sigmas) -> torch.Tensor:
     return ok
 
 
-@_full_precision
+@full_precision
 def bd_blocks_no_power_batched(H: torch.Tensor, num_users: int):
     """Per-user null-space precoder blocks WITHOUT power scaling, columns
     in ASCENDING effective-singular-value order with canonical phases.
@@ -222,7 +206,7 @@ def bd_blocks_no_power_batched(H: torch.Tensor, num_users: int):
 # ---------------------------------------------------------------------------
 
 
-@_full_precision
+@full_precision
 def whitening_matrix_batched(R: torch.Tensor) -> torch.Tensor:
     """Batched ``calc_whitening_matrix``: ``W = V diag(w)^-1/2`` from the
     eigendecomposition of each covariance, eigenvalues floored for
@@ -248,7 +232,7 @@ def _all_finite(x: torch.Tensor, dims: int) -> torch.Tensor:
     return torch.isfinite(x).flatten(-dims).all(dim=-1)
 
 
-@_full_precision
+@full_precision
 def whitening_bd_batched(H: torch.Tensor, R: torch.Tensor, num_users: int,
                          iPu: float):
     """Whiten, block-diagonalize, fold the whitening into the receive
@@ -306,7 +290,7 @@ def _select(cands, best: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@_full_precision
+@full_precision
 def enhanced_bd_batched(H: torch.Tensor, R: torch.Tensor, num_users: int,
                         iPu: float, metric=None, num_streams: int = 1,
                         modulator=None, packet_length: int = 60):

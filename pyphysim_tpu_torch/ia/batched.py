@@ -36,9 +36,8 @@ from typing import List, Tuple
 
 import torch
 
-from ..comm.batched import _full_precision
 from ..ops.streams import AttemptStreams
-from ..utils.misc import randn_c
+from ..utils.misc import full_precision, randn_c
 
 __all__ = ["max_sinr_solve", "min_leakage_solve", "mmse_solve",
            "alt_min_solve", "alt_min_cost", "closed_form_solve",
@@ -180,7 +179,7 @@ def _update_filters(H, F, noise_var, P, Ns) -> torch.Tensor:
     return torch.stack(us, dim=-3)
 
 
-@_full_precision
+@full_precision
 def svd_init_precoders(H: torch.Tensor, Ns) -> torch.Tensor:
     """Deterministic 'svd' initialization: F_k = the ns_k dominant right
     singular vectors of the direct channel H_kk (one ``torch.linalg.svd``
@@ -196,7 +195,7 @@ def svd_init_precoders(H: torch.Tensor, Ns) -> torch.Tensor:
     return torch.stack(fs, dim=-3)
 
 
-@_full_precision
+@full_precision
 def max_sinr_solve(H: torch.Tensor, source=None, Ns=1, P: float = 1.0,
                    noise_var: float = 0.1, iterations: int = 20,
                    init: str = "random", F0: torch.Tensor = None
@@ -252,7 +251,7 @@ def _interference_covariances(H, F, P) -> torch.Tensor:
     return torch.stack(qs, dim=-3)
 
 
-@_full_precision
+@full_precision
 def calc_leakage(H: torch.Tensor, F: torch.Tensor, U: torch.Tensor,
                  P: float = 1.0) -> torch.Tensor:
     """Total interference leakage ``sum_k tr(U_k^H Q_k U_k)`` (real), the
@@ -266,7 +265,7 @@ def calc_leakage(H: torch.Tensor, F: torch.Tensor, U: torch.Tensor,
     return total
 
 
-@_full_precision
+@full_precision
 def min_leakage_solve(H: torch.Tensor, source, Ns: int = 1, P: float = 1.0,
                       iterations: int = 20
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -318,7 +317,7 @@ def _mmse_precoder(A: torch.Tensor, rhs: torch.Tensor, P,
     return q @ (b * d[..., :, None])
 
 
-@_full_precision
+@full_precision
 def mmse_solve(H: torch.Tensor, source, Ns: int = 1, P: float = 1.0,
                noise_var: float = 0.1, iterations: int = 20
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -399,7 +398,7 @@ def _alt_min_update_U(H, F, C, Ns: int) -> torch.Tensor:
     return w_h.mH.resolve_conj()
 
 
-@_full_precision
+@full_precision
 def alt_min_solve(H: torch.Tensor, source, Ns: int = 1, P: float = 1.0,
                   iterations: int = 20, F0: torch.Tensor = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -420,7 +419,7 @@ def alt_min_solve(H: torch.Tensor, source, Ns: int = 1, P: float = 1.0,
     return F, _alt_min_update_U(H, F, C, Ns)
 
 
-@_full_precision
+@full_precision
 def alt_min_cost(H: torch.Tensor, F: torch.Tensor,
                  P: float = 1.0) -> torch.Tensor:
     """Interference energy outside the interference subspaces,
@@ -447,7 +446,7 @@ def _select(stacked: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
     return torch.gather(stacked, 0, idx)[0]
 
 
-@_full_precision
+@full_precision
 def closed_form_solve(H: torch.Tensor, Ns: int = 1, P: float = 1.0,
                       noise_var: float = 0.1, use_best_init: bool = True
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -497,7 +496,7 @@ def closed_form_solve(H: torch.Tensor, Ns: int = 1, P: float = 1.0,
             _select(torch.stack([c[1] for c in cands]), best))
 
 
-@_full_precision
+@full_precision
 def calc_sinrs(H: torch.Tensor, F: torch.Tensor, U: torch.Tensor,
                noise_var, P: float = 1.0, Ns=None) -> torch.Tensor:
     """Per-stream SINRs (..., K, ns_max) (Cadambe2008 eq. 28/29). ``Ns``:
@@ -537,7 +536,7 @@ def stream_combinations(max_Ns, K: int) -> Tuple[Tuple[int, ...], ...]:
     return tuple(itertools.product(*per_user))
 
 
-@_full_precision
+@full_precision
 def brute_force_stream_solve(H: torch.Tensor, source=None, max_Ns=2,
                              P: float = 1.0, noise_var: float = 0.1,
                              iterations: int = 20, solver=max_sinr_solve):
@@ -620,7 +619,7 @@ def _masked_sinrs(H, F, U, noise_var, P: float = 1.0) -> torch.Tensor:
     return torch.stack(rows, dim=-2)
 
 
-@_full_precision
+@full_precision
 def greedy_stream_solve(H: torch.Tensor, source=None, Ns=2, P: float = 1.0,
                         noise_var: float = 0.1, iterations: int = 20,
                         init: str = "svd", candidate_init: str = "fix"):

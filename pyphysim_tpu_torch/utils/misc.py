@@ -11,13 +11,15 @@ of the interference-alignment solvers (``randn_c_RS``, ``peig`` / ``leig``,
 ``update_inv_sum_diag``, ``get_principal_component_matrix``), the linear
 algebra of the block-diagonalization family (``pinv`` with the JAX
 package's cutoff, ``least_right_singular_vectors``,
-``calc_whitening_matrix``, ``calc_shannon_sum_capacity``), and the
+``calc_whitening_matrix``, ``calc_shannon_sum_capacity``), the float32
+guard of matrix products (``full_precision``: TF32 off), and the
 host-side formatting helpers the runner uses for file names and progress.
 The rest of that module waits for the slices that need it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -46,11 +48,28 @@ __all__ = [
     "least_right_singular_vectors",
     "calc_whitening_matrix",
     "calc_shannon_sum_capacity",
+    "full_precision",
     "pretty_time",
     "get_range_representation",
     "replace_dict_values",
     "equal_dicts",
 ]
+
+
+def full_precision(fn):
+    """``fn`` run with TF32 matrix products switched off (restored after),
+    so its products are float32 ones on the card too."""
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+    return wrapper
 
 # ---------------------------------------------------------------------------
 # Random draws from an explicit source

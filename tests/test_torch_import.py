@@ -95,6 +95,30 @@ COMP_BD_MODULES = [
 ]
 SLICE_MODULES += COMP_BD_MODULES
 
+MIMO_MODULES = [
+    "pyphysim_tpu_torch.channels.fading",
+    "pyphysim_tpu_torch.channels.fading_generators",
+    "pyphysim_tpu_torch.channels.singleuser",
+    "pyphysim_tpu_torch.channels.antennagain",
+    "pyphysim_tpu_torch.channels.noise",
+    "pyphysim_tpu_torch.channels",
+    "pyphysim_tpu_torch.reference_signals.zadoffchu",
+    "pyphysim_tpu_torch.reference_signals.ts36211_tables",
+    "pyphysim_tpu_torch.reference_signals.root_sequence",
+    "pyphysim_tpu_torch.reference_signals.srs",
+    "pyphysim_tpu_torch.reference_signals.dmrs",
+    "pyphysim_tpu_torch.reference_signals.channel_estimation",
+    "pyphysim_tpu_torch.reference_signals",
+    "pyphysim_tpu_torch.channel_estimation.estimators",
+    "pyphysim_tpu_torch.channel_estimation",
+    "apps.simple_precoded_srs_torch",
+    "apps.ia.simulate_ia_torch",
+    "apps.ia.simulate_greedy_ia_torch",
+    "apps.mimo.mu_mimo_interference_torch",
+    "apps.channel_estimation_sweep_torch",
+]
+SLICE_MODULES += [m for m in MIMO_MODULES if m not in SLICE_MODULES]
+
 
 def _run(code: str) -> str:
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -120,10 +144,11 @@ def test_slice_modules_import_neither_jax_nor_triton():
     assert _run(code).strip() == "[]"
 
 
-@pytest.mark.parametrize("name", IA_MODULES + COMP_BD_MODULES)
+@pytest.mark.parametrize("name", IA_MODULES + COMP_BD_MODULES +
+                         MIMO_MODULES)
 def test_ia_module_names_neither_jax_nor_the_jax_package(name):
-    """The IA and comp_BD slices' sources import nothing of jax or
-    pyphysim_tpu (the interpreter-level check is
+    """The IA, comp_BD and MIMO channel slices' sources import nothing of
+    jax or pyphysim_tpu (the interpreter-level check is
     test_slice_modules_import_neither_jax_nor_triton)."""
     import ast
     import importlib.util
@@ -174,11 +199,21 @@ def test_cuda_request_raises_without_cuda(monkeypatch):
     from apps.comp_BD.simulate_comp_bd_torch import CompBDSimulationRunner
     from apps.comp_BD.simulate_comp_torch import BDSimulationRunner
     from pyphysim_tpu_torch.channels import MultiUserChannelMatrixExtInt
+    from apps.channel_estimation_sweep_torch import EstimationSweepRunner
+    from apps.ia.simulate_greedy_ia_torch import IAStreamSelSimulationRunner
+    from apps.ia.simulate_ia_torch import (ClosedFormSimulationRunner,
+                                           MaxSINRSimulationRunner)
+    from apps.mimo.mu_mimo_interference_torch import \
+        MuMimoInterferenceRunner
+    from apps.simple_precoded_srs_torch import run as srs_run
+    from pyphysim_tpu_torch.channels import (MuChannel, MuMimoChannel,
+                                             SuChannel, SuMimoChannel)
     runners = (OfdmMcKernelSimulationRunner, AlamoutiMcKernelSimulationRunner,
                MimoSimulationRunner, BatchedBDCapacityRunner,
                BDKernelCapacityRunner, IaMcKernelSimulationRunner,
                StreamSelectionRunner, BDSimulationRunner,
-               CompBDSimulationRunner)
+               CompBDSimulationRunner, MuMimoInterferenceRunner,
+               EstimationSweepRunner, IAStreamSelSimulationRunner)
     for make in (lambda: require_cuda("cuda"),
                  lambda: require_cuda(torch.device("cuda", 0)),
                  lambda: OFDM(64, 8, 32, device="cuda"),
@@ -190,6 +225,13 @@ def test_cuda_request_raises_without_cuda(monkeypatch):
                  lambda: MultiUserChannelMatrix(),
                  lambda: MultiUserChannelMatrixExtInt(),
                  lambda: generate_jakes_samples(30.0),
+                 lambda: SuChannel(), lambda: SuMimoChannel(2),
+                 lambda: MuChannel(3), lambda: MuMimoChannel(2, 2, 2),
+                 lambda: srs_run(),
+                 lambda: ClosedFormSimulationRunner(
+                     "none", read_command_line_args=False),
+                 lambda: MaxSINRSimulationRunner(
+                     "none", read_command_line_args=False),
                  *(lambda cls=cls: cls(read_command_line_args=False)
                    for cls in runners)):
         with pytest.raises(RuntimeError, match="cuda"):
@@ -262,6 +304,26 @@ def test_public_entry_points_default_to_the_card():
         simulate_comp_with_ext_int_simple_torch.simulate,
         simulate_comp_with_ext_int_simple_torch.simulate_device,
         simple_bd_run]
+    from apps import simple_precoded_srs_torch as srs
+    from apps.channel_estimation_sweep_torch import EstimationSweepRunner
+    from apps.ia import simulate_greedy_ia_torch, simulate_ia_torch
+    from apps.mimo.mu_mimo_interference_torch import \
+        MuMimoInterferenceRunner
+    from pyphysim_tpu_torch.channels import (MuChannel, MuMimoChannel,
+                                             SuChannel, SuMimoChannel,
+                                             jakes_state_from_numpy)
+    entry_points += [
+        SuChannel, SuMimoChannel, MuChannel, MuMimoChannel,
+        jakes_state_from_numpy, srs.run, srs.channel,
+        simulate_ia_torch.IASimulationRunner,
+        simulate_ia_torch.ClosedFormSimulationRunner,
+        simulate_ia_torch.AlternatingSimulationRunner,
+        simulate_ia_torch.MinLeakageSimulationRunner,
+        simulate_ia_torch.MaxSINRSimulationRunner,
+        simulate_ia_torch.MMSESimulationRunner,
+        simulate_ia_torch.main_simulate,
+        simulate_greedy_ia_torch.IAStreamSelSimulationRunner,
+        MuMimoInterferenceRunner, EstimationSweepRunner]
     for fn in entry_points:
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", f"{fn.__qualname__} defaults to {default}"
@@ -274,6 +336,12 @@ def test_public_entry_points_default_to_the_card():
      ["FadingSampleGenerator", "generate_jakes_samples"]),
     ("pyphysim_tpu_torch.channels",
      ["FadingSampleGenerator", "generate_jakes_samples"]),
+    ("pyphysim_tpu_torch.utils.misc", ["full_precision"]),
+    ("pyphysim_tpu_torch.channels",
+     ["TdlMimoChannel", "SuChannel", "SuMimoChannel", "MuChannel",
+      "MuMimoChannel", "jakes_state_from_numpy"]),
+    ("pyphysim_tpu_torch.channels.fading",
+     ["TdlMimoChannel", "tdl_filter_block_fft_mimo"]),
 ])
 def test_new_names_are_exported(module, names):
     import importlib
