@@ -116,12 +116,13 @@ class BDKernelCapacityRunner(SimulationRunner):
         solves_per_rep = float(nt * mc.solves_per_grid_step)
         unpack_idx = max(current_parameters.unpack_index, 0)
         seed = kernel_stream_seed(self.base_seed, unpack_idx)
+        mesh = self.mesh      # set by simulate_in_parallel: reps sharded
 
         def bulk(start, n):
             self.chunks_dispatched += 1
-            if n not in self._fns:
-                self._fns[n] = mc.build(n, nt)
-            caps = self._fns[n](seed, start, iPu=iPu, noise_var=nv)
+            if (n, mesh) not in self._fns:
+                self._fns[n, mesh] = mc.build(n, nt, mesh=mesh)
+            caps = self._fns[n, mesh](seed, start, iPu=iPu, noise_var=nv)
             # device tensors, not synchronised
             return {"sum_capacity": (caps.sum(dim=1),
                                      np.full(n, solves_per_rep))}

@@ -60,12 +60,13 @@ class IaMcKernelSimulationRunner(SimulationRunner):
         solves_per_rep = float(nt * mc.solves_per_grid_step)
         unpack_idx = max(current_parameters.unpack_index, 0)
         seed = kernel_stream_seed(self.base_seed, unpack_idx)
+        mesh = self.mesh      # set by simulate_in_parallel: reps sharded
 
         def bulk(start, n):
             self.chunks_dispatched += 1
-            if n not in self._fns:
-                self._fns[n] = mc.build(n, nt)
-            caps = self._fns[n](seed, noise_var, start)
+            if (n, mesh) not in self._fns:
+                self._fns[n, mesh] = mc.build(n, nt, mesh=mesh)
+            caps = self._fns[n, mesh](seed, noise_var, start)
             # device tensors, not synchronised; float64, in which the
             # runner's sums of these float32 values are exact, so the
             # results do not depend on the chunk size

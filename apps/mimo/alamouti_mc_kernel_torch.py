@@ -77,13 +77,17 @@ class AlamoutiMcKernelSimulationRunner(SimulationRunner):
         unpack_idx = max(current_parameters.unpack_index, 0)
         seed = kernel_stream_seed(self.base_seed, unpack_idx)
         source = self.bit_source
+        # under simulate_in_parallel the chunk's reps are split over the
+        # mesh, each rank from its own absolute attempt (the builds' mesh=)
+        mesh = self.mesh
 
         def bulk(start, n):
             self.chunks_dispatched += 1
-            fkey = (n, source is None)
+            fkey = (n, source is None, mesh)
             if fkey not in self._fns:
-                self._fns[fkey] = (mc.build(n, nt) if source is None
-                                   else mc.build_inject(n, nt))
+                self._fns[fkey] = (mc.build(n, nt, mesh=mesh)
+                                   if source is None
+                                   else mc.build_inject(n, nt, mesh=mesh))
             if source is None:
                 counts = self._fns[fkey](seed, snr, start)
             else:

@@ -46,6 +46,18 @@ against its plain PyTorch version on the card:
     ``apps/ia/simulate_ia_torch.py`` on the card against the CPU, and
     ``apps/ia/simulate_greedy_ia_torch.py`` once (``srs_app``,
     ``ia_app``, ``greedy_ia_app``); and their times (``mimo_times``).
+  * the data-parallel layer (phases 38-42, ``parallel_phases``):
+    ``make_mesh`` starts a world-size-1 NCCL group and all-gathers on it
+    (``mesh``); the flagship bulk runner through ``simulate_in_parallel``
+    at full width in both product types, bit for bit ``simulate()``'s,
+    then with ``block=False`` (``parallel_main_path``,
+    ``parallel_async``); the Alamouti, BD and IA bulk runners the same way,
+    per rep (``parallel_families``); every Monte Carlo kernel's sharded
+    PRNG build against its unsharded launch, on the 1-rank mesh and as the
+    launches of 2- and 4-rank splits (``sharded_build``); and the
+    time-sharded TDL channel through ``block_fir`` against the unsharded
+    ``corrupt_data``, also as 4 shards with their halos added in this
+    process (``time_sharded_channel``).
 
 One line per phase; any failure raises and the script exits non-zero.
 There is no CPU fallback: without a CUDA device it fails before printing
@@ -65,6 +77,9 @@ import time
 
 BER_CORNERS = {5.0: (0.08, 0.22), 15.0: (0.02, 0.06), 30.0: (2e-4, 6e-3)}
 TILE, NUM_TILES = 1024, 4           # flagship kernel shape
+PAR_REPS, PAR_CHUNK = 512, 128      # flagship under simulate_in_parallel
+TS_BLOCKS = 4096                    # time-sharded channel: OFDM symbols
+TS_ATOL = 2e-5                      # tests/test_parallel.py's tolerance
 REL_TOL = 2e-4                      # |kernel - plain| per cell / cell bits
 FIR_REL_TOL = 1e-5                  # block_fir: max |kernel - plain| / max |y|
 FIR_ROWS = (8192, 1000, 1)          # time-domain step's rows; ragged counts
@@ -394,9 +409,22 @@ def main() -> int:
                                    mimo.pop("max_abs_err"))
     fir_entry.update(mimo)
 
+    parallel = parallel_phases(dev, smi)
+    entries = [*mc_entries, *phases_8_to_12, *phases_13_to_19,
+               phases_20_to_26]
+    for entry in entries:
+        more = parallel.get(entry["name"], {})
+        # a kernel's launches on this slice's paths join its main path's
+        entry["launches"] += more.get("parallel_launches", 0) + \
+            more.get("time_sharded_launches", 0)
+        entry.update(more)
+    missing = [name for name in parallel
+               if name not in {e["name"] for e in entries}]
+    if missing:
+        raise AssertionError(f"kernels line: no entry named {missing}")
+
     print(smi)
-    print(json.dumps({"kernels": [
-        *mc_entries, *phases_8_to_12, *phases_13_to_19, phases_20_to_26]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -534,6 +562,301 @@ def fill_draws_parity(name, draws):
                                  f"the fill differs from its plain version")
         err = max(err, float((got.double() - plain.double()).abs().max()))
     return err
+
+
+def parallel_phases(dev, smi):
+    """Phases 38-42: the port's data-parallel layer on the card, on the
+    world-size-1 NCCL group that ``make_mesh`` starts itself. The mesh and
+    its collectives; the flagship bulk runner through
+    ``simulate_in_parallel`` at full width in both channel-product types
+    (equal to ``simulate()`` bit for bit, the BERs in ``BER_CORNERS``;
+    then ``block=False`` and the wait); the Alamouti, BD and IA bulk
+    runners the same way at two chunks each (BD held per rep); every
+    Monte Carlo kernel's sharded PRNG build against its unsharded launch,
+    on the 1-rank mesh and as the per-rank launches of 2- and 4-rank
+    splits; the time-sharded channel through ``block_fir`` against the
+    unsharded ``corrupt_data``, on the 1-rank mesh and as 4 shards with
+    their halos added in this process. Returns, per kernel name, what the
+    ``kernels`` line gains."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from apps.comp_BD.batched_bd_capacity_torch import BDKernelCapacityRunner
+    from apps.ia.ia_mc_kernel_torch import IaMcKernelSimulationRunner
+    from apps.mimo.alamouti_mc_kernel_torch import \
+        AlamoutiMcKernelSimulationRunner
+    from apps.ofdm.ofdm_mc_kernel_torch import OfdmMcKernelSimulationRunner
+    from pyphysim_tpu_torch.ops.mc_kernel import MonteCarloOfdmTdl
+    from pyphysim_tpu_torch.parallel import (gather_rows, make_host_chip_mesh,
+                                             make_mesh)
+    start_time = time.perf_counter()
+
+    # 38. the mesh: make_mesh with no group starts a world-size-1 NCCL one
+    if dist.is_initialized():
+        raise AssertionError("mesh: a process group is already up")
+    mesh = make_mesh()
+    probe = torch.arange(6, dtype=torch.int32, device=dev).reshape(3, 2)
+    gathered = gather_rows(mesh, "mc", probe)
+    torch.cuda.synchronize()
+    phase("mesh", backend=dist.get_backend(), world=dist.get_world_size(),
+          mesh=repr(mesh), all_gather=gathered.tolist(),
+          nccl_socket_ifname=os.environ.get("NCCL_SOCKET_IFNAME"))
+    backend = {"cuda": "nccl", "cpu": "gloo"}[dev.type]
+    if dist.get_backend() != backend or dist.get_world_size() != 1 or \
+            not torch.equal(gathered, probe):
+        raise AssertionError(f"mesh: not a 1-rank {backend} group, or its "
+                             "all-gather changed the rows")
+    try:
+        make_host_chip_mesh(num_hosts=2)
+    except ValueError as exc:
+        phase("mesh_split", num_hosts=2, raised=repr(str(exc)))
+    else:
+        raise AssertionError("make_host_chip_mesh(num_hosts=2) split 1 rank")
+
+    # 39. the slice's main path: the flagship runner at full width
+    def flagship(dtype, rep_max, batch):
+        r = OfdmMcKernelSimulationRunner(device=dev,
+                                         read_command_line_args=False,
+                                         matmul_dtype=dtype)
+        r.tile, r.num_tiles = TILE, NUM_TILES
+        r.mc = MonteCarloOfdmTdl(r.ofdm, r.channel, M=16, tile=TILE,
+                                 matmul_dtype=dtype, device=dev)
+        return sweep_runner(r, "SNR", list(BER_CORNERS), rep_max, batch)
+
+    def errors(runner):
+        return [int(v) for v in
+                runner.results.get_result_values_list("bit_errors")]
+
+    snrs, reps, chunk = list(BER_CORNERS), PAR_REPS, PAR_CHUNK
+    extra = {}
+    for dtype in MC_DTYPES:
+        serial = flagship(dtype, reps, chunk)
+        tic = time.perf_counter()
+        serial.simulate()
+        serial_s = time.perf_counter() - tic
+        runner = flagship(dtype, reps, chunk)
+        runner.mc.launch_count = 0
+        runner.mc.reference_count = 0
+        tic = time.perf_counter()
+        runner.simulate_in_parallel(mesh)
+        parallel_s = time.perf_counter() - tic
+        launches = runner.mc.launch_count
+        bers = [float(v) for v in runner.results.get_result_values_list(
+            "ber")]
+        equal = errors(runner) == errors(serial) and \
+            runner.runned_reps == serial.runned_reps
+        # the gather's share of a chunk: one sharded chunk and its gather
+        seed = 1234567
+        run = runner.mc.build(chunk, NUM_TILES, mesh=mesh)
+        counts = run(seed, 10 ** 1.5, 0)
+        chunk_ms = best_ms(lambda: run(seed, 10 ** 1.5, 0), inner=10)
+        gather_ms = best_ms(lambda: gather_rows(mesh, "mc", counts),
+                            inner=10)
+        phase(f"parallel_main_path {dtype}", card=repr(smi), snr_db=snrs,
+              ber=bers, bit_errors=errors(runner),
+              serial_bit_errors=errors(serial), equal_to_simulate=equal,
+              runned_reps=runner.runned_reps, kernel_launches=launches,
+              chunks=runner.chunks_dispatched,
+              plain_calls=runner.mc.reference_count,
+              parallel_seconds=parallel_s, serial_seconds=serial_s,
+              sharded_chunk_ms=chunk_ms, nccl_gather_ms=gather_ms,
+              gather_share_of_chunk=gather_ms / chunk_ms,
+              mesh_after=repr(runner.mesh))
+        if not equal:
+            raise AssertionError(f"parallel_main_path {dtype}: "
+                                 "simulate_in_parallel != simulate()")
+        check_bers(f"parallel_main_path {dtype}", snrs, bers)
+        check_launches(f"parallel_main_path {dtype}", launches,
+                       runner.chunks_dispatched, runner.mc.reference_count)
+        if runner.mesh is not None:
+            raise AssertionError("parallel_main_path: mesh not reset")
+        name = "mc_ofdm_tdl_prng" + ("_bf16" if dtype == "bfloat16" else "")
+        extra[name] = {"parallel_launches": launches}
+
+        later = flagship(dtype, reps, chunk)
+        later.simulate_in_parallel(mesh, block=False)
+        later.wait_parallel_simulation()
+        same = errors(later) == errors(serial)
+        phase(f"parallel_async {dtype}", equal_to_simulate=same,
+              mesh_after=repr(later.mesh))
+        if not same or later.mesh is not None:
+            raise AssertionError(f"parallel_async {dtype}: block=False "
+                                 "differs from simulate() or kept its mesh")
+
+    # 40. the other bulk families through simulate_in_parallel, two chunks
+    def recorded(runner, name):
+        """Record each chunk's per-rep values of result ``name``."""
+        rows = []
+        make = runner._gen_bulk_kernel
+
+        def gen(params):
+            bulk = make(params)
+
+            def run(start, n):
+                out = bulk(start, n)
+                values = out[name][0] if isinstance(out[name], tuple) \
+                    else out[name]
+                rows.append((start, torch.as_tensor(values).cpu().numpy()))
+                return out
+
+            return run
+
+        runner._gen_bulk_kernel = gen
+        return rows
+
+    families = {
+        "mc_alamouti_prng": (lambda: sweep_runner(
+            AlamoutiMcKernelSimulationRunner(
+                tile=ALA_TILE, lane=ALA_LANE, num_tiles=ALA_TILES,
+                device=dev, read_command_line_args=False),
+            "SNR", [10.0], 2 * ALA_CHUNK, ALA_CHUNK), "bit_errors"),
+        "mc_bd_prng": (lambda: sweep_runner(
+            BDKernelCapacityRunner(
+                K=3, nr_u=2, tile=BD_TILE, lane=BD_LANE, num_tiles=BD_TILES,
+                device=dev, read_command_line_args=False),
+            "Pu_dB", [float(10 * np.log10(10.0 / 3))], 2 * BD_CHUNK,
+            BD_CHUNK), "sum_capacity"),
+        "mc_maxsinr_prng": (lambda: sweep_runner(
+            IaMcKernelSimulationRunner(
+                K=3, tile=IA_TILE, lane=IA_LANE, num_tiles=IA_TILES,
+                iterations=IA_ITERS, device=dev,
+                read_command_line_args=False),
+            "SNR", [10.0], 2 * IA_CHUNK, IA_CHUNK), "sum_capacity"),
+    }
+    for name, (make, result) in families.items():
+        serial, runner = make(), make()
+        serial_rows = recorded(serial, result)
+        rows = recorded(runner, result)
+        serial.simulate()
+        runner.mc.launch_count = 0
+        runner.mc.reference_count = 0
+        runner.simulate_in_parallel(mesh)
+        launches = runner.mc.launch_count
+        per_rep = len(rows) == len(serial_rows) and all(
+            a[0] == b[0] and np.array_equal(a[1], b[1])
+            for a, b in zip(rows, serial_rows))
+        values = [float(v) for v in
+                  runner.results.get_result_values_list(result)]
+        want = [float(v) for v in
+                serial.results.get_result_values_list(result)]
+        phase("parallel_families", kernel=name, result=result,
+              values=values, serial_values=want, per_rep_equal=per_rep,
+              reps=sum(len(r[1]) for r in rows), kernel_launches=launches,
+              chunks=runner.chunks_dispatched,
+              plain_calls=runner.mc.reference_count)
+        if not per_rep or values != want:
+            raise AssertionError(f"parallel_families {name}: "
+                                 "simulate_in_parallel != simulate()")
+        check_launches(f"parallel_families {name}", launches,
+                       runner.chunks_dispatched, runner.mc.reference_count)
+        extra[name] = {"parallel_launches": launches}
+
+    # 41. sharded PRNG builds: the 1-rank mesh, and the per-rank launches
+    # of 2- and 4-rank splits in this process, against the unsharded one
+    from pyphysim_tpu_torch.ops.alamouti_kernel import MonteCarloAlamouti
+    from pyphysim_tpu_torch.ops.bd_kernel import MonteCarloBD
+    from pyphysim_tpu_torch.ops.ia_kernel import MonteCarloMaxSinr
+    flag = flagship("float32", 1, 1).mc
+    flag16 = flagship("bfloat16", 1, 1).mc
+    builds = {
+        "mc_ofdm_tdl_prng": (flag, chunk, NUM_TILES, (77, 10 ** 1.5), 2),
+        "mc_ofdm_tdl_prng_bf16": (flag16, chunk, NUM_TILES,
+                                  (77, 10 ** 1.5), 2),
+        "mc_alamouti_prng": (MonteCarloAlamouti(tile=ALA_TILE, lane=ALA_LANE,
+                                                device=dev),
+                             ALA_CHUNK, ALA_TILES, (77, 10.0), 2),
+        "mc_bd_prng": (MonteCarloBD(tile=BD_TILE, lane=BD_LANE, K=3,
+                                    Nr_u=2, device=dev),
+                       BD_CHUNK, BD_TILES, (77,), 1),
+        "mc_maxsinr_prng": (MonteCarloMaxSinr(tile=IA_TILE, lane=IA_LANE,
+                                              iterations=IA_ITERS, K=3,
+                                              device=dev),
+                            IA_CHUNK, IA_TILES, (77, IA_NV), 2),
+    }
+    for name, (mc, reps, tiles, args, start_at) in builds.items():
+        start = 1000
+
+        def call(build, begin):
+            a = list(args)
+            a.insert(start_at, begin)
+            return build(*a)
+
+        whole = call(mc.build(reps, tiles), start)
+        one_rank = call(mc.build(reps, tiles, mesh=mesh), start)
+        splits = {k: torch.cat([call(mc.build(reps // k, tiles),
+                                     start + i * reps // k)
+                                for i in range(k)]) for k in (2, 4)}
+        torch.cuda.synchronize()
+        ok = {1: torch.equal(one_rank, whole),
+              **{k: torch.equal(v, whole) for k, v in splits.items()}}
+        phase("sharded_build", kernel=name, reps=reps, tiles=tiles,
+              start=start, bitwise_equal=compact(ok))
+        if not all(ok.values()):
+            raise AssertionError(f"sharded_build {name}: a split differs "
+                                 "from the unsharded launch")
+        # the mesh's gather ran at world size 1; the 2- and 4-rank splits
+        # are the ranks' launches in this process, which hold the stream
+        # contract only (bin/weak_scaling_curve_torch.py runs the gathers
+        # over several cards)
+        extra.setdefault(name, {}).update(sharded_parity=True,
+                                          sharded_world_sizes=[1],
+                                          stream_split_world_sizes=[2, 4])
+
+    # 42. the time-sharded channel through block_fir
+    from pyphysim_tpu_torch.channels import (COST259_TUx,
+                                             JakesSampleGenerator, TdlChannel)
+    from pyphysim_tpu_torch.ops import fir
+    from pyphysim_tpu_torch.parallel import corrupt_data_time_sharded
+    from pyphysim_tpu_torch.parallel.timeshard import corrupt_shard
+    block, blocks = fir_geometry()[0], TS_BLOCKS
+    channel = TdlChannel(JakesSampleGenerator(Fd=30.0, Ts=1 / 20e6, L=16,
+                                              device=dev), COST259_TUx)
+    g = torch.Generator(device=dev).manual_seed(42)
+    state = channel.init_state(g)
+    n = block * blocks
+    x = torch.randn(n, dtype=torch.complex64, device=dev, generator=g)
+    want, want_ir, _ = channel.corrupt_data(state, x, block_size=block)
+    want = want[:n]
+    time_mesh = make_mesh(axis_name="time")
+    fir.block_fir.launch_count = 0
+    fir.block_fir.reference_count = 0
+    got, ir, _ = corrupt_data_time_sharded(channel, state, x, block,
+                                           time_mesh)
+    torch.cuda.synchronize()
+    ts_launches = fir.block_fir.launch_count
+    ts_plain = fir.block_fir.reference_count
+    err = float((got - want).abs().max())
+    ir_err = float((ir.tap_values_sparse -
+                    want_ir.tap_values_sparse).abs().max())
+    # 4 shards in this process, the halos added as ranks 1-3 receive them
+    shards = [corrupt_shard(channel, state, x, block, i, 4)
+              for i in range(4)]
+    mains = [m for m, _, _ in shards]
+    for i in range(1, 4):
+        tail = shards[i - 1][1]
+        mains[i][:tail.shape[-1]] += tail
+    four = torch.cat(mains)
+    four_err = float((four - want).abs().max())
+    halo = channel.num_taps_with_padding - 1
+    n_local = n // 4
+    halo_err = max(float((four[i * n_local:i * n_local + halo] -
+                          want[i * n_local:i * n_local + halo]).abs().max())
+                   for i in range(1, 4))
+    phase("time_sharded_channel", card=repr(smi), samples=n, block=block,
+          blocks=blocks, max_abs_err_1_rank=err, max_abs_err_ir=ir_err,
+          max_abs_err_4_shards=four_err, max_abs_err_halos=halo_err,
+          limit=TS_ATOL, block_fir_launches=ts_launches,
+          block_fir_plain_calls=ts_plain)
+    if max(err, ir_err, four_err) > TS_ATOL or ts_launches != 1 or \
+            ts_plain != 0:
+        raise AssertionError("time_sharded_channel: off the unsharded "
+                             "corrupt_data, or not one block_fir launch")
+    extra["block_fir"] = {"time_sharded_launches": ts_launches,
+                          "time_sharded_max_abs_err": max(err, four_err)}
+    dist.destroy_process_group()
+    phase("parallel_seconds", phases_38_to_42=time.perf_counter() -
+          start_time)
+    return extra
 
 
 def flagship_phases(dev, smi, dtype):

@@ -165,12 +165,22 @@ class MonteCarloAlamouti:
     # Builders: the kernel on CUDA, the plain version on the CPU
     # ------------------------------------------------------------------
 
-    def build(self, reps: int, num_tiles: int):
+    def build(self, reps: int, num_tiles: int, mesh=None,
+              axis: str = "mc"):
         """``run(seed, snr_linear, start=0) -> (reps, num_tiles) int32``
         error counts on ``self.device``, every bit drawn from the Philox
         streams of attempts ``[start, start + reps)``. On CUDA the result
-        is returned without synchronising."""
+        is returned without synchronising.
+
+        ``mesh``: a ``DeviceMesh`` to split the rep axis over (``reps``
+        divisible by its ``axis`` size): rank ``i`` runs its ``reps /
+        size`` reps from ``start + i * reps / size`` and the rows are
+        all-gathered in rank order, bit for bit the unsharded call's."""
         _check_grid(reps, num_tiles)
+        if mesh is not None:
+            from ..parallel.mesh import shard_prng_build
+            return shard_prng_build(self.build, reps, num_tiles, mesh, axis,
+                                    start_arg=2)
 
         def run(seed: int, snr_linear: float, start: int = 0):
             amp = self.amp(snr_linear)
@@ -184,13 +194,21 @@ class MonteCarloAlamouti:
 
         return run
 
-    def build_inject(self, reps: int, num_tiles: int):
+    def build_inject(self, reps: int, num_tiles: int, mesh=None,
+                     axis: str = "mc"):
         """``run(ch_bits, d_bits, n1r, n1i, n2r, n2i, amp) ->
         (reps, num_tiles) int32`` with the randomness supplied in the JAX
         layout: ch (reps, >= 4, lane), the rest (reps, num_tiles * tile,
         lane). Numpy uint32 arrays are moved to ``self.device``; tensors
-        keep their device, which picks the route."""
+        keep their device, which picks the route.
+
+        ``mesh``: split the rep axis as in :meth:`build`; each rank takes
+        its rows of the bit tensors and the rows are all-gathered."""
         _check_grid(reps, num_tiles)
+        if mesh is not None:
+            from ..parallel.mesh import shard_inject_build
+            return shard_inject_build(self.build_inject, reps, num_tiles,
+                                      mesh, axis, num_bits=6)
 
         def run(ch_bits, d_bits, n1r, n1i, n2r, n2i, amp):
             bits = [_as_bits(b, self.device)

@@ -271,13 +271,23 @@ class MonteCarloBD:
     # Builders: the kernel on CUDA, the plain version on the CPU
     # ------------------------------------------------------------------
 
-    def build(self, reps: int, num_tiles: int):
+    def build(self, reps: int, num_tiles: int, mesh=None,
+              axis: str = "mc"):
         """``run(seed, start=0, iPu=None, noise_var=None) -> (reps,
         num_tiles) float32`` capacity sums on ``self.device``, the channels
         drawn from the Philox streams of attempts ``[start, start + reps)``
         (``iPu`` / ``noise_var`` default to the constructor's). On CUDA the
-        result is returned without synchronising."""
+        result is returned without synchronising.
+
+        ``mesh``: a ``DeviceMesh`` to split the rep axis over (``reps``
+        divisible by its ``axis`` size): rank ``i`` runs its ``reps /
+        size`` reps from ``start + i * reps / size`` and the rows are
+        all-gathered in rank order, bit for bit the unsharded call's."""
         _check_grid(reps, num_tiles)
+        if mesh is not None:
+            from ..parallel.mesh import shard_prng_build
+            return shard_prng_build(self.build, reps, num_tiles, mesh, axis,
+                                    start_arg=1)
 
         def run(seed: int, start: int = 0, iPu: Optional[float] = None,
                 noise_var: Optional[float] = None):
@@ -291,13 +301,21 @@ class MonteCarloBD:
 
         return run
 
-    def build_inject(self, reps: int, num_tiles: int):
+    def build_inject(self, reps: int, num_tiles: int, mesh=None,
+                     axis: str = "mc"):
         """``run(ch_bits, iPu=None, noise_var=None) -> (reps, num_tiles)
         float32`` with the channel bits in the JAX layout (reps,
         num_tiles * tile, num_planes * lane). A numpy uint32 array is moved
         to ``self.device``; a tensor keeps its device, which picks the
-        route."""
+        route.
+
+        ``mesh``: split the rep axis as in :meth:`build`; each rank takes
+        its rows of the bit tensors and the rows are all-gathered."""
         _check_grid(reps, num_tiles)
+        if mesh is not None:
+            from ..parallel.mesh import shard_inject_build
+            return shard_inject_build(self.build_inject, reps, num_tiles,
+                                      mesh, axis, num_bits=1)
         want = (reps, num_tiles * self.tile, self.num_planes * self.lane)
 
         def run(ch_bits, iPu: Optional[float] = None,

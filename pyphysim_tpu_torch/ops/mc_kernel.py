@@ -380,13 +380,25 @@ class MonteCarloOfdmTdl:
     # Builders: the kernel on CUDA, the plain version on the CPU
     # ------------------------------------------------------------------
 
-    def build(self, reps: int, num_tiles: int):
+    def build(self, reps: int, num_tiles: int, mesh=None,
+              axis: str = "mc"):
         """``run(seed, snr_linear, start=0) -> (reps, num_tiles) int32``
         error counts on ``self.device``, with every bit drawn from the
         Philox streams of attempts ``[start, start + reps)``. Symbols
         simulated per call: ``reps * num_tiles * tile * used``. On CUDA
-        the result is returned without synchronising."""
+        the result is returned without synchronising.
+
+        ``mesh``: a ``DeviceMesh`` to split the rep axis over (``reps``
+        divisible by its ``axis`` size). Rank ``i`` runs the same call on
+        its ``reps / size`` reps from ``start + i * reps / size`` and the
+        counts are all-gathered in rank order, so every rank holds all
+        ``reps`` rows, bit for bit those of the unsharded call (the
+        absolute-attempt stream contract)."""
         self._check_grid(reps, num_tiles)
+        if mesh is not None:
+            from ..parallel.mesh import shard_prng_build
+            return shard_prng_build(self.build, reps, num_tiles, mesh, axis,
+                                    start_arg=2)
 
         def run(seed: int, snr_linear: float, start: int = 0):
             amp = self.amp(snr_linear)
@@ -400,14 +412,23 @@ class MonteCarloOfdmTdl:
 
         return run
 
-    def build_inject(self, reps: int, num_tiles: int):
+    def build_inject(self, reps: int, num_tiles: int, mesh=None,
+                     axis: str = "mc"):
         """``run(phase_bits, data_bits, n1_bits, n2_bits, amp) ->
         (reps, num_tiles) int32`` with the randomness supplied in the JAX
         layout: phase bits (reps, 8, TLp), data/noise bits
         (reps, num_tiles * tile, used_p) (any widths >= TL / used do).
         Numpy uint32 arrays are moved to ``self.device``; tensors keep
-        their device, which picks the route."""
+        their device, which picks the route.
+
+        ``mesh``: split the rep axis as in :meth:`build`; each rank takes
+        its rows of the bit tensors (they carry the absolute attempts, so
+        no offset is needed) and the counts are all-gathered."""
         self._check_grid(reps, num_tiles)
+        if mesh is not None:
+            from ..parallel.mesh import shard_inject_build
+            return shard_inject_build(self.build_inject, reps, num_tiles,
+                                      mesh, axis, num_bits=4)
 
         def run(phase_bits, data_bits, n1_bits, n2_bits, amp):
             bits = [_as_bits(b, self.device)

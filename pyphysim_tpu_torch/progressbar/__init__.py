@@ -1,6 +1,9 @@
 """Progress display (layer: observability)."""
 
 from .progressbar import (DummyProgressbar, ProgressBarBase,  # noqa: F401
-                          ProgressbarText, ProgressbarText2,
-                          ProgressbarText3, ProgressbarTextBase,
-                          center_message)
+                          ProgressbarDistributedClientBase,
+                          ProgressbarDistributedServerBase,
+                          ProgressbarMultiProcessClient,
+                          ProgressbarMultiProcessServer, ProgressbarText,
+                          ProgressbarText2, ProgressbarText3,
+                          ProgressbarTextBase, center_message)

@@ -1,17 +1,22 @@
-"""Local text progress bars.
+"""Text progress bars and the same-host progress server.
 
-Counterpart of the text bars of ``pyphysim_tpu/progressbar/progressbar.py``:
+Counterpart of ``pyphysim_tpu/progressbar/progressbar.py``:
   * :class:`ProgressBarBase` — count -> percent, elapsed/ETA, 0.1 s display
     throttle,
   * :class:`ProgressbarText` / 2 / 3 — terminal styles,
-  * :class:`DummyProgressbar` — the no-op bar.
+  * :class:`DummyProgressbar` — the no-op bar,
+  * :class:`ProgressbarMultiProcessServer` — one bar for many clients (the
+    runners of ``simulate_do_what_i_mean``'s list mode), whose proxies
+    write their counts into a managed list that a render thread sums.
 
-The IPython, multiprocess and ZMQ bars are not ported yet.
+The IPython and ZMQ bars are not ported yet.
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import sys
+import threading
 import time
 from typing import Any, Optional
 
@@ -19,7 +24,9 @@ from ..utils.misc import pretty_time
 
 __all__ = ["center_message", "DummyProgressbar", "ProgressBarBase",
            "ProgressbarTextBase", "ProgressbarText", "ProgressbarText2",
-           "ProgressbarText3"]
+           "ProgressbarText3", "ProgressbarDistributedServerBase",
+           "ProgressbarDistributedClientBase",
+           "ProgressbarMultiProcessServer", "ProgressbarMultiProcessClient"]
 
 
 def center_message(message: str, length: int = 50, fill_char: str = " ",
@@ -228,3 +235,129 @@ class ProgressbarText3(ProgressbarTextBase):
             self._output.flush()
         except Exception:
             pass
+
+
+# ---------------------------------------------------------------------------
+# Progress server: one bar for many clients
+# ---------------------------------------------------------------------------
+
+
+class ProgressbarDistributedServerBase:
+    """Server + proxy model: each client gets a proxy bar that reports its
+    count to the server; a daemon thread sums the registered clients'
+    counts and renders one text bar of the total."""
+
+    def __init__(self, progresschar: str = "*", message: str = "",
+                 sleep_time: float = 0.2, style=ProgressbarText2) -> None:
+        self._progresschar = progresschar
+        self._message = message
+        self._sleep_time = float(sleep_time)
+        self._style = style
+        self._total_final_count = 0
+        self._client_counts: Any = []
+        self._update_thread: Optional[threading.Thread] = None
+        self._stop_event = threading.Event()
+        self._bar: Optional[ProgressBarBase] = None
+
+    def _get_total_count(self) -> int:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def register_client_and_get_proxy_progressbar(self, total_count: int):
+        raise NotImplementedError  # pragma: no cover
+
+    @property
+    def total_final_count(self) -> int:
+        return self._total_final_count
+
+    @property
+    def finalcount(self) -> int:
+        """Alias of ``total_final_count``."""
+        return self._total_final_count
+
+    @property
+    def is_running(self) -> bool:
+        """Whether the render thread is alive."""
+        return (self._update_thread is not None
+                and self._update_thread.is_alive())
+
+    @property
+    def num_clients(self) -> int:
+        return len(self._client_counts)
+
+    def start_updater(self) -> None:
+        """Start the daemon render thread (it ends by itself once the
+        total reaches the final count)."""
+        if self._update_thread is not None:
+            return
+        self._bar = self._style(self._total_final_count,
+                                self._progresschar, self._message)
+        self._stop_event.clear()
+
+        def run() -> None:
+            while not self._stop_event.is_set():
+                count = self._get_total_count()
+                self._bar.progress(count)
+                if count >= self._total_final_count:
+                    break
+                self._stop_event.wait(self._sleep_time)
+
+        self._update_thread = threading.Thread(target=run, daemon=True)
+        self._update_thread.start()
+
+    def stop_updater(self, timeout: Optional[float] = 2.0) -> None:
+        self._stop_event.set()
+        if self._update_thread is not None:
+            self._update_thread.join(timeout)
+            self._update_thread = None
+
+
+class ProgressbarMultiProcessServer(ProgressbarDistributedServerBase):
+    """Same-host progress server over a ``multiprocessing`` managed list:
+    its proxies may live in this process's threads or in other processes
+    of the host. :meth:`close` ends the manager's process."""
+
+    def __init__(self, progresschar: str = "*", message: str = "",
+                 sleep_time: float = 0.2, style=ProgressbarText2) -> None:
+        super().__init__(progresschar, message, sleep_time, style)
+        self._manager = multiprocessing.get_context("spawn").Manager()
+        self._client_counts = self._manager.list()
+
+    def register_client_and_get_proxy_progressbar(self, total_count: int):
+        client_id = len(self._client_counts)
+        self._client_counts.append(0)
+        self._total_final_count += int(total_count)
+        return ProgressbarMultiProcessClient(client_id, self._client_counts)
+
+    def _get_total_count(self) -> int:
+        return int(sum(self._client_counts))
+
+    def close(self) -> None:
+        """Stop the render thread and the manager's process."""
+        self.stop_updater()
+        self._manager.shutdown()
+
+
+class ProgressbarDistributedClientBase:
+    """Base of the client-side proxies: a picklable callable that reports
+    a count to the server."""
+
+    def __init__(self, client_id: int) -> None:
+        self.client_id = int(client_id)
+
+    def progress(self, count: int) -> None:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def __call__(self, count: int) -> None:
+        self.progress(count)
+
+
+class ProgressbarMultiProcessClient(ProgressbarDistributedClientBase):
+    """A proxy of :class:`ProgressbarMultiProcessServer`: writes its count
+    into the server's managed list."""
+
+    def __init__(self, client_id: int, client_counts) -> None:
+        super().__init__(client_id)
+        self._client_counts = client_counts
+
+    def progress(self, count: int) -> None:
+        self._client_counts[self.client_id] = int(count)

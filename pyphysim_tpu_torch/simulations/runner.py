@@ -31,7 +31,14 @@ checkpoint/resume and progress tracking, with three execution paths:
 The per-key and bulk paths share the attempt cursor (accepted plus
 skipped attempts, so a resume continues the stream sequence), the
 ``__valid__`` skip-and-retry and the Result accounting
-(``_consume_chunk``). ``simulate_in_parallel`` is not ported yet.
+(``_consume_chunk``).
+
+``simulate_in_parallel`` runs the same sweep with each chunk's attempts
+split over a ``torch.distributed`` device mesh (``parallel/mesh.py``): every
+rank of the group runs the runner, computes its contiguous shard of the
+chunk from its own absolute attempt, and the shards are all-gathered, so
+every rank keeps the same Results (the per-key path here, the bulk
+kernels through their ``mesh=`` builds). Only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -148,6 +155,55 @@ def _to_host(value):
     return np.asarray(value)
 
 
+class _OffsetProgressProxy:
+    """A variation's repetition count mapped into a runner-wide count on a
+    shared progress server's proxy."""
+
+    def __init__(self, proxy, offset: int) -> None:
+        self._proxy = proxy
+        self._offset = int(offset)
+
+    def progress(self, count: int) -> None:
+        self._proxy.progress(self._offset + int(count))
+
+
+def _gather_outputs(mesh, axis: str, out: Dict[str, Any], n_local: int,
+                    device) -> Dict[str, Any]:
+    """A per-key kernel's outputs for this rank's shard (``n_local`` rows
+    each: a tensor, an array, or a ``(values, totals)`` pair) as every
+    rank's rows, in rank order: the outputs' bytes packed side by side
+    into one buffer, one all-gather of it. A scalar total is the same
+    for every attempt of a call and stays a scalar, as it is unsharded."""
+    import torch
+    from ..parallel.mesh import gather_rows
+    leaves = []          # (name, index in a pair or None, tensor)
+    for name, value in out.items():
+        parts = value if isinstance(value, tuple) else (value,)
+        for i, v in enumerate(parts):
+            t = v if isinstance(v, torch.Tensor) else \
+                torch.as_tensor(np.asarray(v))
+            if t.dim() > 0:
+                leaves.append((name, i if isinstance(value, tuple) else None,
+                               t.to(device).contiguous()))
+    packed = gather_rows(mesh, axis, torch.cat(
+        [t.reshape(n_local, -1).view(torch.uint8) for _, _, t in leaves],
+        dim=1))
+    gathered = {name: list(v) if isinstance(v, tuple) else v
+                for name, v in out.items()}
+    column = 0
+    for name, i, t in leaves:
+        width = t[:1].numel() * t.element_size()
+        rows = packed[:, column:column + width].contiguous().view(t.dtype)
+        column += width
+        rows = rows.reshape((packed.shape[0],) + tuple(t.shape[1:]))
+        if i is None:
+            gathered[name] = rows
+        else:
+            gathered[name][i] = rows
+    return {name: tuple(v) if isinstance(v, list) else v
+            for name, v in gathered.items()}
+
+
 def _host_outputs(out, n: int):
     """A chunk's outputs as host numpy arrays, each ``(n, ...)``: waits
     for queued copies and broadcasts a scalar RATIOTYPE total."""
@@ -205,6 +261,12 @@ class SimulationRunner:
 
         # Bulk and per-key execution
         self.batch_size: Optional[int] = None  # auto if None
+        # the device mesh of a sweep under simulate_in_parallel (None
+        # otherwise) and its axis that chunks are split over
+        self.mesh: Any = None
+        self.mesh_axis = "mc"
+        # a shared progress server's proxy (simulationhelpers' list mode)
+        self.external_progress_proxy: Any = None
         # the device the per-key path draws its attempt streams on (the
         # apps set their own; the serial and bulk paths do not read it)
         self.device: Any = "cuda"
@@ -281,7 +343,13 @@ class SimulationRunner:
         ``batch_stop_criterion`` set it comes from the fixed 4-entry
         ladder (batch, batch/2, /4, /8), so a kernel that caches one
         compiled program per ``n`` builds at most 4. Return None (default)
-        to use the serial path."""
+        to use the serial path.
+
+        While :meth:`simulate_in_parallel` runs, ``self.mesh`` is the
+        device mesh: ``n`` is then a multiple of its ``mesh_axis`` size, and
+        the kernel splits its rep axis over it (the Monte Carlo kernels'
+        ``build(..., mesh=self.mesh)``), every rank returning all ``n``
+        rows."""
         return None
 
     # noinspection PyUnusedLocal
@@ -438,6 +506,10 @@ class SimulationRunner:
 
     def _get_progress_bar(self, variation_index: int, num_variations: int,
                           rep_max: int, current_params=None):
+        if self.external_progress_proxy is not None:
+            # one proxy covers the runner; variations are offset into it
+            return _OffsetProgressProxy(self.external_progress_proxy,
+                                        variation_index * rep_max)
         from ..progressbar import (DummyProgressbar, ProgressbarText,
                                    ProgressbarText2, ProgressbarText3)
         styles = {"text1": ProgressbarText, "text2": ProgressbarText2,
@@ -519,6 +591,89 @@ class SimulationRunner:
         if filename is not None and self._is_primary_host():
             self.results.save_to_file(filename)
         self.__delete_partial_results_maybe()
+
+    def simulate_in_parallel(self, mesh=None, block: bool = True) -> None:
+        """Run the sweep with each chunk's attempts split over a device mesh.
+
+        Every rank of the process group calls this on its own copy of the
+        runner. ``mesh``: a ``DeviceMesh`` with the axis ``mesh_axis``
+        (default: ``parallel.make_mesh`` over every rank, on
+        ``self.device``'s type, which starts a world-size-1 group when none
+        is up); its device type must be ``self.device``'s. Chunks are
+        rounded to a multiple of the axis size; each rank computes its
+        contiguous shard and the shards are all-gathered, so every rank
+        holds the same Results, equal to :meth:`simulate`'s on the same
+        chunks. ``self.mesh`` is set for the sweep and reset after it.
+
+        ``block=False`` returns at once with the sweep running on a thread
+        (on this thread's CUDA device and current stream);
+        :meth:`wait_parallel_simulation` joins it and re-raises its error.
+        Do not read ``self.results`` before the wait returns. A second call
+        while a sweep is running raises ``RuntimeError``.
+        """
+        from .._device import require_cuda
+        thread = getattr(self, "_parallel_thread", None)
+        if thread is not None:
+            if thread.is_alive():
+                raise RuntimeError(
+                    "An asynchronous sweep is already running on this "
+                    "runner; call wait_parallel_simulation() first")
+            self.wait_parallel_simulation()   # a finished one: surface it
+        device = require_cuda(self.device)
+        if mesh is None:
+            from ..parallel.mesh import make_mesh
+            mesh = make_mesh(axis_name=self.mesh_axis, device=device.type)
+        if mesh.device_type != device.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot run a "
+                             f"runner on {device}")
+        self.mesh = mesh
+
+        def sweep() -> None:
+            try:
+                self.simulate()
+            finally:
+                self.mesh = None
+
+        if block:
+            sweep()
+            return
+
+        import threading
+
+        import torch
+        # a new thread starts on device 0's default stream: carry this
+        # thread's device and current stream over
+        stream = (torch.cuda.current_stream(device)
+                  if device.type == "cuda" else None)
+
+        def run_async() -> None:
+            try:
+                if stream is None:
+                    sweep()
+                    return
+                torch.cuda.set_device(stream.device)
+                with torch.cuda.stream(stream):
+                    sweep()
+            except BaseException as exc:  # re-raised by the wait
+                self._parallel_error = exc
+
+        self._parallel_error = None
+        self._parallel_thread = threading.Thread(
+            target=run_async, name="simulate_in_parallel", daemon=True)
+        self._parallel_thread.start()
+
+    def wait_parallel_simulation(self) -> None:
+        """Wait for a sweep started with ``simulate_in_parallel(block=
+        False)``: join its thread, then re-raise any error it hit. A no-op
+        when no such sweep was started."""
+        thread = getattr(self, "_parallel_thread", None)
+        if thread is None:
+            return
+        thread.join()
+        self._parallel_thread = None
+        err = self.__dict__.pop("_parallel_error", None)
+        if err is not None:
+            raise err
 
     # ------------------------------------------------------------------
     # Per-variation execution
@@ -630,11 +785,17 @@ class SimulationRunner:
         return self._round_chunk(bsize)
 
     def _chunk_quantum(self) -> int:
-        """Chunk sizes are a multiple of this: the early-stop sub-chunk
-        count when a stop criterion is set (whole sub-chunks are gated)."""
+        """Chunk sizes are a multiple of this: the mesh axis size under
+        :meth:`simulate_in_parallel` (even shards) times the early-stop
+        sub-chunk count when a stop criterion is set (whole sub-chunks are
+        gated)."""
+        q = 1
+        if self.mesh is not None:
+            q *= int(self.mesh.size(
+                self.mesh.mesh_dim_names.index(self.mesh_axis)))
         if self.batch_stop_criterion is not None:
-            return max(int(self.num_stop_subchunks), 1)
-        return 1
+            q *= max(int(self.num_stop_subchunks), 1)
+        return q
 
     def _round_chunk(self, n: int) -> int:
         q = self._chunk_quantum()
@@ -718,11 +879,25 @@ class SimulationRunner:
         far, summed in float32) is below the limit: the rule of the JAX
         package's device ``scan``. Here the sum is read on the host after
         each sub-chunk, one device synchronisation per sub-chunk; the rows
-        of sub-chunks that did not run are zeros and inactive."""
+        of sub-chunks that did not run are zeros and inactive.
+
+        Under a mesh every (sub-)chunk is split over ``mesh_axis``: rank
+        ``r`` runs the kernel on the streams of attempts ``[start + r *
+        n_local, start + (r + 1) * n_local)`` and every output is
+        all-gathered, so each rank reads the same metric and takes the same
+        continue / stop decision."""
         from ..ops.streams import AttemptStreams
+        mesh, axis = self.mesh, self.mesh_axis
 
         def run(start: int, n: int):
-            return kernel(AttemptStreams.from_range(seed, start, n, device))
+            if mesh is None:
+                return kernel(AttemptStreams.from_range(seed, start, n,
+                                                        device))
+            from ..parallel.mesh import shard_rows
+            index, n_local = shard_rows(mesh, axis, n)
+            out = kernel(AttemptStreams.from_range(
+                seed, start + index * n_local, n_local, device))
+            return _gather_outputs(mesh, axis, out, n_local, device)
 
         if self.batch_stop_criterion is None:
             def executor(cursor, nk, prior_metric):

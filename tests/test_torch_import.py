@@ -119,6 +119,19 @@ MIMO_MODULES = [
 ]
 SLICE_MODULES += [m for m in MIMO_MODULES if m not in SLICE_MODULES]
 
+PARALLEL_MODULES = [
+    "pyphysim_tpu_torch.parallel.mesh",
+    "pyphysim_tpu_torch.parallel.timeshard",
+    "pyphysim_tpu_torch.parallel.launch",
+    "pyphysim_tpu_torch.parallel",
+    "pyphysim_tpu_torch.simulations.simulationhelpers",
+    "apps.awgn_modulators.simulate_psk_torch",
+    "apps.awgn_modulators.simulate_bpsk_torch",
+    "apps.awgn_modulators.simulate_qam_torch",
+    "apps.awgn_modulators.simulate_parallel_psk_torch",
+]
+SLICE_MODULES += PARALLEL_MODULES
+
 
 def _run(code: str) -> str:
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -145,7 +158,7 @@ def test_slice_modules_import_neither_jax_nor_triton():
 
 
 @pytest.mark.parametrize("name", IA_MODULES + COMP_BD_MODULES +
-                         MIMO_MODULES)
+                         MIMO_MODULES + PARALLEL_MODULES)
 def test_ia_module_names_neither_jax_nor_the_jax_package(name):
     """The IA, comp_BD and MIMO channel slices' sources import nothing of
     jax or pyphysim_tpu (the interpreter-level check is
@@ -162,6 +175,32 @@ def test_ia_module_names_neither_jax_nor_the_jax_package(name):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
     assert not roots & {"jax", "jaxlib", "pyphysim_tpu", "triton"}, roots
+
+
+def _load_weak_scaling_script():
+    """``bin/weak_scaling_curve_torch.py`` as a module, loaded from its
+    path (``bin/`` is no package: a site package takes the name)."""
+    import importlib.util
+    path = os.path.join(REPO, "bin", "weak_scaling_curve_torch.py")
+    spec = importlib.util.spec_from_file_location("weak_scaling_curve_torch",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_weak_scaling_script_imports_neither_jax_nor_triton():
+    """``bin/`` is no package (a site package takes the name), so the
+    script is loaded from its path."""
+    path = os.path.join(REPO, "bin", "weak_scaling_curve_torch.py")
+    code = ("import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('w', {path!r})\n"
+            "mod = importlib.util.module_from_spec(spec)\n"
+            "spec.loader.exec_module(mod)\n"
+            "import pyphysim_tpu_torch.parallel.launch\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'triton', 'pyphysim_tpu')))\n")
+    assert _run(code).strip() == "[]"
 
 
 def test_kernel_module_imports_without_building():
@@ -208,12 +247,22 @@ def test_cuda_request_raises_without_cuda(monkeypatch):
     from apps.simple_precoded_srs_torch import run as srs_run
     from pyphysim_tpu_torch.channels import (MuChannel, MuMimoChannel,
                                              SuChannel, SuMimoChannel)
+    from apps.awgn_modulators.simulate_bpsk_torch import \
+        VerySimpleBpskSimulationRunner
+    from apps.awgn_modulators.simulate_psk_torch import \
+        VerySimplePskSimulationRunner
+    from apps.awgn_modulators.simulate_qam_torch import \
+        VerySimpleQamSimulationRunner
+    from pyphysim_tpu_torch.parallel import (init_multihost,
+                                             make_host_chip_mesh, make_mesh)
     runners = (OfdmMcKernelSimulationRunner, AlamoutiMcKernelSimulationRunner,
                MimoSimulationRunner, BatchedBDCapacityRunner,
                BDKernelCapacityRunner, IaMcKernelSimulationRunner,
                StreamSelectionRunner, BDSimulationRunner,
                CompBDSimulationRunner, MuMimoInterferenceRunner,
-               EstimationSweepRunner, IAStreamSelSimulationRunner)
+               EstimationSweepRunner, IAStreamSelSimulationRunner,
+               VerySimplePskSimulationRunner, VerySimpleBpskSimulationRunner,
+               VerySimpleQamSimulationRunner)
     for make in (lambda: require_cuda("cuda"),
                  lambda: require_cuda(torch.device("cuda", 0)),
                  lambda: OFDM(64, 8, 32, device="cuda"),
@@ -228,6 +277,8 @@ def test_cuda_request_raises_without_cuda(monkeypatch):
                  lambda: SuChannel(), lambda: SuMimoChannel(2),
                  lambda: MuChannel(3), lambda: MuMimoChannel(2, 2, 2),
                  lambda: srs_run(),
+                 lambda: make_mesh(), lambda: make_host_chip_mesh(),
+                 lambda: init_multihost("localhost:1", 1, 0),
                  lambda: ClosedFormSimulationRunner(
                      "none", read_command_line_args=False),
                  lambda: MaxSINRSimulationRunner(
@@ -248,7 +299,7 @@ def test_default_ofdm_raises_without_a_card():
         OFDM(512, 52, 300)
 
 
-def test_public_entry_points_default_to_the_card():
+def test_public_entry_points_default_to_the_card(monkeypatch):
     from apps.comp_BD.batched_bd_capacity_torch import (
         BatchedBDCapacityRunner, BDKernelCapacityRunner)
     from apps.mimo.alamouti_mc_kernel_torch import \
@@ -324,10 +375,26 @@ def test_public_entry_points_default_to_the_card():
         simulate_ia_torch.main_simulate,
         simulate_greedy_ia_torch.IAStreamSelSimulationRunner,
         MuMimoInterferenceRunner, EstimationSweepRunner]
+    from apps.awgn_modulators import (simulate_bpsk_torch,
+                                      simulate_psk_torch, simulate_qam_torch)
+    from pyphysim_tpu_torch import parallel
+    entry_points += [
+        simulate_psk_torch.VerySimplePskSimulationRunner,
+        simulate_bpsk_torch.VerySimpleBpskSimulationRunner,
+        simulate_qam_torch.VerySimpleQamSimulationRunner, parallel.make_mesh,
+        parallel.make_host_chip_mesh, parallel.init_multihost]
+    weak = _load_weak_scaling_script()
+    entry_points += [weak.curve]
     for fn in entry_points:
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", f"{fn.__qualname__} defaults to {default}"
     assert SimulationRunner(read_command_line_args=False).device == "cuda"
+    assert weak.parse_args([]).device == "cuda"
+    assert weak.parse_args(["--device", "cpu"]).device == "cpu"
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        weak.main([])        # asks for the card, and there is none
 
 
 @pytest.mark.parametrize("module, names", [
@@ -342,6 +409,13 @@ def test_public_entry_points_default_to_the_card():
       "MuMimoChannel", "jakes_state_from_numpy"]),
     ("pyphysim_tpu_torch.channels.fading",
      ["TdlMimoChannel", "tdl_filter_block_fft_mimo"]),
+    ("pyphysim_tpu_torch.parallel",
+     ["make_mesh", "make_host_chip_mesh", "shard_batch", "init_multihost",
+      "corrupt_data_time_sharded"]),
+    ("pyphysim_tpu_torch.progressbar",
+     ["ProgressbarMultiProcessServer", "ProgressbarMultiProcessClient",
+      "ProgressbarDistributedServerBase",
+      "ProgressbarDistributedClientBase"]),
 ])
 def test_new_names_are_exported(module, names):
     import importlib
@@ -364,6 +438,8 @@ def test_new_methods_exist():
         assert callable(getattr(Modulator, name))
     assert callable(PSK.setPhaseOffset)
     assert callable(SimulationRunner.clear)
+    for name in ("simulate_in_parallel", "wait_parallel_simulation"):
+        assert callable(getattr(SimulationRunner, name))
     for cls in (JakesSampleGenerator, RayleighSampleGenerator):
         assert issubclass(cls, FadingSampleGenerator)
         for name in ("get_similar_fading_generator", "set_seed",
