@@ -58,6 +58,15 @@ against its plain PyTorch version on the card:
     time-sharded TDL channel through ``block_fir`` against the unsharded
     ``corrupt_data``, also as 4 shards with their halos added in this
     process (``time_sharded_channel``).
+  * the last apps (phases 43-46, ``app_phases``): the Grassmannian
+    codebook search (``apps/find_codebook_torch.py``) at its CLI defaults
+    and at G(4, 2), K = 64 in each codebook type (``find_codebook``);
+    the quantized-CSI Max-SINR IA app at its defaults
+    (``maxsinr_quantized``); the METIS scenario-2 drops
+    (``metis_scenario2``); the three host IA solvers of the feasibility
+    app at 4x4 (``ia_feasibility``); each on the card against the CPU on
+    the same Philox draws, with its rates, its launches and the device's
+    busy time and share from a ``torch.profiler`` trace.
 
 One line per phase; any failure raises and the script exits non-zero.
 There is no CPU fallback: without a CUDA device it fails before printing
@@ -158,6 +167,25 @@ max_bit_errors = 1000000
 unpacked_parameters = SNR, max_iterations, initialize_with
 rep_max = 8
 """
+# the last apps (phases 43-46): the codebook search's CLI defaults and the
+# larger G(4, 2) searches, one a codebook type
+CB_DEFAULT = dict(Nt=3, Ns=1, K=16, rep_max=10000, batch=256)
+CB_LARGE = dict(Nt=4, Ns=2, K=64, rep_max=65536, batch=2048)
+CB_CPU_REPS = 4096                  # candidates scored on both routes
+CB_HOST_TOL = 1e-3                  # vs float64 numpy (tests/test_apps.py)
+CB_CPU_TOL = 1e-5                   # card vs CPU best distance
+QIA_ARGS = dict(reps=300, codebook_size=512, snr=15.0, nsymbs=50)
+# card vs CPU bit flips: the streams' normals differ by a few ulps
+# (ROADMAP property 8); on the CPU a 3-ulp change of the channels moves
+# no decision in 45,000 bits, so 0.1 % of the bits is a wide margin
+QIA_FLIP_SHARE = 1e-3
+METIS_DROPS = ((100, 0), (10000, 1))  # (users, seed) at 12 rooms, dec. 2
+METIS_RTOL = 1e-4                   # card vs CPU SINR and capacity
+# the host IA solvers are numpy on both routes; only the channel's
+# normals differ (a few ulps), which moved the capacities by <= 2.2e-7
+# relative and the leakage by <= 5e-10 on the CPU
+FEAS_CAP_RTOL = 1e-4
+FEAS_COST_ATOL = 1e-6
 GREEDY_APP_CONFIG = """[Grid]
 cell_radius = 1.0
 num_cells = 3
@@ -410,6 +438,7 @@ def main() -> int:
     fir_entry.update(mimo)
 
     parallel = parallel_phases(dev, smi)
+    fill_entry["launches"] += app_phases(dev, smi)
     entries = [*mc_entries, *phases_8_to_12, *phases_13_to_19,
                phases_20_to_26]
     for entry in entries:
@@ -2432,6 +2461,241 @@ def mimo_phases(dev, smi):
             "mimo_bound_by": fir_bound_by, "mimo_plain_ms": plain_ms,
             "mimo_library_ms": conv_ms, "mimo_fft_route_ms": routes["fft"],
             "mimo_kernel_route_ms": routes["kernel"]}
+
+
+def fill_counts():
+    """(fill launches, plain draws) of ``philox_draw`` since its counts
+    were last set to 0."""
+    from pyphysim_tpu_torch.ops.streams import philox_draw
+    return philox_draw.launch_count, philox_draw.reference_count
+
+
+def reset_fill_counts():
+    from pyphysim_tpu_torch.ops.streams import philox_draw
+    philox_draw.launch_count = 0
+    philox_draw.reference_count = 0
+
+
+def timed(fn):
+    """``(fn(), seconds)`` on the host clock, the device synchronized on
+    both sides."""
+    import torch
+    torch.cuda.synchronize()
+    tic = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - tic
+
+
+def device_ms(events, repeat):
+    """Device time a call, in ms, of the kernels and copies among the
+    ``trace`` events of ``repeat`` calls."""
+    return sum(t for _, t, _ in events) / repeat / 1e3
+
+
+def codebook_search(dev, smi, name, ctype, Nt, Ns, K, rep_max, batch):
+    """One search of ``rep_max`` candidates on the card: its best distance
+    against the float64 host distance, the Rankin simplex bound and the
+    CPU route on the first ``CB_CPU_REPS`` candidates; its rate, its
+    launches a batch and the device's busy time a batch. Returns the fill
+    launches of the timed search."""
+    from apps.find_codebook_torch import CodebookFinder
+    from profile_chain_torch import kernels, trace
+
+    def finder(device):
+        return CodebookFinder(Nt, Ns, K, ctype, prng_seed=0, batch=batch,
+                              device=device)
+
+    tic = time.perf_counter()
+    f = finder(dev)
+    f.search(batch)                                   # warm-up
+    f = finder(dev)
+    reset_fill_counts()
+    (best_d2, best_C), seconds = timed(lambda: f.search(rep_max))
+    fills, plain = fill_counts()
+    check_launches(f"{name} fill", fills, f.candidates_scored // batch,
+                   plain)
+    d = float(best_d2) ** 0.5
+    host_d, _ = CodebookFinder.calc_min_chordal_dist(
+        best_C.cpu().numpy().astype(complex))
+    rankin = Ns * (Nt - Ns) / Nt * K / (K - 1)
+    n = min(CB_CPU_REPS, rep_max)
+    card_d2 = float(finder(dev).search(n)[0])
+    cpu_d2 = float(finder("cpu").search(n)[0])
+    events, _ = trace(lambda: finder(dev).search(batch), repeat=3)
+    per_batch = kernels(events, repeat=3)
+    busy_ms = device_ms(events, repeat=3)
+    batch_ms = seconds * 1e3 * batch / f.candidates_scored
+    phase("find_codebook", case=name, type=f.type, Nt=Nt, Ns=Ns, K=K,
+          candidates=f.candidates_scored, batch=batch, best_dist=d,
+          host_float64_dist=host_d, rankin_d2=rankin, best_d2=float(best_d2),
+          cpu_candidates=n, card_vs_cpu_dist=abs(card_d2 ** 0.5 -
+                                                  cpu_d2 ** 0.5),
+          seconds=seconds, codebooks_per_s=f.candidates_scored / seconds,
+          launches_a_batch=per_batch, ms_a_batch=batch_ms,
+          device_busy_ms_a_batch=busy_ms,
+          device_busy_share=busy_ms / batch_ms, fill_launches=fills,
+          card=repr(smi),
+          phase_seconds=time.perf_counter() - tic)
+    if not abs(d - host_d) <= CB_HOST_TOL:
+        raise AssertionError(f"find_codebook {name}: device {d} vs host "
+                             f"{host_d}")
+    if not 0.0 < float(best_d2) <= rankin + 1e-6:
+        raise AssertionError(f"find_codebook {name}: d^2 {float(best_d2)} "
+                             f"outside (0, {rankin}]")
+    if not abs(card_d2 ** 0.5 - cpu_d2 ** 0.5) <= CB_CPU_TOL:
+        raise AssertionError(f"find_codebook {name}: card {card_d2} vs CPU "
+                             f"{cpu_d2}")
+    return fills
+
+
+def app_phases(dev, smi):
+    """Phases 43-46: the codebook search, the quantized-CSI Max-SINR IA,
+    the METIS scenario-2 drops and the IA feasibility solvers on the card
+    against the CPU route on the same Philox draws, with their rates,
+    launches and device-busy times. Returns the fill kernel's launches in
+    the timed runs."""
+    import numpy as np
+    from apps.find_codebook_torch import COMPLEX, COMPLEX_QEGT, REAL
+    from apps.ia import simple_maxsinr_quantized_torch as qia
+    from apps.ia import test_ia_feasibility_torch as feas
+    from apps.metis_scenarios import simulate_metis_scenario2_torch as metis
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "bin"))
+    from profile_chain_torch import kernels, trace
+    start = time.perf_counter()
+
+    # 43. the codebook search: the CLI defaults, then G(4, 2) by type
+    fill_launches = codebook_search(dev, smi, "defaults", COMPLEX,
+                                    **CB_DEFAULT)
+    for name, ctype in (("complex", COMPLEX), ("real", REAL),
+                        ("qegt", COMPLEX_QEGT)):
+        fill_launches += codebook_search(dev, smi, f"G(4,2) {name}", ctype,
+                                         **CB_LARGE)
+
+    # 44. quantized-CSI Max-SINR IA at the app's defaults
+    tic = time.perf_counter()
+    qia.run(**dict(QIA_ARGS, reps=8), device=dev)      # warm-up
+    reset_fill_counts()
+    (err_q, err_p, bits), seconds = timed(lambda: qia.run(**QIA_ARGS,
+                                                          device=dev))
+    fills, plain = fill_counts()
+    # one fill a draw: codebook, channels, initial precoders, bits, noise
+    check_launches("maxsinr_quantized fill", fills, 5, plain)
+    fill_launches += fills
+    cpu_q, cpu_p, _ = qia.run(**QIA_ARGS, device="cpu")
+    flips = {"quantized": abs(int(err_q) - int(cpu_q)),
+             "perfect": abs(int(err_p) - int(cpu_p))}
+    ber_q, ber_p = int(err_q) / bits, int(err_p) / bits
+    # launches and device time: a fixed part and a part an iteration, from
+    # two short traced runs
+    short = [trace(lambda: qia.run(**QIA_ARGS, iterations=n, device=dev),
+                   repeat=1)[0] for n in (2, 4)]
+    launches = [kernels(e, repeat=1) for e in short]
+    busy = [device_ms(e, repeat=1) for e in short]
+    per_iteration = (launches[1] - launches[0]) / 2
+    busy_an_iteration = (busy[1] - busy[0]) / 2
+    busy_a_run = busy[0] + (qia.ITERATIONS - 2) * busy_an_iteration
+    phase("maxsinr_quantized", **QIA_ARGS, iterations=qia.ITERATIONS,
+          ber_quantized=ber_q, ber_perfect=ber_p, bits=bits,
+          card_vs_cpu_error_diff=compact(flips),
+          flip_limit=QIA_FLIP_SHARE * bits, seconds=seconds,
+          reps_per_s=QIA_ARGS["reps"] / seconds,
+          launches_an_iteration=per_iteration,
+          launches_a_run=launches[0] + (qia.ITERATIONS - 2) * per_iteration,
+          device_busy_ms_an_iteration=busy_an_iteration,
+          device_busy_ms_a_run=busy_a_run,
+          device_busy_share=busy_a_run / (seconds * 1e3),
+          fill_launches=fills, card=repr(smi),
+          phase_seconds=time.perf_counter() - tic)
+    if not (0.0 < ber_p <= ber_q < 0.5):
+        raise AssertionError(f"maxsinr_quantized: BERs {ber_q}, {ber_p}")
+    if max(flips.values()) > QIA_FLIP_SHARE * bits:
+        raise AssertionError(f"maxsinr_quantized: card vs CPU {flips}")
+
+    # 45. the METIS scenario-2 drops
+    tic = time.perf_counter()
+    for users, seed in METIS_DROPS:
+        metis.simulate(num_users=users, seed=seed, device=dev)   # warm-up
+        (sinr, cap, tx, aps), seconds = timed(lambda: metis.simulate(
+            num_users=users, seed=seed, device=dev))
+        events, _ = trace(lambda: metis.simulate(
+            num_users=users, seed=seed, device=dev), repeat=1)
+        busy_ms = device_ms(events, repeat=1)
+        c_sinr, c_cap, c_tx, c_aps = metis.simulate(num_users=users,
+                                                    seed=seed, device="cpu")
+        lin = 10 ** (sinr.cpu().numpy() / 10)
+        c_lin = 10 ** (c_sinr.numpy() / 10)
+        sinr_rel = float(np.max(np.abs(lin / c_lin - 1)))
+        cap_rel = float(np.max(np.abs(cap.cpu().numpy() / c_cap.numpy() - 1)))
+        phase("metis_scenario2", users=users, seed=seed, aps=aps,
+              transmitting_aps=tx, cpu_transmitting_aps=c_tx,
+              sinr_db_mean=float(sinr.mean()), capacity_mean=float(cap.mean()),
+              card_vs_cpu_sinr_rel=sinr_rel, card_vs_cpu_capacity_rel=cap_rel,
+              ms_a_drop=seconds * 1e3, users_per_s=users / seconds,
+              launches_a_drop=kernels(events, repeat=1),
+              device_busy_ms_a_drop=busy_ms,
+              device_busy_share=busy_ms / (seconds * 1e3),
+              card=repr(smi), phase_seconds=time.perf_counter() - tic)
+        if (tx, aps) != (c_tx, c_aps) or not (sinr_rel <= METIS_RTOL and
+                                               cap_rel <= METIS_RTOL):
+            raise AssertionError(f"metis_scenario2 {users}: card vs CPU "
+                                 f"{tx} / {c_tx} APs, {sinr_rel}, {cap_rel}")
+
+    # 46. the feasibility app's three host solvers at 4x4, as the app runs
+    # them (feas.run), with each solve timed on the card and on the CPU
+    # route; then the launches and device time an iteration from two
+    # short solves on the card
+    def solve_all(device):
+        solvers = feas.make_solvers(feas.make_channel(0, device), 0)
+        iterations, ms = {}, {}
+        for name, solver in solvers.items():
+            iterations[name], seconds = timed(lambda: solver.solve(feas.NS))
+            ms[name] = seconds * 1e3 / iterations[name]
+        return {"cost": float(solvers["Alt Min"].get_cost()),
+                "capacity": {n: feas.sum_capacity(s)
+                             for n, s in solvers.items()},
+                "iterations": iterations}, ms
+
+    tic = time.perf_counter()
+    card_out, card_ms = solve_all(dev)
+    cpu_out, cpu_ms = solve_all("cpu")
+    rates = {}
+    for name in card_ms:
+        counts, busy = [], []
+        for n in (10, 20):
+            short = feas.make_solvers(feas.make_channel(0, dev), 0)[name]
+            short.max_iterations = n
+            events = trace(lambda: short.solve(feas.NS), repeat=1)[0]
+            counts.append(kernels(events, repeat=1))
+            busy.append(device_ms(events, repeat=1))
+        busy_an_iteration = (busy[1] - busy[0]) / 10
+        rates[name] = {"ms_an_iteration": card_ms[name],
+                       "cpu_ms_an_iteration": cpu_ms[name],
+                       "launches_an_iteration": (counts[1] - counts[0]) / 10,
+                       "launches_a_solve_outside_iterations":
+                           2 * counts[0] - counts[1],
+                       "device_busy_ms_an_iteration": busy_an_iteration,
+                       "device_busy_share":
+                           busy_an_iteration / card_ms[name]}
+    cap_rel = {n: abs(card_out["capacity"][n] / cpu_out["capacity"][n] - 1)
+               for n in card_out["capacity"]}
+    phase("ia_feasibility", K=feas.K, Nr=4, Nt=4, Ns=2, snr_db=feas.SNR,
+          cost=card_out["cost"], cpu_cost=cpu_out["cost"],
+          capacity=compact(card_out["capacity"]),
+          card_vs_cpu_capacity_rel=compact(cap_rel),
+          capacity_rtol=FEAS_CAP_RTOL, iterations=compact(
+              card_out["iterations"]),
+          rates=compact(rates), card=repr(smi),
+          phase_seconds=time.perf_counter() - tic,
+          phases_43_to_46_seconds=time.perf_counter() - start)
+    if max(cap_rel.values()) > FEAS_CAP_RTOL or \
+            abs(card_out["cost"] - cpu_out["cost"]) > FEAS_COST_ATOL or \
+            card_out["iterations"] != cpu_out["iterations"]:
+        raise AssertionError(f"ia_feasibility: card {card_out} vs CPU "
+                             f"{cpu_out}")
+    return fill_launches
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -262,6 +262,39 @@ class TdlImpulseResponse:
                        taps.device)
         return full_precision(torch.matmul)(taps, w)
 
+    def plot_impulse_response(self) -> None:
+        """3-D plot of |tap| over (delay, time), one line a sample (of the
+        first antenna pair and batch entry). Imports matplotlib here: the
+        rest of the port does not need it."""
+        import matplotlib.pyplot as plt
+        fig = plt.figure()
+        ax = fig.add_subplot(111, projection="3d")
+        dense = self.tap_values.movedim(self.tap_axis, 0).abs().cpu().numpy()
+        x = np.arange(dense.shape[0])
+        for i in range(self.num_samples):
+            ax.plot(x, np.full(dense.shape[0], i),
+                    dense[..., i].reshape(dense.shape[0], -1)[:, 0])
+        ax.set_xlabel("Taps (delay domain)")
+        ax.set_ylabel("Time Domain")
+        ax.set_zlabel("Channel Amplitude")
+        plt.show()
+
+    def plot_frequency_response(self, fft_size: int) -> None:
+        """3-D plot of |H(f)| over (frequency, time), one line a sample (of
+        the first antenna pair and batch entry). Imports matplotlib here."""
+        import matplotlib.pyplot as plt
+        fig = plt.figure()
+        ax = fig.add_subplot(111, projection="3d")
+        fr = self.get_freq_response(fft_size).abs().cpu().numpy()
+        fr2 = fr.reshape(-1, self.num_samples, fft_size)[0]
+        x = np.arange(fft_size)
+        for i in range(self.num_samples):
+            ax.plot(x, np.full(fft_size, i), fr2[i])
+        ax.set_xlabel("Frequency (FFT bins)")
+        ax.set_ylabel("Time Domain")
+        ax.set_zlabel("Channel Amplitude")
+        plt.show()
+
     def transposed(self) -> "TdlImpulseResponse":
         """The MIMO response with the antenna axes swapped (``H^T`` per
         tap and sample: the uplink of a downlink channel)."""

@@ -5,11 +5,17 @@ Counterpart of ``pyphysim_tpu/progressbar/progressbar.py``:
     throttle,
   * :class:`ProgressbarText` / 2 / 3 — terminal styles,
   * :class:`DummyProgressbar` — the no-op bar,
+  * :class:`ProgressBarIPython` — an ipywidgets bar for notebooks, which
+    falls back to the text bar where ipywidgets is absent,
   * :class:`ProgressbarMultiProcessServer` — one bar for many clients (the
     runners of ``simulate_do_what_i_mean``'s list mode), whose proxies
-    write their counts into a managed list that a render thread sums.
+    write their counts into a managed list that a render thread sums,
+  * :class:`ProgressbarZMQServer` / :class:`ProgressbarZMQClient` — the
+    same across hosts: clients PUSH ``"client_id:count"`` messages to the
+    server's PULL socket.
 
-The IPython and ZMQ bars are not ported yet.
+``zmq``, ``ipywidgets`` and ``IPython`` are imported only inside the
+classes that use them, so the rest of the port runs without them.
 """
 
 from __future__ import annotations
@@ -18,15 +24,17 @@ import multiprocessing
 import sys
 import threading
 import time
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 from ..utils.misc import pretty_time
 
 __all__ = ["center_message", "DummyProgressbar", "ProgressBarBase",
            "ProgressbarTextBase", "ProgressbarText", "ProgressbarText2",
-           "ProgressbarText3", "ProgressbarDistributedServerBase",
+           "ProgressbarText3", "ProgressBarIPython",
+           "ProgressbarDistributedServerBase",
            "ProgressbarDistributedClientBase",
-           "ProgressbarMultiProcessServer", "ProgressbarMultiProcessClient"]
+           "ProgressbarMultiProcessServer", "ProgressbarMultiProcessClient",
+           "ProgressbarZMQServer", "ProgressbarZMQClient"]
 
 
 def center_message(message: str, length: int = 50, fill_char: str = " ",
@@ -237,6 +245,33 @@ class ProgressbarText3(ProgressbarTextBase):
             pass
 
 
+class ProgressBarIPython(ProgressBarBase):
+    """ipywidgets progress bar for notebooks: a ``FloatProgress`` widget
+    showing the percentage. Without ipywidgets (or IPython) it is a
+    :class:`ProgressbarText2` instead."""
+
+    def __init__(self, finalcount: int, message: str = "") -> None:
+        super().__init__(finalcount)
+        self.message = message
+        try:
+            import ipywidgets
+            from IPython.display import display
+        except ImportError:
+            self._widget = None
+            self._fallback = ProgressbarText2(finalcount, message=message)
+        else:
+            self._widget = ipywidgets.FloatProgress(min=0, max=100,
+                                                    description=message)
+            display(self._widget)
+            self._fallback = None
+
+    def _display_current_progress(self) -> None:
+        if self._widget is not None:
+            self._widget.value = self.percent
+        else:
+            self._fallback.progress(self._count)
+
+
 # ---------------------------------------------------------------------------
 # Progress server: one bar for many clients
 # ---------------------------------------------------------------------------
@@ -361,3 +396,134 @@ class ProgressbarMultiProcessClient(ProgressbarDistributedClientBase):
 
     def progress(self, count: int) -> None:
         self._client_counts[self.client_id] = int(count)
+
+
+class ProgressbarZMQServer(ProgressbarDistributedServerBase):
+    """Cross-host progress server: binds a ZMQ PULL socket on ``ip:port``
+    when the updater starts, and a receive thread stores each client's
+    latest ``"client_id:count"`` message."""
+
+    def __init__(self, progresschar: str = "*", message: str = "",
+                 sleep_time: float = 0.2, style=ProgressbarText2,
+                 ip: str = "*", port: int = 7396) -> None:
+        super().__init__(progresschar, message, sleep_time, style)
+        self._ip = ip
+        self._port = int(port)
+        self._client_counts: List[int] = []
+        self._recv_thread: Optional[threading.Thread] = None
+        self._context = None
+        self._socket = None
+
+    @property
+    def ip(self) -> str:
+        return self._ip
+
+    @property
+    def port(self) -> int:
+        return self._port
+
+    def register_client_and_get_proxy_progressbar(
+            self, total_count: int) -> "ProgressbarZMQClient":
+        client_id = len(self._client_counts)
+        self._client_counts.append(0)
+        self._total_final_count += int(total_count)
+        ip = "localhost" if self._ip == "*" else self._ip
+        return ProgressbarZMQClient(client_id, ip, self._port)
+
+    def start_updater(self) -> None:
+        """Bind the socket (``zmq.ZMQError`` if the port is taken), start
+        the receive thread, then the render thread."""
+        import zmq
+        if self._socket is None:
+            context = zmq.Context()
+            socket = context.socket(zmq.PULL)
+            try:
+                socket.bind(f"tcp://{self._ip}:{self._port}")
+            except zmq.ZMQError:
+                socket.close(linger=0)
+                context.term()
+                raise
+            self._context, self._socket = context, socket
+
+            def recv_loop() -> None:
+                poller = zmq.Poller()
+                poller.register(socket, zmq.POLLIN)
+                while not self._stop_event.is_set():
+                    if poller.poll(100):
+                        msg = socket.recv_string()
+                        try:
+                            cid_s, count_s = msg.split(":")
+                            cid, count = int(cid_s), int(count_s)
+                        except ValueError:
+                            continue  # malformed message: ignore
+                        if 0 <= cid < len(self._client_counts):
+                            self._client_counts[cid] = count
+
+            self._recv_thread = threading.Thread(target=recv_loop,
+                                                 daemon=True)
+            self._recv_thread.start()
+        super().start_updater()
+
+    def stop_updater(self, timeout: Optional[float] = 2.0) -> None:
+        """Stop both threads and close the socket."""
+        super().stop_updater(timeout)
+        if self._recv_thread is not None:
+            self._recv_thread.join(timeout)
+            self._recv_thread = None
+        if self._socket is not None:
+            self._socket.close(linger=0)
+            self._context.term()
+            self._socket = None
+            self._context = None
+
+    def _get_total_count(self) -> int:
+        return int(sum(self._client_counts))
+
+
+class ProgressbarZMQClient(ProgressbarDistributedClientBase):
+    """Client-side proxy: PUSHes ``"client_id:count"`` without blocking
+    (LINGER 0; an update that finds the queue full is dropped). It pickles
+    as its id and address, and connects on its first update."""
+
+    def __init__(self, client_id: int, ip: str, port: int) -> None:
+        super().__init__(client_id)
+        self.ip = ip
+        self.port = int(port)
+        self._socket = None
+        self._context = None
+
+    def _connect(self) -> None:
+        import zmq
+        self._context = zmq.Context()
+        self._socket = self._context.socket(zmq.PUSH)
+        self._socket.setsockopt(zmq.LINGER, 0)
+        self._socket.connect(f"tcp://{self.ip}:{self.port}")
+
+    def progress(self, count: int) -> None:
+        import zmq
+        if self._socket is None:
+            self._connect()
+        try:
+            self._socket.send_string(f"{self.client_id}:{int(count)}",
+                                     flags=zmq.NOBLOCK)
+        except zmq.Again:
+            pass  # the send queue is full: drop this update
+
+    def close(self) -> None:
+        """Close the socket (a later update connects again)."""
+        if self._socket is not None:
+            self._socket.close(linger=0)
+            self._context.term()
+            self._socket = None
+            self._context = None
+
+    def __getstate__(self):
+        return {"client_id": self.client_id, "ip": self.ip,
+                "port": self.port}
+
+    def __setstate__(self, state):
+        self.client_id = state["client_id"]
+        self.ip = state["ip"]
+        self.port = state["port"]
+        self._socket = None
+        self._context = None

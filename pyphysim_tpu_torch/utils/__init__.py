@@ -1,1 +1,2 @@
-"""Numeric utilities: conversions, bit counting, JSON serialization."""
+"""Numeric utilities: conversions, bit counting, JSON serialization, and
+the seed replay of stochastic tests (``utils.testing``)."""

@@ -1,20 +1,20 @@
-"""Core numeric utilities used by the ported slice.
+"""Core numeric utilities.
 
-Counterpart of the parts of ``pyphysim_tpu/utils/misc.py`` that the Monte
-Carlo paths need: complex Gaussian samples and random symbols from an
-explicit random source, bit counting on torch tensors, ``level2bits``, the
-Q function, confidence intervals, the host-side geometric mean
-decomposition (``gmd``, for ``mimo.GMDMimo``), the bf16 rounding of complex
-values (``round_bf16``, for the chain's bf16 signal path), the host-side
-numpy helpers
-of the interference-alignment solvers (``randn_c_RS``, ``peig`` / ``leig``,
-``update_inv_sum_diag``, ``get_principal_component_matrix``), the linear
-algebra of the block-diagonalization family (``pinv`` with the JAX
-package's cutoff, ``least_right_singular_vectors``,
+Counterpart of ``pyphysim_tpu/utils/misc.py``: complex Gaussian samples
+and random symbols from an explicit random source, bit counting and
+``xor`` on torch tensors, ``level2bits``, the Q function and its inverse,
+confidence intervals, the host-side geometric mean decomposition (``gmd``,
+for ``mimo.GMDMimo``), the bf16 rounding of complex values
+(``round_bf16``, for the chain's bf16 signal path), the eigenvector
+helpers (``peig`` / ``leig`` on the host, ``peig_h`` / ``leig_h`` batched
+over Hermitian tensors or arrays), the host-side numpy helpers of the
+interference-alignment solvers (``randn_c_RS``, ``update_inv_sum_diag``,
+``get_principal_component_matrix``), autocorrelations, the linear algebra
+of the block-diagonalization family (``pinv`` with the JAX package's
+cutoff, ``least_right_singular_vectors``, ``calc_decorrelation_matrix``,
 ``calc_whitening_matrix``, ``calc_shannon_sum_capacity``), the float32
 guard of matrix products (``full_precision``: TF32 off), and the
 host-side formatting helpers the runner uses for file names and progress.
-The rest of that module waits for the slices that need it.
 """
 
 from __future__ import annotations
@@ -35,22 +35,30 @@ __all__ = [
     "count_bits",
     "count_bit_errors",
     "qfunc",
+    "qfunc_inv",
+    "xor",
     "level2bits",
     "int2bits",
     "calc_confidence_interval",
     "gmd",
     "peig",
     "leig",
+    "peig_h",
+    "leig_h",
+    "calc_unorm_autocorr",
+    "calc_autocorr",
     "update_inv_sum_diag",
     "get_principal_component_matrix",
     "PINV_RCOND",
     "pinv",
     "least_right_singular_vectors",
+    "calc_decorrelation_matrix",
     "calc_whitening_matrix",
     "calc_shannon_sum_capacity",
     "full_precision",
     "pretty_time",
     "get_range_representation",
+    "get_mixed_range_representation",
     "replace_dict_values",
     "equal_dicts",
 ]
@@ -165,6 +173,20 @@ def count_bits(n):
     return ((x * _H01) >> 56) & 0xFF
 
 
+def xor(a, b):
+    """Elementwise xor: ``torch.bitwise_xor`` on tensors, ``^`` on ints and
+    numpy arrays.
+
+    >>> xor(0b1100, 0b1010)
+    6
+    >>> xor(torch.tensor([3, 5]), torch.tensor([1, 1])).tolist()
+    [2, 4]
+    """
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return torch.bitwise_xor(torch.as_tensor(a), torch.as_tensor(b))
+    return a ^ b
+
+
 def count_bit_errors(first, second, axis=None):
     """Number of differing bits between integer arrays:
     ``sum(popcount(first ^ second))``. Numpy in, numpy out; tensors in,
@@ -210,6 +232,16 @@ def qfunc(x):
         return 0.5 * torch.special.erfc(x / np.sqrt(2.0))
     import scipy.special
     return 0.5 * scipy.special.erfc(np.asarray(x) / np.sqrt(2.0))
+
+
+def qfunc_inv(p):
+    """Inverse Q function on the host, through scipy's ``erfcinv``.
+
+    >>> round(float(qfunc(qfunc_inv(0.01))), 12)
+    0.01
+    """
+    import scipy.special
+    return np.sqrt(2.0) * scipy.special.erfcinv(2.0 * np.asarray(p))
 
 
 def calc_confidence_interval(mean: float,
@@ -339,6 +371,66 @@ def _sorted_eig(A: np.ndarray):
     return V[:, order], D[order]
 
 
+def _eigh(A):
+    """``(w, v)`` of a (batched) Hermitian tensor or array, ascending."""
+    if isinstance(A, torch.Tensor):
+        return torch.linalg.eigh(A)
+    return np.linalg.eigh(np.asarray(A))
+
+
+def peig_h(A, n: int):
+    """The ``n`` dominant eigenvectors of a (batched) Hermitian tensor or
+    array and their eigenvalues, largest first.
+
+    >>> V, D = peig_h(torch.diag(torch.tensor([1.0, 3.0, 2.0])), 2)
+    >>> D.tolist(), V.abs().argmax(dim=0).tolist()
+    ([3.0, 2.0], [1, 2])
+    """
+    w, v = _eigh(A)
+    if isinstance(w, torch.Tensor):
+        w, v = w.flip(-1), v.flip(-1)
+    else:
+        w, v = w[..., ::-1], v[..., ::-1]
+    return v[..., :n], w[..., :n]
+
+
+def leig_h(A, n: int):
+    """The ``n`` least eigenvectors of a (batched) Hermitian tensor or
+    array and their eigenvalues, smallest first.
+
+    >>> V, D = leig_h(np.diag([1.0, 3.0, 2.0]), 1)
+    >>> D.tolist(), np.abs(V[:, 0]).tolist()
+    ([1.0], [1.0, 0.0, 0.0])
+    """
+    w, v = _eigh(A)
+    return v[..., :n], w[..., :n]
+
+
+def calc_unorm_autocorr(x) -> np.ndarray:
+    """Unnormalized autocorrelation of a 1-D array, lags 0..N-1.
+
+    >>> calc_unorm_autocorr(np.array([4, 2, 1, 3, 7, 3, 8])).tolist()
+    [152, 79, 82, 53, 42, 28, 32]
+    """
+    x = np.asarray(x)
+    return np.correlate(x, x, mode="full")[x.shape[0] - 1:]
+
+
+def calc_autocorr(x) -> np.ndarray:
+    """Autocorrelation of the mean-removed ``x`` over its (biased)
+    variance: 1 at lag 0, zeros for a constant ``x``.
+
+    >>> calc_autocorr(np.array([4, 2, 1, 3, 7, 3, 8])).round(3).tolist()
+    [1.0, -0.025, 0.15, -0.175, -0.25, -0.2, 0.0]
+    """
+    x = np.asarray(x, dtype=float)
+    var = x.var()
+    N = x.shape[0]
+    if var == 0:
+        return np.zeros(N)
+    return calc_unorm_autocorr(x - x.mean()) / (N * var)
+
+
 def update_inv_sum_diag(invA: np.ndarray, diagonal) -> np.ndarray:
     """``inv(A + diag(diagonal))`` from ``inv(A)`` by one Sherman-Morrison
     update per diagonal entry (on the host).
@@ -422,6 +514,18 @@ def least_right_singular_vectors(A, n: int):
     return V[:, :n], V[:, n:], s_asc[max(n - num_null, 0):]
 
 
+def calc_decorrelation_matrix(cov_matrix):
+    """Matrix ``W`` with ``W^H R W`` diagonal: the eigenvectors of the
+    Hermitian covariance ``R`` (a batched tensor or an array).
+
+    >>> R = np.array([[2.0, 1.0], [1.0, 2.0]])
+    >>> W = calc_decorrelation_matrix(R)
+    >>> np.abs(W.T @ R @ W).round(12).tolist()
+    [[1.0, 0.0], [0.0, 3.0]]
+    """
+    return _eigh(cov_matrix)[1]
+
+
 def calc_whitening_matrix(cov_matrix):
     """Whitening matrix ``W`` with ``W^H R W = I``: ``W = V diag(w)^-1/2``
     from the eigendecomposition of the Hermitian covariance ``R`` (numpy or
@@ -502,6 +606,37 @@ def get_range_representation(array: np.ndarray,
     if filename_mode:
         return f"{_fmt_num(lo)}_({_fmt_num(step)})_{_fmt_num(hi)}"
     return f"{_fmt_num(lo)}:{_fmt_num(step)}:{_fmt_num(hi)}"
+
+
+def get_mixed_range_representation(array: np.ndarray,
+                                   filename_mode: bool = False) -> str:
+    """Range representation with several arithmetic runs: each run of at
+    least three values becomes ``start:step:stop``, the rest stay single.
+
+    >>> get_mixed_range_representation(np.array([1, 2, 3, 4, 5, 10, 15, 20]))
+    '1:1:5,10:5:20'
+    >>> get_mixed_range_representation(np.array([0, 7, 8]))
+    '0,7,8'
+    """
+    flat = np.asarray(array).astype(float).ravel()
+    n = flat.size
+    parts = []
+    i = 0
+    while i < n:
+        # greedily extend an arithmetic run starting at i
+        j = i + 1
+        if j < n:
+            step = flat[j] - flat[i]
+            while j + 1 < n and np.isclose(flat[j + 1] - flat[j], step):
+                j += 1
+        if j < n and j - i + 1 >= 3:
+            parts.append(get_range_representation(flat[i:j + 1],
+                                                  filename_mode))
+            i = j + 1
+        else:
+            parts.append(_fmt_num(flat[i]))
+            i += 1
+    return ",".join(parts)
 
 
 def _fmt_num(x) -> str:

@@ -132,6 +132,35 @@ PARALLEL_MODULES = [
 ]
 SLICE_MODULES += PARALLEL_MODULES
 
+LAST_NAMES_MODULES = [
+    "pyphysim_tpu_torch.pointprocess.pointprocess",
+    "pyphysim_tpu_torch.pointprocess",
+    "pyphysim_tpu_torch.extra.matlab",
+    "pyphysim_tpu_torch.extra.pgfplotshelper",
+    "pyphysim_tpu_torch.extra",
+    "pyphysim_tpu_torch.utils.testing",
+    "pyphysim_tpu_torch.progressbar.progressbar",
+]
+LAST_APPS = [
+    "apps.find_codebook_torch",
+    "apps.ia.simple_maxsinr_quantized_torch",
+    "apps.metis_scenarios.simulate_metis_scenario2_torch",
+    "apps.waterfilling_tikz_draw_torch",
+    "apps.ia.test_ia_feasibility_torch",
+    "apps.metis_scenarios.simulate_metis_ps7_torch",
+    "apps.ofdm.plot_ofdm_PSD_torch",
+    "apps.testing_multiprocessing_progressbar_torch",
+    "apps.configobj_usage_example_torch",
+    "apps.ia.greedy_statistics_torch",
+    "apps.ia.check_greedy_partial_results_torch",
+    "apps.ia.ia_results_plots_torch",
+]
+SLICE_MODULES += LAST_NAMES_MODULES + LAST_APPS
+
+# packages the card's machine lacks: imported only where they are used
+OPTIONAL_PACKAGES = ("zmq", "IPython", "ipywidgets", "matplotlib",
+                     "configobj")
+
 
 def _run(code: str) -> str:
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -158,7 +187,8 @@ def test_slice_modules_import_neither_jax_nor_triton():
 
 
 @pytest.mark.parametrize("name", IA_MODULES + COMP_BD_MODULES +
-                         MIMO_MODULES + PARALLEL_MODULES)
+                         MIMO_MODULES + PARALLEL_MODULES +
+                         LAST_NAMES_MODULES + LAST_APPS)
 def test_ia_module_names_neither_jax_nor_the_jax_package(name):
     """The IA, comp_BD and MIMO channel slices' sources import nothing of
     jax or pyphysim_tpu (the interpreter-level check is
@@ -175,6 +205,26 @@ def test_ia_module_names_neither_jax_nor_the_jax_package(name):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
     assert not roots & {"jax", "jaxlib", "pyphysim_tpu", "triton"}, roots
+
+
+def test_last_names_import_neither_jax_triton_nor_the_jax_package():
+    out = _run("import sys\n"
+               "import pyphysim_tpu_torch.pointprocess, "
+               "pyphysim_tpu_torch.extra, pyphysim_tpu_torch.utils.testing\n"
+               "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+               "('jax', 'jaxlib', 'triton', 'pyphysim_tpu')))\n")
+    assert out.strip() == "[]"
+
+
+def test_slice_modules_leave_the_optional_packages_unimported():
+    """zmq, IPython, ipywidgets, matplotlib and configobj are imported only
+    inside the classes and functions that use them."""
+    code = ("import importlib, sys\n"
+            f"for m in {SLICE_MODULES!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{OPTIONAL_PACKAGES!r}))\n")
+    assert _run(code).strip() == "[]"
 
 
 def _load_weak_scaling_script():
@@ -385,6 +435,22 @@ def test_public_entry_points_default_to_the_card(monkeypatch):
         parallel.make_host_chip_mesh, parallel.init_multihost]
     weak = _load_weak_scaling_script()
     entry_points += [weak.curve]
+    from apps import (find_codebook_torch,
+                      testing_multiprocessing_progressbar_torch)
+    from apps.ia import (simple_maxsinr_quantized_torch,
+                         test_ia_feasibility_torch)
+    from apps.metis_scenarios import (simulate_metis_ps7_torch,
+                                      simulate_metis_scenario2_torch)
+    from apps.ofdm import plot_ofdm_PSD_torch
+    entry_points += [
+        find_codebook_torch.CodebookFinder, find_codebook_torch.find_codebook,
+        simple_maxsinr_quantized_torch.run,
+        simulate_metis_scenario2_torch.simulate,
+        simulate_metis_ps7_torch.simulate, test_ia_feasibility_torch.run,
+        test_ia_feasibility_torch.make_channel,
+        plot_ofdm_PSD_torch.ofdm_signal,
+        testing_multiprocessing_progressbar_torch.run,
+        testing_multiprocessing_progressbar_torch.func]
     for fn in entry_points:
         default = inspect.signature(fn).parameters["device"].default
         assert default == "cuda", f"{fn.__qualname__} defaults to {default}"
@@ -395,6 +461,22 @@ def test_public_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         weak.main([])        # asks for the card, and there is none
+
+
+@pytest.mark.parametrize("name", [
+    m for m in LAST_APPS if not m.endswith((
+        "greedy_statistics_torch", "partial_results_torch",
+        "ia_results_plots_torch"))])
+def test_new_apps_ask_for_the_card_by_default(name, monkeypatch, tmp_path):
+    """Each app's ``main`` with no arguments asks for ``--device cuda``,
+    and without a card raises before it writes anything."""
+    import importlib
+    app = importlib.import_module(name)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        app.main([])
+    assert os.listdir(tmp_path) == []
 
 
 @pytest.mark.parametrize("module, names", [
@@ -416,6 +498,21 @@ def test_public_entry_points_default_to_the_card(monkeypatch):
      ["ProgressbarMultiProcessServer", "ProgressbarMultiProcessClient",
       "ProgressbarDistributedServerBase",
       "ProgressbarDistributedClientBase"]),
+    ("pyphysim_tpu_torch.progressbar.progressbar",
+     ["ProgressBarIPython", "ProgressbarZMQServer", "ProgressbarZMQClient"]),
+    ("pyphysim_tpu_torch.progressbar",
+     ["ProgressBarIPython", "ProgressbarZMQServer", "ProgressbarZMQClient"]),
+    ("pyphysim_tpu_torch.utils.misc",
+     ["xor", "qfunc_inv", "peig_h", "leig_h", "calc_unorm_autocorr",
+      "calc_autocorr", "calc_decorrelation_matrix",
+      "get_mixed_range_representation"]),
+    ("pyphysim_tpu_torch.pointprocess",
+     ["generate_random_points_in_circle",
+      "generate_random_points_in_rectangle"]),
+    ("pyphysim_tpu_torch.extra",
+     ["to_mat_str", "generate_pgfplots_plotline", "ber_plot_options",
+      "ser_plot_options"]),
+    ("pyphysim_tpu_torch.utils.testing", ["SeedReplay"]),
 ])
 def test_new_names_are_exported(module, names):
     import importlib
@@ -437,6 +534,9 @@ def test_new_methods_exist():
                  "plotConstellation"):
         assert callable(getattr(Modulator, name))
     assert callable(PSK.setPhaseOffset)
+    from pyphysim_tpu_torch.channels import TdlImpulseResponse
+    for name in ("plot_impulse_response", "plot_frequency_response"):
+        assert callable(getattr(TdlImpulseResponse, name))
     assert callable(SimulationRunner.clear)
     for name in ("simulate_in_parallel", "wait_parallel_simulation"):
         assert callable(getattr(SimulationRunner, name))
