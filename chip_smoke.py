@@ -67,6 +67,14 @@ against its plain PyTorch version on the card:
     app at 4x4 (``ia_feasibility``); each on the card against the CPU on
     the same Philox draws, with its rates, its launches and the device's
     busy time and share from a ``torch.profiler`` trace.
+  * the notebooks (phases 47-54, ``notebook_phases``): each of
+    ``notebooks/0*_torch.py`` that touches a tensor (all but 07) run at
+    its own settings with ``DEVICE="cuda"`` and again on the CPU, the card
+    held to the CPU on the same Philox draws (a boundary flip or two a
+    1e6 symbols) or injected bits, and to each notebook's physics (closed
+    forms, ``bench.py``'s bands); 02 and 04 drive ``block_fir``, 09
+    ``mc_bd`` (PRNG and inject) and ``mc_ia`` (the closed and the general
+    kernel), and their sharded results equal the unsharded ones.
 
 One line per phase; any failure raises and the script exits non-zero.
 There is no CPU fallback: without a CUDA device it fails before printing
@@ -186,6 +194,13 @@ METIS_RTOL = 1e-4                   # card vs CPU SINR and capacity
 # relative and the leakage by <= 5e-10 on the CPU
 FEAS_CAP_RTOL = 1e-4
 FEAS_COST_ATOL = 1e-6
+# the notebooks (phases 47-54): card against the CPU run of the same
+# notebook on the same Philox draws
+NB_FLIPS_PER_1E6 = 2                # flips a 1e6 symbols (ROADMAP property 14)
+NB_BAND_SIGMAS = 5.0                # bit errors against a closed form
+NB_IA_RTOL = 1e-3                   # 03: mean IA capacities, 25 iterations
+NB_OUT_RTOL = 1e-5                  # 02: frequency-domain output / max |out|
+NB_PL_RTOL = 1e-12                  # 06: float64 path losses
 GREEDY_APP_CONFIG = """[Grid]
 cell_radius = 1.0
 num_cells = 3
@@ -439,6 +454,7 @@ def main() -> int:
 
     parallel = parallel_phases(dev, smi)
     fill_entry["launches"] += app_phases(dev, smi)
+    notebooks = notebook_phases(dev, smi)
     entries = [*mc_entries, *phases_8_to_12, *phases_13_to_19,
                phases_20_to_26]
     for entry in entries:
@@ -447,7 +463,10 @@ def main() -> int:
         entry["launches"] += more.get("parallel_launches", 0) + \
             more.get("time_sharded_launches", 0)
         entry.update(more)
-    missing = [name for name in parallel
+        if entry["name"] in notebooks:
+            entry["notebook_launches"] = notebooks[entry["name"]]
+            entry["launches"] += notebooks[entry["name"]]
+    missing = [name for name in [*parallel, *notebooks]
                if name not in {e["name"] for e in entries}]
     if missing:
         raise AssertionError(f"kernels line: no entry named {missing}")
@@ -2696,6 +2715,299 @@ def app_phases(dev, smi):
                              f"{cpu_out}")
     return fill_launches
 
+
+def run_notebook(number, device):
+    """``(namespace, seconds)`` of the port's notebook ``number`` ("01" ..
+    "09") run with ``DEVICE=device`` in a scratch folder, its printed
+    output discarded."""
+    import glob
+    import io
+    import runpy
+
+    import torch
+    root = os.path.dirname(os.path.abspath(__file__))
+    path, = glob.glob(os.path.join(root, "notebooks", f"{number}_*_torch.py"))
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp), \
+            contextlib.redirect_stdout(io.StringIO()):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        tic = time.perf_counter()
+        ns = runpy.run_path(path, init_globals={"DEVICE": device})
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - tic
+    return ns, seconds
+
+
+def flip_limit(symbols):
+    """Boundary flips allowed between the card and the CPU on the same
+    draws: ``NB_FLIPS_PER_1E6`` for each started 1e6 symbols."""
+    import math
+    return NB_FLIPS_PER_1E6 * math.ceil(symbols / 1e6)
+
+
+def check_flips(name, card_errors, cpu_errors, symbols):
+    """Each count of ``card_errors`` within ``flip_limit`` of the CPU's;
+    returns the largest difference."""
+    import numpy as np
+    diff = np.abs(np.asarray(card_errors, dtype=np.int64) -
+                  np.asarray(cpu_errors, dtype=np.int64))
+    limit = flip_limit(symbols)
+    if diff.max() > limit:
+        raise AssertionError(f"{name}: card {card_errors} against CPU "
+                             f"{cpu_errors}, more than {limit} flips")
+    return int(diff.max())
+
+
+def check_theory_band(name, errors, bits, p):
+    """Bit errors within ``NB_BAND_SIGMAS`` standard deviations (+ 3) of a
+    closed form's count: independent decisions a symbol, two bits a
+    symbol at most doubling the binomial variance."""
+    import numpy as np
+    errors, bits, p = (np.asarray(v, dtype=float) for v in (errors, bits, p))
+    sd = np.sqrt(2.0 * bits * p * (1.0 - p))
+    off = np.abs(errors - bits * p) > NB_BAND_SIGMAS * sd + 3.0
+    if off.any():
+        raise AssertionError(f"{name}: bit errors {errors} against the "
+                             f"theory's {bits * p}")
+
+
+def notebook_phases(dev, smi):
+    """Phases 47-54: the port's notebooks 01-06, 08 and 09 run at their
+    own settings on the card, each against a run of the same notebook on
+    the CPU (the same Philox draws, or the same injected bits), with the
+    physics bands of each. Notebook 07 touches no tensor. Returns, per
+    kernel name, the launches of these runs."""
+    import numpy as np
+    from pyphysim_tpu_torch.ops import fir
+    from pyphysim_tpu_torch.utils.conversion import dB2Linear
+    from pyphysim_tpu_torch.utils.misc import qfunc
+    start = time.perf_counter()
+    launches = {}
+
+    def card_and_cpu(number):
+        """The notebook on the card, block_fir's and the fill's counts set
+        to 0 just before it and read just after, then on the CPU."""
+        reset_fill_counts()
+        fir.block_fir.launch_count = 0
+        fir.block_fir.reference_count = 0
+        ns, seconds = run_notebook(number, dev.type)
+        counts = {"block_fir": (fir.block_fir.launch_count,
+                                fir.block_fir.reference_count),
+                  "philox_stream_fill": fill_counts()}
+        fills, plain = counts["philox_stream_fill"]
+        if plain or not fills:
+            raise AssertionError(f"notebook {number}: {fills} fill launches "
+                                 f"and {plain} plain draws")
+        launches["philox_stream_fill"] = \
+            launches.get("philox_stream_fill", 0) + fills
+        cpu, cpu_seconds = run_notebook(number, "cpu")
+        return ns, cpu, seconds, cpu_seconds, counts
+
+    def fir_launches(number, counts, want):
+        got, plain = counts["block_fir"]
+        check_launches(f"notebook {number} block_fir", got, want, plain)
+        launches["block_fir"] = launches.get("block_fir", 0) + got
+
+    # 47. QPSK over AWGN through the runner's per-key path
+    ns, cpu, seconds, cpu_seconds, counts = card_and_cpu("01")
+    reps = ns["runner"].runned_reps
+    flips = check_flips("notebook 01", ns["bit_errors"], cpu["bit_errors"],
+                        max(reps) * ns["runner"].num_symbols)
+    phase("notebook_01", snr_db=ns["snrs"].tolist(),
+          ber=ns["ber"].tolist(), theory=ns["theory"].tolist(),
+          runned_reps=reps, cpu_runned_reps=cpu["runner"].runned_reps,
+          max_flips=flips, fill_launches=counts["philox_stream_fill"][0],
+          seconds=seconds, cpu_seconds=cpu_seconds, card=repr(smi))
+    if reps != cpu["runner"].runned_reps:
+        raise AssertionError("notebook 01: the card ran other repetitions")
+    check_theory_band("notebook 01", ns["bit_errors"], ns["bits"],
+                      ns["theory"])
+
+    # 48. the flagship chain per-sample and block-static (block_fir), and
+    # the frequency-domain path
+    ns, cpu, seconds, cpu_seconds, counts = card_and_cpu("02")
+    fir_launches("02", counts, 3)        # one a block-static transmission
+    keys = sorted(ns["bit_errors"])
+    errs = [ns["bit_errors"][k] for k in keys]
+    bits = ns["bits_per_point"]
+    flips = check_flips("notebook 02", errs,
+                        [cpu["bit_errors"][k] for k in keys], bits // 4)
+    out, cpu_out = ns["out"].cpu(), cpu["out"]
+    out_err = float((out - cpu_out).abs().max() / cpu_out.abs().max())
+    phase("notebook_02", points=[f"{'block' if b else 'sample'}@{s}"
+                                 for b, s in keys],
+          ber=[e / bits for e in errs], max_flips=flips,
+          freq_domain_shape=list(out.shape), freq_domain_rel_err=out_err,
+          block_fir_launches=counts["block_fir"][0],
+          fill_launches=counts["philox_stream_fill"][0], seconds=seconds,
+          cpu_seconds=cpu_seconds, card=repr(smi))
+    for (block_static, snr), e in zip(keys, errs):
+        if snr in BER_CORNERS:
+            check_range(f"notebook 02 BER {block_static} {snr}", e / bits,
+                        BER_CORNERS[snr])
+        if snr == 25.0 and not e < ns["bit_errors"][block_static, 15.0]:
+            raise AssertionError("notebook 02: BER at 25 dB not below 15")
+    if out_err > NB_OUT_RTOL:
+        raise AssertionError(f"notebook 02: frequency-domain output "
+                             f"{out_err} off the CPU")
+
+    # 49. Alamouti / MRC, and the IA sweeps
+    ns, cpu, seconds, cpu_seconds, counts = card_and_cpu("03")
+    keys = sorted(ns["ber"])
+    symbols = ns["reps"] * ns["n"]
+    flips = check_flips(
+        "notebook 03", [round(ns["ber"][k] * 2 * symbols) for k in keys],
+        [round(cpu["ber"][k] * 2 * symbols) for k in keys], symbols)
+    ia = np.concatenate([ns["caps"], ns["caps3"].ravel()])
+    cpu_ia = np.concatenate([cpu["caps"], cpu["caps3"].ravel()])
+    ia_rel = float(np.max(np.abs(ia / cpu_ia - 1)))
+    phase("notebook_03", ber=compact({f"{a}@{s}": v for (a, s), v in
+                                      ns["ber"].items()}),
+          max_flips=flips, ia_mean_capacity=ns["caps"].tolist(),
+          solvers_mean_capacity=ns["caps3"].tolist(),
+          ia_card_vs_cpu_rel=ia_rel, fill_launches=counts[
+              "philox_stream_fill"][0], seconds=seconds,
+          cpu_seconds=cpu_seconds, card=repr(smi))
+    check_range("notebook 03 Alamouti BER at 10 dB",
+                ns["ber"]["Alamouti 2x1", 10.0], ALAMOUTI_BER_10DB)
+    check_range("notebook 03 IA capacity at 10 dB", ns["caps"][1],
+                IA_CAP_RANGE)
+    check_range("notebook 03 Max-SINR capacity at 10 dB", ns["caps3"][1, 0],
+                IA_CAP_RANGE)
+    if ia_rel > NB_IA_RTOL:
+        raise AssertionError(f"notebook 03: IA capacities {ia_rel} off the "
+                             "CPU")
+
+    # 50. simulate_in_parallel on the process's own NCCL group, and the
+    # time-sharded channel through block_fir
+    ns, cpu, seconds, cpu_seconds, counts = card_and_cpu("04")
+    fir_launches("04", counts, 6)   # the 1-rank call, unsharded, 4 shards
+    snrs = np.asarray(ns["runner_serial"].params["SNR"], dtype=float)
+    bits = 512 * 512 * 2
+    card_ber = [float(r.get_result())
+                for r in ns["runner_parallel"].results["ber"]]
+    cpu_ber = [float(r.get_result())
+               for r in cpu["runner_parallel"].results["ber"]]
+    card_errs = [round(b * bits) for b in card_ber]
+    flips = check_flips("notebook 04", card_errs,
+                        [round(b * bits) for b in cpu_ber], bits // 2)
+    ts = [ns["bit_errors"][k] for k in ("time-sharded", "unsharded")]
+    ts_flips = check_flips("notebook 04 time-sharded", ts,
+                           [cpu["bit_errors"][k] for k in
+                            ("time-sharded", "unsharded")], 300 * 8)
+    phase("notebook_04", snr_db=snrs.tolist(), ber=card_ber,
+          equal_to_simulate=[bool(e) for e in ns["equal"]],
+          max_flips=flips, time_sharded_max_abs_err=compact(
+              ns["max_abs_err"]), limit=TS_ATOL,
+          time_sharded_bit_errors=compact(ns["bit_errors"]),
+          time_sharded_flips=ts_flips,
+          block_fir_launches=counts["block_fir"][0],
+          fill_launches=counts["philox_stream_fill"][0], seconds=seconds,
+          cpu_seconds=cpu_seconds, card=repr(smi))
+    if not all(ns["equal"]) or ts[0] != ts[1]:
+        raise AssertionError("notebook 04: a sharded result differs")
+    if max(ns["max_abs_err"].values()) > TS_ATOL:
+        raise AssertionError(f"notebook 04: time-sharded channel "
+                             f"{ns['max_abs_err']} off corrupt_data")
+    check_theory_band("notebook 04", card_errs, [bits] * len(snrs),
+                      qfunc(np.sqrt(dB2Linear(snrs))))
+
+    # 51. AWGN, flat Rayleigh and MRC 1x2 against their closed forms
+    ns, cpu, seconds, cpu_seconds, counts = card_and_cpu("05")
+    modes = ("awgn", "rayleigh", "mrc")
+    flips = check_flips(
+        "notebook 05", np.concatenate([ns["bit_errors"][m] for m in modes]),
+        np.concatenate([cpu["bit_errors"][m] for m in modes]),
+        ns["NUM_SYMBOLS"] * ns["NUM_REPS"])
+    phase("notebook_05", snr_db=ns["SNRS_DB"].tolist(),
+          ber=compact({m: (ns["bit_errors"][m] / ns["num_bits"]).tolist()
+                       for m in modes}), max_flips=flips,
+          fill_launches=counts["philox_stream_fill"][0], seconds=seconds,
+          cpu_seconds=cpu_seconds, card=repr(smi))
+    for m in modes:
+        check_theory_band(f"notebook 05 {m}", ns["bit_errors"][m],
+                          ns["num_bits"], ns[f"theory_{m}"])
+
+    # 52. the path-loss models in float64 tensors on the card
+    ns, seconds = run_notebook("06", dev.type)
+    cpu, cpu_seconds = run_notebook("06", "cpu")
+    values = [(ns["at_1km"][k], cpu["at_1km"][k]) for k in ns["at_1km"]]
+    values += [(ns[k], cpu[k]) for k in ("reach_km",)]
+    tensors = [(ns["curves"][k], cpu["curves"][k]) for k in ns["curves"]]
+    tensors += [(ns["metis"][k], cpu["metis"][k]) for k in ns["metis"]]
+    rel = max([abs(a / b - 1) for a, b in values] +
+              [float((a.cpu() / b - 1).abs().max()) for a, b in tensors])
+    phase("notebook_06", at_1km_db=compact(ns["at_1km"]),
+          reach_km=ns["reach_km"], card_vs_cpu_rel=rel,
+          dtype=str(ns["curves"]["3GPP"].dtype),
+          device=str(ns["curves"]["3GPP"].device), seconds=seconds,
+          cpu_seconds=cpu_seconds, card=repr(smi))
+    if rel > NB_PL_RTOL or ns["curves"]["3GPP"].device.type != dev.type:
+        raise AssertionError(f"notebook 06: path losses {rel} off the CPU")
+
+    # 53. comp_BD stream sacrifice through the bulk engine
+    ns, cpu, seconds, cpu_seconds, counts = card_and_cpu("08")
+    card_counts, cpu_counts = [], []     # (symbol errors, symbols) a metric
+    for runner, cpu_runner in ((ns["runner"], cpu["runner"]),
+                               (ns["ns_runner"], cpu["ns_runner"])):
+        for m in runner.metrics:
+            for r, out in ((runner, card_counts), (cpu_runner, cpu_counts)):
+                ser = r.results[f"ser_{m}"][0]
+                out.append((int(ser._value), int(ser._total)))
+    card_counts, cpu_counts = np.array(card_counts), np.array(cpu_counts)
+    flips = check_flips("notebook 08 symbol errors", card_counts[:, 0],
+                        cpu_counts[:, 0], int(cpu_counts[:, 1].sum()))
+    phase("notebook_08", ser=compact(ns["ser"]), cpu_ser=compact(cpu["ser"]),
+          nonsquare_ser=compact(ns["ns_ser"]),
+          cpu_nonsquare_ser=compact(cpu["ns_ser"]), max_flips=flips,
+          symbols=int(cpu_counts[:, 1].sum()),
+          fill_launches=counts["philox_stream_fill"][0], seconds=seconds,
+          cpu_seconds=cpu_seconds, card=repr(smi))
+    check_range("notebook 08 ser_None", ns["ser"]["None"], COMP_BD_SER_NONE)
+    check_range("notebook 08 ser_capacity", ns["ser"]["capacity"],
+                COMP_BD_SER_CAPACITY)
+    # the streams each metric kept: the same decisions on the same draws
+    if not np.array_equal(card_counts[:, 1], cpu_counts[:, 1]):
+        raise AssertionError(f"notebook 08: symbols sent {card_counts[:, 1]} "
+                             f"against the CPU's {cpu_counts[:, 1]}")
+
+    # 54. the kernel tier: mc_bd (PRNG and inject), mc_ia (closed and
+    # general); the notebook builds its own kernels, their counts from 0
+    ns, seconds = run_notebook("09", dev.type)
+    cpu, cpu_seconds = run_notebook("09", "cpu")
+    sweep, inject = ns["runner"].mc, ns["mc"]
+    check_launches("notebook 09 mc_bd PRNG", sweep.launch_count,
+                   ns["runner"].chunks_dispatched, sweep.reference_count)
+    check_launches("notebook 09 mc_bd inject", inject.launch_count,
+                   1 + 1 + 2 + 4, inject.reference_count)
+    ia = {f"{k}": (m.launch_count, m.reference_count)
+          for k, m in ns["ia_kernels"].items()}
+    for key, (got, plain) in ia.items():
+        check_launches(f"notebook 09 mc_ia {key}", got, 1, plain)
+    bd_rel = max(float(np.max(np.abs(ns["caps"] / cpu["caps"] - 1))),
+                 float(((ns["one"].cpu() - cpu["one"]).abs() /
+                        cpu["one"].abs()).max()))
+    ia_rel = max(abs(ns["ia_capacity"][k] / cpu["ia_capacity"][k] - 1)
+                 for k in ns["ia_capacity"])
+    phase("notebook_09", bd_mean_capacity=ns["caps"].tolist(),
+          ia_mean_capacity=compact({str(k): v for k, v in
+                                    ns["ia_capacity"].items()}),
+          sharded_equal=compact(ns["equal"]), bd_card_vs_cpu_rel=bd_rel,
+          ia_card_vs_cpu_rel=ia_rel, mc_bd_prng_launches=sweep.launch_count,
+          mc_bd_inject_launches=inject.launch_count,
+          mc_ia_launches=compact(ia), seconds=seconds,
+          cpu_seconds=cpu_seconds, card=repr(smi))
+    if not all(ns["equal"].values()):
+        raise AssertionError(f"notebook 09: sharded builds {ns['equal']}")
+    if bd_rel > BD_REL_TOL or ia_rel > IA_REL_TOL:
+        raise AssertionError(f"notebook 09: kernels off their plain "
+                             f"versions: BD {bd_rel}, IA {ia_rel}")
+    launches["mc_bd_prng"] = sweep.launch_count + inject.launch_count
+    launches["mc_maxsinr_prng"] = sum(got for got, _ in ia.values())
+    phase("notebook_seconds", phases_47_to_54=time.perf_counter() - start,
+          card=repr(smi))
+    return launches
 
 if __name__ == "__main__":
     sys.exit(main())
