@@ -10,8 +10,10 @@ engines:
   invalid (``__valid__``) and the runner skips it and retries.
 * ``BDKernelCapacityRunner``: the BD CUDA kernel
   (``pyphysim_tpu_torch.ops.bd_kernel.MonteCarloBD``) through the runner's
-  bulk path; a point of the kernel's geometry menu. Degenerate draws are
-  zeroed inside the kernel instead of retried.
+  bulk path; any square (K, Nr_u) with K >= 2 and Nr_u in (1, 2), a
+  geometry outside the prebuilt kernel library compiled on its first
+  launch. Degenerate draws are zeroed inside the kernel instead of
+  retried.
 
 Both sweep the per-BS power (in dB) and report the mean BD sum capacity.
 
@@ -87,7 +89,7 @@ class BatchedBDCapacityRunner(SimulationRunner):
 class BDKernelCapacityRunner(SimulationRunner):
     """The same sweep through the BD kernel on the runner's bulk path: one
     repetition = ``num_tiles * tile * lane`` independent BD solves.
-    ``K`` / ``nr_u`` pick a point of the kernel's geometry menu; the
+    ``K`` / ``nr_u`` pick the geometry (K >= 2, Nr_u in (1, 2)); the
     kernel draws each attempt's channels from its Philox stream."""
 
     def __init__(self, K: int = 2, nr_u: int = 2, tile: int = 8,
@@ -146,7 +148,7 @@ def main():
         label = {"global": "waterfilling", "none": "equal power"}[mode]
         print(f"{label:13s} ({runner.elapsed_time}): "
               + " ".join(f"{c:6.2f}" for c in caps))
-    # the kernel tier at a point of its geometry menu other than the bench's
+    # the kernel tier at a geometry other than the bench's
     kr = BDKernelCapacityRunner(K=2, nr_u=2, device=args.device)
     kr.simulate()
     caps = np.array(kr.results.get_result_values_list("sum_capacity"))

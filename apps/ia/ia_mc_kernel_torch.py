@@ -7,9 +7,10 @@ repetition runs in ONE CUDA kernel (``pyphysim_tpu_torch/ops/ia_kernel.py``
 ``SimulationRunner`` through the bulk-kernel path, as the Alamouti and BD
 kernel apps do: the kernel owns its repetition axis and draws each attempt's
 channels from its Philox stream, while the runner provides the SNR sweep,
-Result accumulation, checkpoint / resume and early stop. ``K`` picks a
-point of the kernel's user-count menu; the noise variance is a run-time
-argument, so one build serves every SNR. On ``device="cpu"`` the plain
+Result accumulation, checkpoint / resume and early stop. ``K`` is any
+user count >= 2 (one outside the prebuilt kernel library compiles on its
+first launch); the noise variance is a run-time argument, so one build
+serves every SNR. On ``device="cpu"`` the plain
 PyTorch version runs on the same Philox bits.
 
 Run: ``python apps/ia/ia_mc_kernel_torch.py [K] [--device cuda]``.

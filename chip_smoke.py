@@ -67,6 +67,20 @@ against its plain PyTorch version on the card:
     app at 4x4 (``ia_feasibility``); each on the card against the CPU on
     the same Philox draws, with its rates, its launches and the device's
     busy time and share from a ``torch.profiler`` trace.
+  * the BD and IA kernels at geometries outside the prebuilt kernel
+    library (phases 55-60, ``geometry_phases``), each geometry built into
+    a library of its own at phase 2 beside the prebuilt one: BD (3, 1)
+    in the prebuilt kernel's form (and in the wide form, which the two
+    are held against each other and timed in), (5, 2), the 7-cell CoMP
+    cluster (7, 2), (8, 2) and (11, 2), whose per-element state is past
+    shared memory; IA (5, 2, 1), (2, 3, 1),
+    (3, 4, 2) and (4, 4, 2); inject parity in every mode, PRNG parity per
+    rep, a rerun and another chunking, the main paths (BD (7, 2) through
+    the bulk runner at bench.py's widths, IA K = 5 through the bulk app, IA
+    (3, 4, 2) through ``MonteCarloMaxSinr.build``), the instances'
+    registers and spills, each library's build seconds, and the times
+    beside the bounds; the 1-rank sharded builds of the three main points
+    equal their unsharded launches (phase 41).
   * the notebooks (phases 47-54, ``notebook_phases``): each of
     ``notebooks/0*_torch.py`` that touches a tensor (all but 07) run at
     its own settings with ``DEVICE="cuda"`` and again on the CPU, the card
@@ -85,6 +99,7 @@ minutes including the nvcc builds, one per source, in parallel).
 """
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -138,6 +153,20 @@ IA_PARITY_TILE = 64                 # inject parity: 32,768 solves per cell
 IA_PLAIN_SLICE = 32                 # reps per plain-version call
 IA_CHAIN_BATCH = 4096                                        # ia_step
 IA_REL_TOL = 2e-4                   # |kernel - plain| / |plain| per cell
+# Geometries outside the prebuilt kernel library, each built into a library
+# of its own at phase 2 (mc_bd.cu's prebuilt form up to NT = 8, else the
+# wide form of mc_bd.cu / mc_ia.cu): BD (K, Nr_u) up to the 7-cell CoMP
+# cluster (7, 2) of the main path, (8, 2) and (11, 2), whose per-element
+# state no longer fits a warp's shared memory; IA
+# (K, N, Ns) with the closed form at K = 5 and the general body at odd N and
+# at the feasibility app's 3-user 4x4 two-stream point
+BD_GEOMETRIES = ((3, 1), (5, 2), (7, 2), (8, 2), (11, 2))
+BD_WIDE_MAIN = (7, 2)
+BD_FORMS = (3, 1)      # built in both forms too: held together and timed
+IA_GEOMETRIES = ((5, 2, 1), (2, 3, 1), (3, 4, 2), (4, 4, 2))
+IA_WIDE_MAIN = ((5, 2, 1), (3, 4, 2))   # runner (closed); build (general)
+WIDE_PRNG_REPS = 8                  # PRNG parity away from the main points
+WIDE_PLAIN_SLICE = 16               # reps per plain-version call (memory)
 # comp_BD scenario (bench.py _bench_comp_bd_scenario, :550-615): SNR 20 dB,
 # Pe 10 dBm, random drops, metrics None / capacity / Whitening
 COMP_BD_SER_CAPACITY = (0.0015, 0.03)
@@ -287,10 +316,9 @@ def sass_bound(profile, nbytes, flops=0):
     in this run (``ops/sass.py``), beside its bytes and f32 operations:
     (per-thread instructions by pipe, bound ms, "bytes" or "operations",
     the pipe that sets it)."""
-    from pyphysim_tpu_torch.ops import _build, sass
-    listing = sass.function_sass(_build.library_path(), profile["pattern"])
-    counts = sass.pipe_counts(listing, profile["loop_trips"],
-                              profile["loops"])
+    from pyphysim_tpu_torch.ops import sass
+    counts = sass.pipe_counts(sass.kernel_sass(profile),
+                              profile["loop_trips"], profile["loops"])
     issue_ms, pipe = sass.issue_bound_ms(counts, profile["threads"])
     ms, by = bound_ms(nbytes=nbytes, flops=flops, issue_ms=issue_ms)
     return counts, ms, by, pipe
@@ -401,12 +429,14 @@ def main() -> int:
           matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
-    # 2. build
+    # 2. build: the prebuilt library and every geometry's own, all nvcc
+    # processes started together
     tic = time.time()
-    lib_path = _build.build()
+    lib_path = _build.build(geometry_builds())
     _build.load()
     phase("build", seconds=time.time() - tic, nvcc_seconds=_build.build_seconds,
-          library=lib_path.name)
+          library=lib_path.name,
+          geometry_libraries=len(_build.geometry_build_seconds))
     log = lib_path.with_suffix(".log")
     for line in log.read_text().splitlines() if log.exists() else []:
         if "entry function" in line or "registers" in line or \
@@ -440,6 +470,7 @@ def main() -> int:
     phases_8_to_12 = chain_phases(dev, smi, fill_err)
     phases_13_to_19 = mimo_bd_phases(dev, smi)
     phases_20_to_26 = ia_phases(dev, smi)
+    wide_entries = geometry_phases(dev, smi)
     comp_bd_fill_err = comp_bd_phases(dev, smi)
     mimo = mimo_phases(dev, smi)
     fir_entry, fill_entry = phases_8_to_12
@@ -456,7 +487,7 @@ def main() -> int:
     fill_entry["launches"] += app_phases(dev, smi)
     notebooks = notebook_phases(dev, smi)
     entries = [*mc_entries, *phases_8_to_12, *phases_13_to_19,
-               phases_20_to_26]
+               phases_20_to_26, *wide_entries]
     for entry in entries:
         more = parallel.get(entry["name"], {})
         # a kernel's launches on this slice's paths join its main path's
@@ -820,6 +851,16 @@ def parallel_phases(dev, smi):
                                               iterations=IA_ITERS, K=3,
                                               device=dev),
                             IA_CHUNK, IA_TILES, (77, IA_NV), 2),
+        # the main points built on first use (phases 55-60)
+        "mc_bd_wide_prng_K{}_Nr{}".format(*BD_WIDE_MAIN): (
+            MonteCarloBD(tile=BD_TILE, lane=BD_LANE, K=BD_WIDE_MAIN[0],
+                         Nr_u=BD_WIDE_MAIN[1], device=dev),
+            BD_CHUNK, BD_TILES, (77,), 1),
+        **{"mc_ia_wide_prng_K{}_N{}_Ns{}".format(*geom): (
+            MonteCarloMaxSinr(tile=IA_TILE, lane=IA_LANE,
+                              iterations=IA_ITERS, K=geom[0], N=geom[1],
+                              Ns=geom[2], device=dev),
+            IA_CHUNK, IA_TILES, (77, IA_NV), 2) for geom in IA_WIDE_MAIN},
     }
     for name, (mc, reps, tiles, args, start_at) in builds.items():
         start = 1000
@@ -1410,7 +1451,8 @@ def mimo_bd_phases(dev, smi):
     check_range("alamouti_chain_path BER at 10 dB", chain_bers[0],
                 ALAMOUTI_BER_10DB)
 
-    # 16. BD: inject parity over the menu and modes; PRNG parity, bitwise
+    # 16. BD: inject parity over the prebuilt geometries and modes; PRNG
+    # parity, bitwise
     # chunk invariance and a bitwise rerun at (3, 2) normalized
     def check_caps(name, got, want, **fields):
         rel = float(((got - want).abs() / want.abs()).max())
@@ -1426,7 +1468,7 @@ def mimo_bd_phases(dev, smi):
     # of 0, so the kernel and the plain version may disagree on such a
     # draw (~1e-6 of the draws); at 4,096 solves per cell one disagreement
     # is ~2e-4 of the cell, at 32,768 it is below 3e-5.
-    for K, NR in bd_kernel.MENU:
+    for K, NR in bd_kernel.PREBUILT:
         for mode in bd_kernel.MODES:
             mc = bd_kernel.MonteCarloBD(tile=BD_PARITY_TILE, lane=BD_LANE,
                                         K=K, Nr_u=NR, mode=mode, device=dev)
@@ -1501,7 +1543,7 @@ def mimo_bd_phases(dev, smi):
     bd_instances = kernel_ptxas("mc_bd_kernel")
     for name, regs in bd_instances.items():
         phase("bd_build", instance=name, ptxas=repr(regs))
-    if len(bd_instances) != 2 * len(bd_kernel.MENU) * len(bd_kernel.MODES):
+    if len(bd_instances) != 2 * len(bd_kernel.PREBUILT) * len(bd_kernel.MODES):
         raise AssertionError(f"bd_build: {len(bd_instances)} mc_bd "
                              f"instances")
     bd_spilling = sorted(n for n, r in bd_instances.items()
@@ -1693,9 +1735,9 @@ def ia_phases(dev, smi):
     instances = kernel_ptxas("mc_ia_(?:closed|general)_kernel")
     for name, regs in instances.items():
         phase("ia_build", instance=name, ptxas=repr(regs))
-    if len(instances) != 2 * len(ia_kernel.MENU):
+    if len(instances) != 2 * len(ia_kernel.PREBUILT):
         raise AssertionError(f"ia_build: {len(instances)} mc_ia instances, "
-                             f"expected {2 * len(ia_kernel.MENU)}")
+                             f"expected {2 * len(ia_kernel.PREBUILT)}")
 
     g = torch.Generator(device=dev).manual_seed(17)
 
@@ -1713,8 +1755,8 @@ def ia_phases(dev, smi):
                                  f"by {float(rel.max())} relative")
         return err
 
-    # 21. inject parity at every menu point, 32,768 solves per cell
-    for K, N, Ns in ia_kernel.MENU:
+    # 21. inject parity at every prebuilt point, 32,768 solves per cell
+    for K, N, Ns in ia_kernel.PREBUILT:
         mc = ia_kernel.MonteCarloMaxSinr(tile=IA_PARITY_TILE, lane=IA_LANE,
                                          iterations=IA_ITERS, K=K, N=N,
                                          Ns=Ns, device=dev)
@@ -1852,6 +1894,393 @@ def ia_phases(dev, smi):
         "bound_by": ia_bound_by,
         "library_ms": None,
     }
+
+
+def wide_form(mc):
+    """``mc`` (a ``MonteCarloBD`` of a geometry up to NT = 8 outside the
+    prebuilt library) launching the wide form instead, from its library
+    built with ``-DMC_BD_WIDE=1``."""
+    source, defines = mc.geometry_build()
+    geometry = (source, {**defines, "MC_BD_WIDE": 1})
+    mc.geometry_build = lambda: geometry
+    return mc
+
+
+def geometry_builds():
+    """``(source, defines)`` of every geometry library the script uses."""
+    from pyphysim_tpu_torch.ops.bd_kernel import MonteCarloBD
+    from pyphysim_tpu_torch.ops.ia_kernel import MonteCarloMaxSinr
+    return [*(MonteCarloBD(K=K, Nr_u=NR, device="cpu").geometry_build()
+              for K, NR in BD_GEOMETRIES),
+            wide_form(MonteCarloBD(K=BD_FORMS[0], Nr_u=BD_FORMS[1],
+                                   device="cpu")).geometry_build(),
+            *(MonteCarloMaxSinr(K=K, N=N, Ns=Ns, device="cpu")
+              .geometry_build() for K, N, Ns in IA_GEOMETRIES)]
+
+
+def bd_solve_flops(K, NR):
+    """The fewest f32 operations one BD solve needs, whatever the kernel (a
+    complex multiply-add 8, a complex product or |x|^2 with its sum 6 /
+    3): the Hermitian Gram H H^H of the joint channel once (its upper
+    triangle, NT (NT + 1) / 2 entries of NT terms), of which every user's B
+    = tilde tilde^H and Y = Hk tilde^H are blocks; then per user the LDL^H
+    of B, the two substitutions on Nr_u columns and the scale, and T = Hk -
+    W^H tilde with its Gram (T T^H as Hk Hk^H - Y W would be cheaper but
+    cancels in float32). Not the water-filling, the channel draws (Philox,
+    erfinvf) or memory traffic, so the bound is a floor. ``mc_bd.cu`` sums
+    B and Y anew for each user, in the plain version's order."""
+    NT, M = K * NR, (K - 1) * NR
+    gram = 8 * NT * (NT * (NT + 1) // 2)
+    user = sum(5 * j + (M - 1 - j) * (10 * j + 2) for j in range(M))
+    user += 8 * NR * M * (M - 1) + 2 * NR * M
+    user += 8 * NR * M * NT + 2 * NR * NT + NT * (3 if NR == 1 else 14)
+    return gram + K * user
+
+
+def ia_solve_flops(K, N, Ns, iters, init_iters):
+    """f32 operations of one Max-SINR solve of the general body as
+    ``mc_ia.cu`` computes it (a complex multiply-add 8): the init (G = M^H
+    M and ``init_iters`` orthogonal-iteration steps a user), 2 iters + 1
+    filter updates (per user: K Ns link products H_kj f, their outer
+    products into Bkl, and per stream the rank-1 downdate, the LDL^H solve
+    and the normalization) and the SINRs; not the channel draws."""
+    ldl = sum(5 * j + (N - 1 - j) * (10 * j + 2) for j in range(N)) + \
+        8 * N * (N - 1) + 2 * N
+    first = K * Ns * 18 * N * N
+    update = K * (first + Ns * (10 * N * N + ldl + 10 * N))
+    init = K * (8 * N ** 3 + init_iters * Ns * (8 * N * N + 8 * Ns * N))
+    final = K * (first + Ns * (18 * N * N + 16 * N))
+    return init + (2 * iters + 1) * update + final
+
+
+def once_ms(fn):
+    """One call of ``fn`` timed by CUDA events (its warm-up ran before)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop)
+
+
+def plain_slices(fn, reps, start=0):
+    """The plain version ``fn(n, start)`` over ``reps`` reps in slices of
+    ``WIDE_PLAIN_SLICE`` (bounds its memory): (reps, num_tiles)."""
+    import torch
+    return torch.cat([fn(min(WIDE_PLAIN_SLICE, reps - r), start + r)
+                      for r in range(0, reps, WIDE_PLAIN_SLICE)])
+
+
+def geometry_phases(dev, smi):
+    """Phases 55-60: the BD and IA kernels at geometries outside the
+    prebuilt library, each from its own library built at phase 2 (BD up
+    to NT = 8 in the prebuilt kernel's form, else the kernels' wide form;
+    BD ``BD_FORMS`` in both, held together and timed): the instances'
+    registers and spills and each
+    library's build seconds; inject parity at every geometry (and BD mode)
+    per 32,768-solve cell; PRNG parity per rep, a bitwise rerun and another
+    chunking; the main paths (BD (7, 2) through ``BDKernelCapacityRunner``'s
+    bulk path at bench.py's widths, IA K = 5 through
+    ``IaMcKernelSimulationRunner``, IA (3, 4, 2) through
+    ``MonteCarloMaxSinr.build``) with their launches and no plain call; and
+    their times beside their bounds. Returns their ``kernels`` entries."""
+    import numpy as np
+    import torch
+    from apps.comp_BD.batched_bd_capacity_torch import \
+        BDKernelCapacityRunner
+    from apps.ia.ia_mc_kernel_torch import IaMcKernelSimulationRunner
+    from pyphysim_tpu_torch.ops import _build, sass
+    from pyphysim_tpu_torch.ops.bd_kernel import MODES, MonteCarloBD
+    from pyphysim_tpu_torch.ops.ia_kernel import MonteCarloMaxSinr
+
+    # 55. the geometry libraries phase 2 built: seconds, registers, spills
+    spilling = []
+    for source, defines in geometry_builds():
+        path = _build.library_path((source, defines))
+        log = path.with_suffix(".log")
+        info = ptxas_info(log.read_text() if log.exists() else "",
+                          "mc_(?:bd|ia)_(?:wide_)?kernel")
+        phase("geometry_build", library=path.name, geometry=compact(defines),
+              seconds=_build.geometry_build_seconds.get(path.name),
+              instances=len(info))
+        for name, regs in info.items():
+            phase("geometry_build", instance=name, ptxas=repr(regs))
+            if " 0 bytes spill stores" not in regs:
+                spilling.append(name)
+        if len(info) != (2 * len(MODES) if source == "mc_bd" else 2):
+            raise AssertionError(f"geometry_build: {len(info)} instances "
+                                 f"in {path.name}")
+    phase("geometry_spills", spilling_instances=len(spilling),
+          names=compact(sorted(spilling)))
+
+    g = torch.Generator(device=dev).manual_seed(55)
+
+    def bits(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                             device=dev, generator=g)
+
+    def check_rel(name, got, want, limit, **fields):
+        rel = (got - want).abs() / want.abs()
+        err = float((got - want).abs().max())
+        phase(name, max_rel_cell_diff=float(rel.max()),
+              max_abs_cell_diff=err, limit=limit,
+              total_cap=float(want.sum()), **fields)
+        if not float(rel.max()) <= limit:
+            raise AssertionError(f"{name}: kernel and plain version differ "
+                                 f"by {float(rel.max())} relative")
+        return err
+
+    def check_repeat(name, mc_build, k_main, args, start_at):
+        """A rerun and another chunking (reps 4-7 from attempt 4) give the
+        same bits."""
+        def call(reps, start):
+            a = list(args)
+            a.insert(start_at, start)
+            return mc_build(reps, k_main.shape[1])(*a)
+        k4, again = call(4, 4), call(k_main.shape[0], 0)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(k_main[4:8], k4))
+        rerun = bool(torch.equal(k_main, again))
+        phase(name, rows_4_to_7_equal_start_4=same,
+              rerun_bitwise_equal=rerun)
+        if not (same and rerun):
+            raise AssertionError(f"{name}: not bitwise reproducible")
+
+    # 56. BD: inject parity at every geometry and mode, PRNG parity per rep
+    # (16,384 solves), rerun and chunking
+    seed = 4242
+    for K, NR in BD_GEOMETRIES:
+        for mode in MODES:
+            mc = MonteCarloBD(tile=BD_PARITY_TILE, lane=BD_LANE, K=K,
+                              Nr_u=NR, mode=mode, device=dev)
+            ch = bits(2, 2 * BD_PARITY_TILE, mc.num_planes * BD_LANE)
+            got = mc.build_inject(2, 2)(ch)
+            want = mc.simulate_block_reference(ch)
+            torch.cuda.synchronize()
+            check_rel(f"wide_bd_inject_parity K={K} Nr_u={NR} {mode}", got,
+                      want, BD_REL_TOL, launches=mc.launch_count)
+        if (K, NR) == BD_WIDE_MAIN:
+            continue
+        mc = MonteCarloBD(tile=BD_TILE, lane=BD_LANE, K=K, Nr_u=NR,
+                          device=dev)
+        k_main = mc.build(WIDE_PRNG_REPS, BD_TILES)(seed, 0)
+        p_main = plain_slices(lambda n, s: mc.prng_reference(
+            n, BD_TILES, seed, s), WIDE_PRNG_REPS)
+        check_rel(f"wide_bd_prng_parity per rep K={K} Nr_u={NR}",
+                  k_main.sum(dim=1), p_main.sum(dim=1), BD_REL_TOL,
+                  reps=WIDE_PRNG_REPS)
+        check_repeat(f"wide_bd_chunk_invariance K={K} Nr_u={NR}", mc.build,
+                     k_main, (seed,), 1)
+
+    # 57. the main path at (7, 2): the bulk runner at bench.py's widths,
+    # two chunks of 128 reps x 4 tiles x 8 x 512 (2.1e6 solves each)
+    K, NR = BD_WIDE_MAIN
+    pu_db = [0.0, float(10 * np.log10(10.0 / 3)), 10.0]
+    runner = BDKernelCapacityRunner(K=K, nr_u=NR, tile=BD_TILE, lane=BD_LANE,
+                                    num_tiles=BD_TILES, device=dev,
+                                    read_command_line_args=False)
+    sweep_runner(runner, "Pu_dB", pu_db, 2 * BD_CHUNK, BD_CHUNK)
+    runner.mc.launch_count = 0
+    runner.mc.reference_count = 0
+    caps, seconds = run_sweep_values(runner, "sum_capacity")
+    bd_launches = runner.mc.launch_count
+    phase("wide_bd_path", geometry=f"K={K},Nr_u={NR}", pu_db=pu_db,
+          mean_sum_capacity=caps, runned_reps=runner.runned_reps,
+          seconds=seconds, kernel_launches=bd_launches,
+          chunks=runner.chunks_dispatched,
+          plain_calls=runner.mc.reference_count)
+    if not (caps[0] < caps[1] < caps[2] and all(np.isfinite(caps))):
+        raise AssertionError("wide_bd_path: capacity does not rise with Pu")
+    check_launches("wide_bd_path", bd_launches, runner.chunks_dispatched,
+                   runner.mc.reference_count)
+    # PRNG parity over the main path's chunk, per rep; rerun and chunking
+    mcb = MonteCarloBD(tile=BD_TILE, lane=BD_LANE, K=K, Nr_u=NR, device=dev)
+    run_b = mcb.build(BD_CHUNK, BD_TILES)
+    k_main = run_b(seed, 0)
+    p_main = plain_slices(lambda n, s: mcb.prng_reference(
+        n, BD_TILES, seed, s), BD_CHUNK)
+    cell_rel = (k_main - p_main).abs() / p_main.abs()
+    bd_err = check_rel(
+        f"wide_bd_prng_parity per rep K={K} Nr_u={NR}", k_main.sum(dim=1),
+        p_main.sum(dim=1), BD_REL_TOL, reps=BD_CHUNK,
+        max_rel_diff_4096_solve_cell=float(cell_rel.max()),
+        cells_over_limit=int((cell_rel > BD_REL_TOL).sum()))
+    check_repeat(f"wide_bd_chunk_invariance K={K} Nr_u={NR}", mcb.build,
+                 k_main, (seed,), 1)
+
+    # 58. IA: inject parity at every geometry (10 iterations, noise 0.1),
+    # PRNG parity per rep, rerun and chunking
+    ia_mcs = {}
+    for K, N, Ns in IA_GEOMETRIES:
+        mc = MonteCarloMaxSinr(tile=IA_PARITY_TILE, lane=IA_LANE,
+                               iterations=IA_ITERS, K=K, N=N, Ns=Ns,
+                               device=dev)
+        ch = bits(2, 2 * IA_PARITY_TILE, mc.num_planes * IA_LANE)
+        got = mc.build_inject(2, 2)(ch, IA_NV)
+        want = mc.simulate_block_reference(ch, IA_NV)
+        torch.cuda.synchronize()
+        check_rel(f"wide_ia_inject_parity K={K} N={N} Ns={Ns}", got, want,
+                  IA_REL_TOL)
+        mc = MonteCarloMaxSinr(tile=IA_TILE, lane=IA_LANE,
+                               iterations=IA_ITERS, K=K, N=N, Ns=Ns,
+                               device=dev)
+        reps = IA_CHUNK if (K, N, Ns) in IA_WIDE_MAIN else WIDE_PRNG_REPS
+        mc.launch_count = 0
+        k_main = mc.build(reps, IA_TILES)(seed, IA_NV, 0)
+        launches = mc.launch_count
+        p_main = plain_slices(lambda n, s: mc.prng_reference(
+            n, IA_TILES, seed, IA_NV, s), reps)
+        cell_rel = (k_main - p_main).abs() / p_main.abs()
+        err = check_rel(
+            f"wide_ia_prng_parity per rep K={K} N={N} Ns={Ns}",
+            k_main.sum(dim=1), p_main.sum(dim=1), IA_REL_TOL, reps=reps,
+            max_rel_diff_4096_solve_cell=float(cell_rel.max()),
+            cells_over_limit=int((cell_rel > IA_REL_TOL).sum()))
+        check_repeat(f"wide_ia_chunk_invariance K={K} N={N} Ns={Ns}",
+                     mc.build, k_main, (seed, IA_NV), 2)
+        ia_mcs[K, N, Ns] = (mc, k_main, p_main, err, launches)
+
+    # 59. the main paths of IA: K = 5 through the bulk runner, (3, 4, 2)
+    # through MonteCarloMaxSinr.build (its launches in phase 58)
+    snrs = [0.0, 10.0, 20.0]
+    K = IA_WIDE_MAIN[0][0]
+    runner = IaMcKernelSimulationRunner(K=K, tile=IA_TILE, lane=IA_LANE,
+                                        num_tiles=IA_TILES,
+                                        iterations=IA_ITERS, device=dev,
+                                        read_command_line_args=False)
+    sweep_runner(runner, "SNR", snrs, 2 * IA_CHUNK, IA_CHUNK)
+    runner.mc.launch_count = 0
+    runner.mc.reference_count = 0
+    ia_caps, seconds = run_sweep_values(runner, "sum_capacity")
+    ia_launches = runner.mc.launch_count
+    phase("wide_ia_path", geometry=f"K={K},N=2,Ns=1", snr_db=snrs,
+          mean_sum_capacity=ia_caps, runned_reps=runner.runned_reps,
+          seconds=seconds, kernel_launches=ia_launches,
+          chunks=runner.chunks_dispatched,
+          plain_calls=runner.mc.reference_count)
+    if not ia_caps[0] < ia_caps[1] < ia_caps[2]:
+        raise AssertionError("wide_ia_path: capacity does not rise with SNR")
+    check_launches("wide_ia_path", ia_launches, runner.chunks_dispatched,
+                   runner.mc.reference_count)
+    ia_mcs[IA_WIDE_MAIN[0]] = ia_mcs[IA_WIDE_MAIN[0]][:4] + (ia_launches,)
+
+    # 60. times (CUDA events: the kernel best of 3 after a warm-up, the
+    # plain version once over the chunk, its parity run the warm-up) and
+    # bounds: the SASS issue bound where the profile lists the loops (IA
+    # K = 5), else the solve's f32 operations at 67 TFLOP/s
+    entries = []
+    wide = [("mc_bd", BD_WIDE_MAIN, mcb, bd_err, bd_launches,
+             lambda: run_b(seed, 0),
+             lambda: plain_slices(lambda n, s: mcb.prng_reference(
+                 n, BD_TILES, seed, s), BD_CHUNK),
+             bd_solve_flops(*BD_WIDE_MAIN), BD_CHUNK, BD_TILES,
+             "pyphysim_tpu/ops/bd_pallas.py:282")]
+    for geom in IA_WIDE_MAIN:
+        mc, _, _, err, launches = ia_mcs[geom]
+        run_i = mc.build(IA_CHUNK, IA_TILES)
+        wide.append(("mc_ia", geom, mc, err, launches,
+                     functools.partial(run_i, seed, IA_NV, 0),
+                     functools.partial(
+                         plain_slices, functools.partial(
+                             lambda m, n, s: m.prng_reference(
+                                 n, IA_TILES, seed, IA_NV, s), mc), IA_CHUNK),
+                     ia_solve_flops(*geom, IA_ITERS, mc.init_iters),
+                     IA_CHUNK, IA_TILES,
+                     "pyphysim_tpu/ops/ia_pallas.py:480"))
+    for (source, geom, mc, err, launches, kernel, plain, flops, reps, tiles,
+         replaces) in wide:
+        ms = best_ms(kernel, inner=3)
+        plain_ms = once_ms(plain)
+        solves = reps * tiles * mc.solves_per_grid_step
+        nbytes = 4 * reps * tiles        # outputs only, nothing read
+        profile = mc.prng_kernel_profile(reps, tiles) \
+            if source == "mc_bd" or mc.closed_form else {"loops": None}
+        if profile["loops"] is None:
+            bound, bound_by = bound_ms(nbytes=nbytes, flops=flops * solves)
+            counts, pipe = None, "f32 operations"
+        else:
+            counts, bound, bound_by, pipe = sass_bound(profile, nbytes,
+                                                       flops * solves)
+        tag = "_".join(f"{k}{v}" for k, v in zip(
+            ("K", "Nr") if source == "mc_bd" else ("K", "N", "Ns"), geom))
+        phase("wide_times", card=repr(smi), kernel=f"{source}_{tag}",
+              shape=f"reps={reps},tiles={tiles},tile={mc.tile},"
+              f"lane={mc.lane}", kernel_ms=ms,
+              solves_per_s=solves / ms * 1e3, bound_ms=bound,
+              bound_by=bound_by, bound_pipe=pipe,
+              flops_per_solve=flops,
+              sass_per_thread=compact(counts) if counts else None,
+              share_of_bound=bound / ms, plain_ms=plain_ms,
+              launches=launches)
+        entries.append({
+            "name": f"{source}_wide_prng_{tag}",
+            "route": "cuda",
+            "source": f"pyphysim_tpu_torch/ops/csrc/{source}.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": ms,
+            "timed_by": "wrapper_events",
+            "wrapper_ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": bound_by,
+            "library_ms": None,
+        })
+    # every other geometry's PRNG kernel at the same chunk (best of 2 after
+    # a warm-up) beside its f32-operation bound
+    others = [MonteCarloBD(tile=BD_TILE, lane=BD_LANE, K=K, Nr_u=NR,
+                           device=dev) for K, NR in BD_GEOMETRIES
+              if (K, NR) != BD_WIDE_MAIN]
+    others += [MonteCarloMaxSinr(tile=IA_TILE, lane=IA_LANE,
+                                 iterations=IA_ITERS, K=K, N=N, Ns=Ns,
+                                 device=dev)
+               for K, N, Ns in IA_GEOMETRIES if (K, N, Ns) not in IA_WIDE_MAIN]
+    for mc in others:
+        bd = isinstance(mc, MonteCarloBD)
+        run = mc.build(BD_CHUNK if bd else IA_CHUNK,
+                       BD_TILES if bd else IA_TILES)
+        args = (seed, 0) if bd else (seed, IA_NV, 0)
+        ms = best_ms(lambda: run(*args), repeat=2)
+        solves = (BD_CHUNK * BD_TILES if bd else IA_CHUNK * IA_TILES) * \
+            mc.solves_per_grid_step
+        flops = bd_solve_flops(mc.K, mc.Nr_u) if bd else ia_solve_flops(
+            mc.K, mc.N, mc.Ns, IA_ITERS, mc.init_iters)
+        bound, _ = bound_ms(flops=flops * solves)
+        phase("wide_geometry_times", card=repr(smi),
+              kernel=f"mc_bd K={mc.K} Nr_u={mc.Nr_u}" if bd else
+              f"mc_ia K={mc.K} N={mc.N} Ns={mc.Ns}", solves=solves,
+              kernel_ms=ms, flop_bound_ms=bound, share_of_bound=bound / ms,
+              form=("wide" if mc.wide_form else "tile") if bd else "wide")
+    # BD_FORMS in the prebuilt kernel's form (its library's) and in the
+    # wide form: the same draws within BD_REL_TOL per rep, and each timed
+    # at the same chunk, alternately (best of 3, twice each)
+    K, NR = BD_FORMS
+    runs = {form: mc.build(BD_CHUNK, BD_TILES) for form, mc in (
+        ("tile", MonteCarloBD(tile=BD_TILE, lane=BD_LANE, K=K, Nr_u=NR,
+                              device=dev)),
+        ("wide", wide_form(MonteCarloBD(tile=BD_TILE, lane=BD_LANE, K=K,
+                                        Nr_u=NR, device=dev))))}
+    caps = {form: run(seed, 0).sum(dim=1) for form, run in runs.items()}
+    torch.cuda.synchronize()
+    check_rel(f"bd_forms_parity per rep K={K} Nr_u={NR}", caps["wide"],
+              caps["tile"], BD_REL_TOL, reps=BD_CHUNK)
+    times = {form: float("inf") for form in runs}
+    for _ in range(2):
+        for form, run in runs.items():
+            times[form] = min(times[form],
+                              best_ms(functools.partial(run, seed, 0)))
+    solves = BD_CHUNK * BD_TILES * BD_TILE * BD_LANE
+    bound, _ = bound_ms(flops=bd_solve_flops(K, NR) * solves)
+    phase("bd_form_times", card=repr(smi), kernel=f"mc_bd K={K} Nr_u={NR}",
+          solves=solves, tile_form_ms=times["tile"],
+          wide_form_ms=times["wide"],
+          wide_over_tile=times["wide"] / times["tile"],
+          flop_bound_ms=bound)
+    return entries
 
 
 def comp_bd_runner(dev, metrics, rep_max, batch, config=None,

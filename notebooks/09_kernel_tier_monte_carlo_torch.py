@@ -19,8 +19,10 @@
 # | Max-SINR IA sum capacity | `ops.ia_kernel.MonteCarloMaxSinr` | 1.3021 ms, 2,097,152 solves at (3, 2, 1), 10 iterations |
 # | BD CoMP sum capacity | `ops.bd_kernel.MonteCarloBD` | 0.5840 ms, 2,097,152 solves at (3, 2) |
 #
-# Each kernel has a GEOMETRY MENU (users x antennas x streams) and can
-# split its repetition axis over the ranks of a device mesh bit for bit.
+# Each kernel takes every geometry its JAX counterpart takes (users x
+# antennas x streams; one outside the prebuilt kernel library is compiled
+# into a library of its own on its first launch) and can split its
+# repetition axis over the ranks of a device mesh bit for bit.
 # Every kernel sits beside its plain PyTorch version, which takes CPU
 # tensors; the kernels' randomness is injectable (`build_inject`), so the
 # same math runs on the card and on the CPU from the same bits.
@@ -72,14 +74,15 @@ print("per-BS power (dB):", runner.results.params["Pu_dB"])
 print("mean BD sum capacity (b/s/Hz):", np.round(caps, 2))
 
 # %% [markdown]
-# ## The IA kernel's menu: users x antennas x streams
+# ## The IA kernel's geometries: users x antennas x streams
 #
 # `MonteCarloMaxSinr(K=, N=, Ns=)` picks the kernel instance from the
 # geometry. The (N, Ns) = (2, 1) point runs closed-form 2x2 algebra
 # (`mc_ia_closed_kernel`); other points (e.g. 4x4 antennas, 2 streams a
 # user) run the general kernel with unrolled LDL^H solves
-# (`mc_ia_general_kernel`). The bits are numpy's, injected, so the JAX
-# package's kernel bodies can be held to the same numbers.
+# (`mc_ia_general_kernel`); a geometry outside the prebuilt library runs
+# the same bodies in `mc_ia_wide_kernel`. The bits are numpy's, injected,
+# so the JAX package's kernel bodies can be held to the same numbers.
 
 # %%
 from pyphysim_tpu_torch.ops.ia_kernel import MonteCarloMaxSinr

@@ -14,9 +14,13 @@ user's projection on the other users' null space by an LDL^H solve, the
 stream gains (closed-form 2x2 eigenvalues at Nr_u = 2), branch-free
 water-filling with per-BS normalization (``"normalized"``), the
 water-filling powers as they are (``"global"``) or equal power
-(``"none"``), and the scale-relative guard. The kernel is instantiated for
-the geometry menu ``MENU``; ``iPu`` and ``noise_var`` are run-time
-arguments. Two bit sources:
+(``"none"``), and the scale-relative guard. Any ``K >= 2`` and ``Nr_u`` in
+(1, 2) runs, as in the JAX kernel: the prebuilt library holds the
+geometries ``PREBUILT``, and any other is compiled into a library of its
+own on its first launch (``ops/_build.py`` ``load(geometry)``: the
+prebuilt kernel's form up to ``NT = tile_form_max_nt()``, the wide form
+above); ``iPu`` and ``noise_var`` are run-time arguments. Two bit
+sources:
 
   * PRNG mode (:meth:`MonteCarloBD.build`): Philox4x32-10 streams of the
     absolute attempt (layout in ``ops/philox.py``), drawn in registers by
@@ -45,22 +49,35 @@ from .mc_kernel import _as_bits
 from .planes import (EPS, cabs2, gram_full, gram_rows, herm2_eigvals,
                      herm_solve_cols_ldl, mat_H, mat_mul, mat_sub)
 
-__all__ = ["MonteCarloBD", "MENU", "MODES", "from_jax_attrs"]
+__all__ = ["MonteCarloBD", "PREBUILT", "MODES", "from_jax_attrs"]
 
-MENU = ((2, 1), (2, 2), (3, 2), (4, 1), (4, 2))   # (K, Nr_u) instantiated
+# (K, Nr_u) in the prebuilt library; any other builds on its first launch
+PREBUILT = ((2, 1), (2, 2), (3, 2), (4, 1), (4, 2))
 MODES = ("normalized", "global", "none")           # the kernel's mode codes
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "mc_bd.cu"
 
 
-@functools.lru_cache(maxsize=1)
-def block_threads() -> int:
-    """``kThreads`` of ``ops/csrc/mc_bd.cu``, the threads of a block (one
-    element each), read from the source so that the SASS profile cannot
-    drift from the kernel."""
-    m = re.search(r"constexpr int kThreads = (\d+);", _SOURCE.read_text())
+@functools.lru_cache(maxsize=None)
+def _source_constant(name: str) -> int:
+    """The ``constexpr int`` ``name`` of ``ops/csrc/mc_bd.cu``, read from
+    the source so that the wrapper cannot drift from the kernel."""
+    m = re.search(rf"constexpr int {name} = (\d+);", _SOURCE.read_text())
     if m is None:
-        raise RuntimeError(f"{_SOURCE.name} defines no kThreads")
+        raise RuntimeError(f"{_SOURCE.name} defines no {name}")
     return int(m.group(1))
+
+
+def block_threads() -> int:
+    """``kThreads`` of ``mc_bd.cu``: the threads of a block (one element
+    each) of the prebuilt kernel's form."""
+    return _source_constant("kThreads")
+
+
+def tile_form_max_nt() -> int:
+    """``kTileFormMaxNt`` of ``mc_bd.cu``: the largest NT that a library
+    built for one geometry runs in the prebuilt kernel's form (the wide
+    form above it)."""
+    return _source_constant("kTileFormMaxNt")
 
 
 def _f32(x) -> float:
@@ -83,9 +100,11 @@ class MonteCarloBD:
             raise ValueError("tile must be a multiple of 8")
         if lane < 128 or lane % 128:
             raise ValueError("lane must be a multiple of 128")
-        if (K, Nr_u) not in MENU:
-            raise ValueError(f"(K, Nr_u) = {(K, Nr_u)} is not in the "
-                             f"kernel's geometry menu {MENU}")
+        if K < 2:
+            raise ValueError("K must be >= 2")
+        if Nr_u not in (1, 2):
+            raise ValueError("Nr_u must be 1 or 2 (closed-form per-user "
+                             "eigenvalues)")
         if mode not in MODES:
             raise ValueError(f"Unknown mode: {mode!r}")
         self.device = require_cuda(device)
@@ -109,21 +128,52 @@ class MonteCarloBD:
     def solves_per_grid_step(self) -> int:
         return self.tile * self.lane
 
+    @property
+    def prebuilt(self) -> bool:
+        """True if the prebuilt library holds this geometry."""
+        return (self.K, self.Nr_u) in PREBUILT
+
+    @property
+    def wide_form(self) -> bool:
+        """True if the kernel runs in the wide form (``mc_bd_wide_kernel``:
+        a geometry built on first use above ``tile_form_max_nt()``)."""
+        return (not self.prebuilt and
+                self.K * self.Nr_u > tile_form_max_nt())
+
+    def geometry_build(self):
+        """``(source, defines)`` of this geometry's own library for
+        ``ops/_build.py``, or None if it is prebuilt."""
+        if self.prebuilt:
+            return None
+        return "mc_bd", {"MC_BD_K": self.K, "MC_BD_NR": self.Nr_u}
+
     def prng_kernel_profile(self, reps: int, num_tiles: int
                             ) -> Dict[str, object]:
         """What ``ops/sass.py`` needs to count one PRNG-mode call's
-        instructions: the kernel instance's mangled-name pattern, the
-        threads launched (one a solve), and its loops with their trips in
-        listing order: the Philox calls that fill a thread's channel, then
-        for each user (the user loop is unrolled) two passes over the
-        columns of H. The rest is unrolled."""
+        instructions: the library and the kernel instance's mangled-name
+        pattern, the threads launched (one a solve), and its loops with
+        their trips in listing order: the Philox calls that fill two
+        entries of a thread's channel (at odd NT one more, unrolled, fills
+        the last), then for each user (the user loop is unrolled) two passes
+        over the columns of H. The rest is unrolled. The wide form
+        (:attr:`wide_form`) nests rolled loops whose trips depend on the
+        row (the LDL^H's triangles): its ``loops`` is None, so its bound
+        comes from the solve's operations instead."""
+        from . import _build
+        mode = MODES.index(self.mode)
+        library = _build.library_path(self.geometry_build())
+        if self.wide_form:
+            return {"library": library,
+                    "pattern": (f"mc_bd_wide_kernelILi{self.K}ELi"
+                                f"{self.Nr_u}ELi{mode}ELb0EE"),
+                    "threads": reps * num_tiles * self.tile * self.lane,
+                    "loops": None, "loop_trips": None}
         threads = block_threads()
         parts = -(-self.tile * self.lane // threads)
         nt = self.K * self.Nr_u
         trips = [self.num_planes // 4] + [nt, nt] * self.K
-        pattern = (f"mc_bd_kernelILi{self.K}ELi{self.Nr_u}ELi"
-                   f"{MODES.index(self.mode)}ELb0EE")
-        return {"pattern": pattern,
+        pattern = f"mc_bd_kernelILi{self.K}ELi{self.Nr_u}ELi{mode}ELb0EE"
+        return {"library": library, "pattern": pattern,
                 "threads": reps * num_tiles * parts * threads,
                 "loops": len(trips), "loop_trips": trips}
 
@@ -341,21 +391,26 @@ class MonteCarloBD:
         from . import _build
         ipu, nv = self._scalars(iPu, noise_var)
         dev = self.device if bits is None else bits.device
-        lib = _build.load()
+        lib = _build.load(self.geometry_build())
         parts = lib.mc_bd_num_parts(self.tile, self.lane)
         partial = torch.empty(reps * num_tiles * parts, dtype=torch.float32,
                               device=dev)
         out = torch.empty((reps, num_tiles), dtype=torch.float32, device=dev)
+        scratch = _build.state_buffer(lib.mc_bd_scratch_bytes(
+            reps, num_tiles, self.tile, self.lane), dev,
+            f"MonteCarloBD(K={self.K}, Nr_u={self.Nr_u})")
         geom = (reps, num_tiles, self.tile, self.lane, self.K, self.Nr_u,
                 MODES.index(self.mode), ipu, nv)
         stream = torch.cuda.current_stream(dev).cuda_stream
         if bits is None:
             rc = lib.mc_bd_prng(out.data_ptr(), partial.data_ptr(), *geom,
-                                seed & 0xFFFFFFFF, start, stream)
+                                seed & 0xFFFFFFFF, start, scratch.data_ptr(),
+                                stream)
         else:
             rc = lib.mc_bd_inject(bits.data_ptr(), out.data_ptr(),
                                   partial.data_ptr(), *geom, bits.stride(0),
-                                  bits.stride(1), stream)
+                                  bits.stride(1), scratch.data_ptr(),
+                                  stream)
         _build.check(rc, "mc_bd_prng" if bits is None else "mc_bd_inject")
         self.launch_count += 1
         return out

@@ -52,7 +52,13 @@
 //     or giving a thread 2 or 4 elements, was slower than this form
 //     (bin/tune_bd_kernel.py times these variants; ops/bd_kernel.py's SASS
 //     profile lists the loops);
-//   * (K, Nr_u) and the mode are template parameters (the menu below).
+//   * (K, Nr_u) and the mode are template parameters: the prebuilt
+//     library holds the five geometries below, and any other is built on
+//     its first use with -DMC_BD_K=.. -DMC_BD_NR=.. (ops/_build.py): in
+//     this form while NT <= kTileFormMaxNt (the prebuilt (4, 2)'s NT;
+//     odd NT leaves the last Philox call of an element half used), else
+//     in the wide form at the end of this note (-DMC_BD_WIDE=1 asks for
+//     the wide form at any NT, so that the two can be compared).
 // Shared memory per block of 128 threads: NT^2 x 1 KB (36 KB at (3, 2),
 // 64 KB at (4, 2), above the 48 KB default, opted in per launch).
 // __launch_bounds__ caps registers at 128 for NT <= 6 (four blocks a SM)
@@ -66,6 +72,33 @@
 // shuffle tree, then its warps), writes one partial, and a second pass
 // adds a (rep, tile)'s partials in order. No float atomics: a rerun and
 // another chunking give the same bits.
+//
+// The wide form (mc_bd_wide_kernel, geometries built on first use above
+// NT = kTileFormMaxNt). There the design above breaks: H alone takes NT^2
+// KB a block of 128 threads (196 KB at (7, 2), 256 KB at (8, 2), past the
+// 227 KB a block may opt in to), and B, M x M complex, no longer fits in
+// 255 registers a thread (288 floats at (7, 2)). So the wide form
+// (wide.cuh):
+//   * runs one element a thread in blocks of ONE warp, and keeps the whole
+//     state of an element in a per-thread column, entry n at col[n * 32]:
+//     H (NT^2), B (M^2; L and (D, 1/D) overwrite it in place) and the
+//     right-hand side X (M x Nr_u, W = B^-1 Y^H when solved). A warp's
+//     access to an entry is 256 consecutive bytes, free of bank conflicts;
+//   * the column lives in dynamic shared memory while a warp's columns fit
+//     (kState x 256 B <= 227 KB: up to (10, 2) and (21, 1)); past that in
+//     the scratch buffer of wide.cuh (mc_bd_scratch_bytes says how large);
+//     loads stay coalesced, and L1 / L2 hold the hot rows;
+//   * every loop over users, rows of B and the LDL^H steps is rolled
+//     (run-time offsets), so the code stays small at any K; the loops over
+//     the NT columns of a row are unrolled with the row in registers (the
+//     sums of B and Y read one entry of shared memory per complex
+//     multiply-add, the projection T keeps its Nr_u x NT sums in
+//     registers). Sums run in the order of the plain version, as above;
+//   * the water-filling and the guard are the menu form's.
+// What bounds it: shared-memory traffic, one 8-byte load a complex
+// multiply-add (a SM serves 16 of them a clock against 32 complex FMAs),
+// then the solve's f32 operations. chip_smoke.py prints each instance's
+// registers and spills and holds the kernel to its plain version.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,13 +106,25 @@
 
 #include "philox.cuh"
 #include "planes.cuh"
+#include "wide.cuh"
 
 namespace {
 
 using planes::cf;
 
 constexpr int kThreads = 128;  // one element a thread
+constexpr int kTileFormMaxNt = 8;  // the largest NT of mc_bd_kernel
 constexpr int kStaticSmemLimit = 48 * 1024;
+#ifdef MC_BD_K
+#ifndef MC_BD_WIDE
+#define MC_BD_WIDE 0
+#endif
+// a library of one geometry: mc_bd_kernel, or the wide form above its NT
+constexpr bool kWideForm = MC_BD_WIDE || MC_BD_K * MC_BD_NR > kTileFormMaxNt;
+#else
+constexpr bool kWideForm = false;
+#endif
+constexpr int kBlockThreads = kWideForm ? wide::kThreads : kThreads;
 constexpr uint32_t kChannelKey = 5u;  // ops/philox.py BD_CHANNEL_KEY
 enum Mode { kNormalized = 0, kGlobal = 1, kNone = 2 };
 
@@ -92,6 +137,8 @@ struct Params {
   float ipu, nv;
   uint32_t seed;
   long long start;
+  float2* scratch;  // the wide form past shared memory: its state slots
+  int blocks;       // blocks of the whole launch (the wide form walks them)
 };
 
 // Bytes of s_H for an NT x NT channel per thread of a block.
@@ -112,6 +159,25 @@ constexpr int min_blocks() {
 __device__ __forceinline__ cf load_h(const float2* col, int e) {
   const float2 v = col[e * kThreads];
   return {v.x, v.y};
+}
+
+// The stream gains of user k from the Gram of its projection T (p, q, r;
+// Nr_u = 1: p = |T|^2), written to gains[NR k ...] (k may be a run-time
+// index: the gains stay in registers).
+template <int K, int NR>
+__device__ __forceinline__ void store_gains(float p, cf q, float r, int k,
+                                            float (&gains)[K * NR]) {
+  float g0 = fmaxf(p, 0.f), g1 = 0.f;  // sigma^2
+  if constexpr (NR == 2) {
+    float l0, l1;
+    planes::herm2_eigvals(p, q, r, l0, l1);
+    g0 = fmaxf(l0, 0.f);  // descending
+    g1 = fmaxf(l1, 0.f);
+  }
+#pragma unroll
+  for (int i = 0; i < K * NR; ++i) {
+    gains[i] = i == NR * k ? g0 : (NR == 2 && i == NR * k + 1 ? g1 : gains[i]);
+  }
 }
 
 // The stream gains of user k: sigma^2 of T = Hk - W^H tilde (Nr_u = 1:
@@ -198,31 +264,16 @@ __device__ __forceinline__ void user_gains(const float2* col, int k,
       q = planes::cadd(q, planes::cmulc(T[0], T[1]));
     }
   }
-  float g0 = fmaxf(p, 0.f), g1 = 0.f;  // sigma^2
-  if constexpr (NR == 2) {
-    float l0, l1;
-    planes::herm2_eigvals(p, q, r, l0, l1);
-    g0 = fmaxf(l0, 0.f);  // descending
-    g1 = fmaxf(l1, 0.f);
-  }
-#pragma unroll
-  for (int i = 0; i < K * NR; ++i) {
-    gains[i] = i == NR * k ? g0 : (NR == 2 && i == NR * k + 1 ? g1 : gains[i]);
-  }
+  store_gains<K, NR>(p, q, r, k, gains);
 }
 
-// Sum capacity of one element (0 for a degenerate draw): _solve_block +
-// _guarded of bd_pallas.py, in the same order.
+// Sum capacity of one element from its stream gains (0 for a degenerate
+// draw): the water-filling of _solve_block and _guarded of bd_pallas.py,
+// in the same order.
 template <int K, int NR, int MODE>
-__device__ __forceinline__ float solve_element(const float2* col, float nv,
-                                               float ipu) {
+__device__ __forceinline__ float capacity_of_gains(
+    const float (&gains)[K * NR], float nv, float ipu) {
   constexpr int NS = K * NR;  // streams
-  float gains[NS];
-#pragma unroll
-  for (int i = 0; i < NS; ++i) gains[i] = 0.f;
-#pragma unroll  // users
-  for (int k = 0; k < K; ++k) user_gains<K, NR>(col, k, gains);
-
   float cap = 0.f;
   if constexpr (MODE == kNone) {
     // equal per-BS power: iPu / Nr_u on every stream
@@ -297,13 +348,25 @@ __device__ __forceinline__ float solve_element(const float2* col, float nv,
   return (isfinite(cap) && ok) ? cap : 0.f;
 }
 
+// Sum capacity of one element (0 for a degenerate draw): _solve_block +
+// _guarded of bd_pallas.py, in the same order.
+template <int K, int NR, int MODE>
+__device__ __forceinline__ float solve_element(const float2* col, float nv,
+                                               float ipu) {
+  float gains[K * NR];
+#pragma unroll
+  for (int i = 0; i < K * NR; ++i) gains[i] = 0.f;
+#pragma unroll  // users
+  for (int k = 0; k < K; ++k) user_gains<K, NR>(col, k, gains);
+  return capacity_of_gains<K, NR, MODE>(gains, nv, ipu);
+}
+
 template <int K, int NR, int MODE, bool kInject>
 __global__ void __launch_bounds__(kThreads, min_blocks<K * NR>())
     mc_bd_kernel(const Params p) {
   constexpr int NT = K * NR;
   constexpr int P = 2 * NT * NT;
-  constexpr int CALLS = P / 4;
-  static_assert(P % 4 == 0, "a Philox call fills two whole entries");
+  constexpr int CALLS = (P + 3) / 4;  // odd NT: the last fills one entry
   extern __shared__ float2 s_H[];  // (NT * NT, kThreads)
   __shared__ float s_warp_sum[kThreads / 32];
   float2* const col = s_H + threadIdx.x;  // this thread's element
@@ -333,8 +396,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks<K * NR>())
                         bits_half_normal((uint32_t)row[(2 * en + 1) * p.lane]));
       }
     } else {
-#pragma unroll 1  // Philox calls
-      for (int j = 0; j < CALLS; ++j) {
+#pragma unroll 1  // Philox calls that fill two entries
+      for (int j = 0; j < P / 4; ++j) {
         const uint4 x = philox4x32_10(
             make_uint4((uint32_t)e, (uint32_t)(tile_idx * CALLS + j), att_lo,
                        att_hi),
@@ -343,6 +406,15 @@ __global__ void __launch_bounds__(kThreads, min_blocks<K * NR>())
             make_float2(bits_half_normal(x.x), bits_half_normal(x.y));
         col[(2 * j + 1) * kThreads] =
             make_float2(bits_half_normal(x.z), bits_half_normal(x.w));
+      }
+      if constexpr (P % 4 != 0) {
+        constexpr int j = P / 4;
+        const uint4 x = philox4x32_10(
+            make_uint4((uint32_t)e, (uint32_t)(tile_idx * CALLS + j), att_lo,
+                       att_hi),
+            make_uint2(p.seed, kChannelKey));
+        col[(2 * j) * kThreads] =
+            make_float2(bits_half_normal(x.x), bits_half_normal(x.y));
       }
     }
     acc = solve_element<K, NR, MODE>(col, p.nv, p.ipu);
@@ -365,6 +437,252 @@ __global__ void __launch_bounds__(kThreads, min_blocks<K * NR>())
   }
 }
 
+// ---- the wide form ------------------------------------------------------
+
+// The per-thread column of the wide form: H, then B, then X.
+template <int K, int NR>
+struct Wide {
+  static constexpr int NT = K * NR;
+  static constexpr int M = (K - 1) * NR;
+  static constexpr int kB = NT * NT;     // B's first entry
+  static constexpr int kX = kB + M * M;  // X's first entry
+  static constexpr int kState = kX + M * NR;
+  static constexpr long long kBytes =
+      (long long)kState * wide::kThreads * (long long)sizeof(float2);
+  static constexpr bool kGlobal = wide::in_scratch(kBytes);
+};
+
+__device__ __forceinline__ cf wload(const float2* col, int n) {
+  const float2 v = col[n * wide::kThreads];
+  return {v.x, v.y};
+}
+
+__device__ __forceinline__ void wstore(float2* col, int n, cf v) {
+  col[n * wide::kThreads] = make_float2(v.re, v.im);
+}
+
+// user_gains for the wide form: the same sums in the same order, on the
+// thread's column (H, B and X there); k is a run-time index.
+template <int K, int NR>
+__device__ __forceinline__ void user_gains_wide(float2* col, int k,
+                                                float (&gains)[K * NR]) {
+  using G = Wide<K, NR>;
+  constexpr int NT = G::NT;
+  constexpr int M = G::M;
+  float2* const B = col + G::kB * wide::kThreads;
+  float2* const X = col + G::kX * wide::kThreads;
+  const int own = NR * k;  // the user's first row of H
+  // B = tilde tilde^H (upper triangle) and X = Y^H with Y = Hk tilde^H,
+  // row i of tilde (the other users' rows, in order) held in registers
+#pragma unroll 1
+  for (int i = 0; i < M; ++i) {
+    const int hi = (i < own ? i : i + NR) * NT;
+    cf ti[NT];
+#pragma unroll
+    for (int c = 0; c < NT; ++c) ti[c] = wload(col, hi + c);
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const int hr = (own + r) * NT;
+      cf acc = planes::cmul(wload(col, hr), planes::cconj(ti[0]));
+#pragma unroll
+      for (int c = 1; c < NT; ++c) {
+        acc = planes::cadd(
+            acc, planes::cmul(wload(col, hr + c), planes::cconj(ti[c])));
+      }
+      wstore(X, i * NR + r, planes::cconj(acc));
+    }
+#pragma unroll 1
+    for (int j = i; j < M; ++j) {
+      const int hj = (j < own ? j : j + NR) * NT;
+      cf acc = planes::cmulc(ti[0], wload(col, hj));
+#pragma unroll
+      for (int c = 1; c < NT; ++c) {
+        acc = planes::cadd(acc, planes::cmulc(ti[c], wload(col, hj + c)));
+      }
+      wstore(B, i * M + j, acc);
+    }
+  }
+  // LDL^H of B in place (planes::herm_solve_cols_ldl): L below the
+  // diagonal, (D, 1/D) on it; B[i][j > i] above it, B[j][i] its conjugate
+#pragma unroll 1
+  for (int j = 0; j < M; ++j) {
+    float d = wload(B, j * M + j).re;
+#pragma unroll 1
+    for (int q = 0; q < j; ++q) {
+      d = d - planes::cabs2(wload(B, j * M + q)) * wload(B, q * M + q).re;
+    }
+    d = fmaxf(d, planes::kEps);
+    const float dinv = 1.0f / d;
+    wstore(B, j * M + j, {d, dinv});
+#pragma unroll 1
+    for (int i = j + 1; i < M; ++i) {
+      cf acc = planes::cconj(wload(B, j * M + i));
+#pragma unroll 1
+      for (int q = 0; q < j; ++q) {
+        acc = planes::csub(
+            acc, planes::cscale(planes::cmulc(wload(B, i * M + q),
+                                              wload(B, j * M + q)),
+                                wload(B, q * M + q).re));
+      }
+      wstore(B, i * M + j, planes::cscale(acc, dinv));
+    }
+  }
+  // forward substitution L z = X (unit diagonal)
+#pragma unroll 1
+  for (int i = 1; i < M; ++i) {
+    cf x[NR];
+#pragma unroll
+    for (int t = 0; t < NR; ++t) x[t] = wload(X, i * NR + t);
+#pragma unroll 1
+    for (int j = 0; j < i; ++j) {
+      const cf l = wload(B, i * M + j);
+#pragma unroll
+      for (int t = 0; t < NR; ++t) {
+        x[t] = planes::csub(x[t], planes::cmul(l, wload(X, j * NR + t)));
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NR; ++t) wstore(X, i * NR + t, x[t]);
+  }
+  // the diagonal scale, then back substitution L^H x = z
+#pragma unroll 1
+  for (int i = M - 1; i >= 0; --i) {
+    const float dinv = wload(B, i * M + i).im;
+    cf x[NR];
+#pragma unroll
+    for (int t = 0; t < NR; ++t) {
+      x[t] = planes::cscale(wload(X, i * NR + t), dinv);
+    }
+#pragma unroll 1
+    for (int j = i + 1; j < M; ++j) {
+      const cf l = wload(B, j * M + i);
+#pragma unroll
+      for (int t = 0; t < NR; ++t) {
+        x[t] = planes::csub(x[t], planes::cmulc(wload(X, j * NR + t), l));
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NR; ++t) wstore(X, i * NR + t, x[t]);
+  }
+  // T = Hk - W^H tilde: the sums over the rows of tilde for every column
+  // at once in registers, then T column by column into its Gram
+  cf acc[NR][NT];
+  {
+    const int h0 = (own > 0 ? 0 : NR) * NT;  // row 0 of tilde
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      const cf h = wload(col, h0 + c);
+#pragma unroll
+      for (int s = 0; s < NR; ++s) {
+        acc[s][c] = planes::cmul(planes::cconj(wload(X, s)), h);
+      }
+    }
+  }
+#pragma unroll 1
+  for (int t = 1; t < M; ++t) {
+    const int ht = (t < own ? t : t + NR) * NT;
+    cf w[NR];
+#pragma unroll
+    for (int s = 0; s < NR; ++s) w[s] = planes::cconj(wload(X, t * NR + s));
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      const cf h = wload(col, ht + c);
+#pragma unroll
+      for (int s = 0; s < NR; ++s) {
+        acc[s][c] = planes::cadd(acc[s][c], planes::cmul(w[s], h));
+      }
+    }
+  }
+  float p = 0.f, r = 0.f;
+  cf q = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < NT; ++c) {
+    const cf t0 = planes::csub(wload(col, own * NT + c), acc[0][c]);
+    p = p + planes::cabs2(t0);
+    if constexpr (NR == 2) {
+      const cf t1 = planes::csub(wload(col, (own + 1) * NT + c), acc[1][c]);
+      r = r + planes::cabs2(t1);
+      q = planes::cadd(q, planes::cmulc(t0, t1));
+    }
+  }
+  store_gains<K, NR>(p, q, r, k, gains);
+}
+
+template <int K, int NR, int MODE>
+__device__ __forceinline__ float solve_element_wide(float2* col, float nv,
+                                                    float ipu) {
+  float gains[K * NR];
+#pragma unroll
+  for (int i = 0; i < K * NR; ++i) gains[i] = 0.f;
+#pragma unroll 1  // users
+  for (int k = 0; k < K; ++k) user_gains_wide<K, NR>(col, k, gains);
+  return capacity_of_gains<K, NR, MODE>(gains, nv, ipu);
+}
+
+// The wide form: one element a thread, one warp a block, the block walking
+// blocks vb = blockIdx.x, + gridDim.x, ... of the launch (one trip unless
+// the state is in the scratch buffer), partial[vb] its elements' sum.
+template <int K, int NR, int MODE, bool kInject>
+__global__ void __launch_bounds__(wide::kThreads)
+    mc_bd_wide_kernel(const Params p) {
+  using G = Wide<K, NR>;
+  constexpr int NT = G::NT;
+  constexpr int CALLS = (2 * NT * NT + 3) / 4;  // two entries a call
+  extern __shared__ float2 s_col[];  // (kState, wide::kThreads)
+  float2* const slot =
+      G::kGlobal
+          ? p.scratch + (long long)blockIdx.x * G::kState * wide::kThreads
+          : s_col;
+  float2* const col = slot + threadIdx.x;  // this thread's element
+  const int elems = p.tile * p.lane;
+#pragma unroll 1
+  for (int vb = blockIdx.x; vb < p.blocks; vb += gridDim.x) {
+    const int cell = vb / p.parts;  // rep * num_tiles + tile
+    const int part = vb % p.parts;
+    const int rep = cell / p.num_tiles;
+    const int tile_idx = cell % p.num_tiles;
+    const int e = part * wide::kThreads + threadIdx.x;
+    float acc = 0.f;
+    if (e < elems) {
+      if (kInject) {
+        const int r = e / p.lane;
+        const int l = e - r * p.lane;
+        const int* row = p.bits + rep * p.rep_stride +
+                         (long long)(tile_idx * p.tile + r) * p.row_stride + l;
+#pragma unroll 1
+        for (int en = 0; en < NT * NT; ++en) {
+          col[en * wide::kThreads] = make_float2(
+              bits_half_normal((uint32_t)row[(long long)(2 * en) * p.lane]),
+              bits_half_normal(
+                  (uint32_t)row[(long long)(2 * en + 1) * p.lane]));
+        }
+      } else {
+        const unsigned long long attempt =
+            (unsigned long long)(p.start + (long long)rep);
+#pragma unroll 1  // Philox calls; odd NT leaves the last one half used
+        for (int j = 0; j < CALLS; ++j) {
+          const uint4 x = philox4x32_10(
+              make_uint4((uint32_t)e, (uint32_t)(tile_idx * CALLS + j),
+                         (uint32_t)attempt, (uint32_t)(attempt >> 32)),
+              make_uint2(p.seed, kChannelKey));
+          col[(2 * j) * wide::kThreads] =
+              make_float2(bits_half_normal(x.x), bits_half_normal(x.y));
+          if (2 * j + 1 < NT * NT) {
+            col[(2 * j + 1) * wide::kThreads] =
+                make_float2(bits_half_normal(x.z), bits_half_normal(x.w));
+          }
+        }
+      }
+      acc = solve_element_wide<K, NR, MODE>(col, p.nv, p.ipu);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      acc += __shfl_down_sync(0xffffffffu, acc, off);
+    }
+    if (threadIdx.x == 0) p.partial[vb] = acc;
+  }
+}
+
 // out[cell] = the cell's partials added in order.
 __global__ void bd_sum_parts_kernel(const float* __restrict__ partial,
                                     float* __restrict__ out, int cells,
@@ -377,16 +695,26 @@ __global__ void bd_sum_parts_kernel(const float* __restrict__ partial,
 }
 
 template <int K, int NR, int MODE, bool kInject>
+int launch_wide(const Params& p, cudaStream_t s) {
+  return wide::launch(mc_bd_wide_kernel<K, NR, MODE, kInject>, p,
+                      Wide<K, NR>::kBytes, s);
+}
+
+template <int K, int NR, int MODE, bool kInject>
 int launch_one(const Params& p, int blocks, cudaStream_t s) {
-  constexpr int bytes = smem_bytes<K * NR>();
-  if (bytes > kStaticSmemLimit) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        mc_bd_kernel<K, NR, MODE, kInject>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (rc != cudaSuccess) return (int)rc;
+  if constexpr (kWideForm) {
+    return launch_wide<K, NR, MODE, kInject>(p, s);
+  } else {
+    constexpr int bytes = smem_bytes<K * NR>();
+    if (bytes > kStaticSmemLimit) {
+      const cudaError_t rc = cudaFuncSetAttribute(
+          mc_bd_kernel<K, NR, MODE, kInject>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (rc != cudaSuccess) return (int)rc;
+    }
+    mc_bd_kernel<K, NR, MODE, kInject><<<blocks, kThreads, bytes, s>>>(p);
+    return 0;
   }
-  mc_bd_kernel<K, NR, MODE, kInject><<<blocks, kThreads, bytes, s>>>(p);
-  return 0;
 }
 
 template <int K, int NR, bool kInject>
@@ -403,7 +731,17 @@ int launch_mode(const Params& p, int mode, int blocks, cudaStream_t s) {
   }
 }
 
-// The geometry menu (K, Nr_u): (2,1), (2,2), (3,2), (4,1), (4,2).
+#ifdef MC_BD_K
+// A library built for one geometry (ops/_build.py): that one.
+template <bool kInject>
+int launch_geometry(const Params& p, int K, int NR, int mode, int blocks,
+                    cudaStream_t s) {
+  if (K != MC_BD_K || NR != MC_BD_NR) return (int)cudaErrorInvalidValue;
+  return launch_mode<MC_BD_K, MC_BD_NR, kInject>(p, mode, blocks, s);
+}
+#else
+// The prebuilt library's geometries (K, Nr_u): (2,1), (2,2), (3,2), (4,1),
+// (4,2).
 template <bool kInject>
 int launch_geometry(const Params& p, int K, int NR, int mode, int blocks,
                     cudaStream_t s) {
@@ -414,16 +752,18 @@ int launch_geometry(const Params& p, int K, int NR, int mode, int blocks,
   if (K == 4 && NR == 2) return launch_mode<4, 2, kInject>(p, mode, blocks, s);
   return (int)cudaErrorInvalidValue;
 }
+#endif
 
 int launch(Params& p, float* out, int reps, int K, int NR, int mode,
            bool inject, void* stream) {
   if (reps < 1 || p.num_tiles < 1 || p.tile < 1 || p.lane < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  p.parts = (p.tile * p.lane + kThreads - 1) / kThreads;
+  p.parts = (p.tile * p.lane + kBlockThreads - 1) / kBlockThreads;
   const long long cells = (long long)reps * p.num_tiles;
   const long long blocks = cells * p.parts;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  p.blocks = (int)blocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc = inject
                      ? launch_geometry<true>(p, K, NR, mode, (int)blocks, s)
@@ -441,7 +781,23 @@ int launch(Params& p, float* out, int reps, int K, int NR, int mode,
 // Partials per (rep, tile) cell: the wrapper's scratch holds
 // reps * num_tiles * mc_bd_num_parts(tile, lane) floats.
 extern "C" int mc_bd_num_parts(int tile, int lane) {
-  return (tile * lane + kThreads - 1) / kThreads;
+  return (tile * lane + kBlockThreads - 1) / kBlockThreads;
+}
+
+// Bytes of the state buffer a launch of this library's geometry needs (the
+// wide form past shared memory, on the current device), else 0; -1 if the
+// device cannot be read.
+extern "C" long long mc_bd_scratch_bytes(int reps, int num_tiles, int tile,
+                                         int lane) {
+#ifdef MC_BD_K
+  if (!kWideForm) return 0;
+  return wide::scratch_bytes(
+      (long long)reps * num_tiles * mc_bd_num_parts(tile, lane),
+      Wide<MC_BD_K, MC_BD_NR>::kBytes);
+#else
+  (void)reps, (void)num_tiles, (void)tile, (void)lane;
+  return 0;
+#endif
 }
 
 // In-kernel Philox bits (the counterpart of _make_prng_call): rep r of this
@@ -450,9 +806,10 @@ extern "C" int mc_bd_num_parts(int tile, int lane) {
 extern "C" int mc_bd_prng(void* out, void* partial, int reps, int num_tiles,
                           int tile, int lane, int K, int NR, int mode,
                           float ipu, float nv, unsigned int seed,
-                          long long start, void* stream) {
+                          long long start, void* scratch, void* stream) {
   Params p = {};
   p.partial = static_cast<float*>(partial);
+  p.scratch = static_cast<float2*>(scratch);
   p.num_tiles = num_tiles;
   p.tile = tile;
   p.lane = lane;
@@ -467,14 +824,16 @@ extern "C" int mc_bd_prng(void* out, void* partial, int reps, int num_tiles,
 // Channel bits read from an int32 device tensor in the JAX layout (the
 // counterpart of build_inject): (reps, num_tiles * tile, planes * lane)
 // with strides (rep_stride, row_stride, 1), plane pl at lanes
-// [pl * lane, (pl + 1) * lane).
+// [pl * lane, (pl + 1) * lane). scratch: mc_bd_scratch_bytes of device
+// memory, or null where that is 0 (both entry points).
 extern "C" int mc_bd_inject(const void* bits, void* out, void* partial,
                             int reps, int num_tiles, int tile, int lane, int K,
                             int NR, int mode, float ipu, float nv,
                             long long rep_stride, long long row_stride,
-                            void* stream) {
+                            void* scratch, void* stream) {
   Params p = {};
   p.bits = static_cast<const int*>(bits);
+  p.scratch = static_cast<float2*>(scratch);
   p.rep_stride = rep_stride;
   p.row_stride = row_stride;
   p.partial = static_cast<float*>(partial);

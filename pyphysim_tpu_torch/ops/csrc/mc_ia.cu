@@ -43,6 +43,20 @@
 //     warps), writes one partial, and a second pass adds a (rep, tile)'s
 //     partials in order. No float atomics: a rerun and another chunking give
 //     the same bits.
+// The prebuilt library holds the five geometries of launch_geometry below;
+// any other (K, N, Ns) is built on its first use with -DMC_IA_K=..
+// -DMC_IA_N=.. -DMC_IA_NS=.. (ops/_build.py) in the wide form,
+// mc_ia_wide_kernel: either body, one warp a block, each thread's channels
+// (K^2 N^2 2 floats) in a column at stride 32 as the general body keeps
+// them. At K >= 5 the closed form's channel no longer fits in registers
+// (200 floats at K = 5) and moves there too. The columns live in dynamic
+// shared memory (opted in above 48 KB: 64 KB at (4, 4, Ns)) while a warp's
+// fit in 227 KB, past that in the scratch buffer of wide.cuh
+// (mc_ia_scratch_bytes says how large). The
+// Philox calls that fill a column are a rolled loop; the bodies are the
+// ones above, so Bkl, the LDL^H factors and the filters stay in registers
+// (K N Ns complex values each for F and U) and spill at the largest
+// geometries.
 // chip_smoke.py prints ptxas's registers and spills for each instance.
 
 #include <cuda_runtime.h>
@@ -51,6 +65,7 @@
 
 #include "philox.cuh"
 #include "planes.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -77,6 +92,8 @@ struct Params {
   float P, nv;
   uint32_t seed;
   long long start;
+  float* scratch;  // the wide form past shared memory: its state slots
+  int blocks;      // blocks of the whole launch (the wide form walks them)
 };
 
 // Calls sink(plane, value) for each of the NP channel planes of element e of
@@ -115,20 +132,43 @@ __device__ __forceinline__ void draw_planes(const Params& p, int rep,
   }
 }
 
+// A thread's channels in a column (shared or device memory): plane pl at
+// s[pl * T].
+template <int K, int N, int T = kGeneralThreads>
+struct SharedH {
+  const float* s;
+  __device__ __forceinline__ cf get(int k, int j, int r, int c) const {
+    const int pl = 2 * (((k * K + j) * N + r) * N + c);
+    return {s[pl * T], s[(pl + 1) * T]};
+  }
+};
+
 // ---- the closed-form body, (N, Ns) = (2, 1) -----------------------------
+
+// Entry (r, c) of link (k, j): H in registers, or in a column.
+template <int K>
+__device__ __forceinline__ cf h_at(const cf (&H)[K][K][2][2], int k, int j,
+                                   int r, int c) {
+  return H[k][j][r][c];
+}
+
+template <int K, int T>
+__device__ __forceinline__ cf h_at(const SharedH<K, 2, T>& H, int k, int j,
+                                   int r, int c) {
+  return H.get(k, j, r, c);
+}
 
 // Link (k, j) of the forward network, or of the reverse one
 // (H_rev[k][j] = H[j][k]^H), entry (r, c).
-template <int K, bool REV>
-__device__ __forceinline__ cf link2(const cf (&H)[K][K][2][2], int k, int j,
-                                    int r, int c) {
-  return REV ? cconj(H[j][k][c][r]) : H[k][j][r][c];
+template <int K, bool REV, typename HT>
+__device__ __forceinline__ cf link2(const HT& H, int k, int j, int r, int c) {
+  return REV ? cconj(h_at<K>(H, j, k, c, r)) : h_at<K>(H, k, j, r, c);
 }
 
 // Bkl = (p, q, r) of user k over precoders F, and d = H_kk f_k
 // (_solve_block's update, in its order).
-template <int K, bool REV>
-__device__ __forceinline__ void closed_bkl(const cf (&H)[K][K][2][2],
+template <int K, bool REV, typename HT>
+__device__ __forceinline__ void closed_bkl(const HT& H,
                                            const cf (&F)[K][2], int k,
                                            float nv, float P, float& p, cf& q,
                                            float& r, cf (&d)[2]) {
@@ -140,8 +180,8 @@ __device__ __forceinline__ void closed_bkl(const cf (&H)[K][K][2][2],
     cf t[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      t[i] = cadd(cmul(link2<K, REV>(H, k, j, i, 0), F[j][0]),
-                  cmul(link2<K, REV>(H, k, j, i, 1), F[j][1]));
+      t[i] = cadd(cmul(link2<K, REV, HT>(H, k, j, i, 0), F[j][0]),
+                  cmul(link2<K, REV, HT>(H, k, j, i, 1), F[j][1]));
     }
     planes::herm2_add_outer(p, q, r, t[0], t[1], P);
     if (j == k) {
@@ -155,8 +195,8 @@ __device__ __forceinline__ void closed_bkl(const cf (&H)[K][K][2][2],
 }
 
 // One direction of the Max-SINR update: out[k] = normalize(Bkl^-1 d).
-template <int K, bool REV>
-__device__ __forceinline__ void closed_update(const cf (&H)[K][K][2][2],
+template <int K, bool REV, typename HT>
+__device__ __forceinline__ void closed_update(const HT& H,
                                               const cf (&F)[K][2],
                                               cf (&out)[K][2], float nv,
                                               float P) {
@@ -164,34 +204,36 @@ __device__ __forceinline__ void closed_update(const cf (&H)[K][K][2][2],
   for (int k = 0; k < K; ++k) {
     float p, r;
     cf q, d[2];
-    closed_bkl<K, REV>(H, F, k, nv, P, p, q, r, d);
+    closed_bkl<K, REV, HT>(H, F, k, nv, P, p, q, r, d);
     planes::herm2_solve(p, q, r, d[0], d[1], out[k][0], out[k][1]);
     planes::vnormalize<2>(out[k]);
   }
 }
 
-template <int K>
-__device__ __forceinline__ float solve_closed(const cf (&H)[K][K][2][2],
-                                              float nv, float P, int iters) {
+template <int K, typename HT>
+__device__ __forceinline__ float solve_closed(const HT& H, float nv, float P,
+                                              int iters) {
   cf F[K][2], U[K][2];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    planes::dominant_right_singular(H[k][k][0][0], H[k][k][0][1],
-                                    H[k][k][1][0], H[k][k][1][1], F[k]);
+    planes::dominant_right_singular(h_at<K>(H, k, k, 0, 0),
+                                    h_at<K>(H, k, k, 0, 1),
+                                    h_at<K>(H, k, k, 1, 0),
+                                    h_at<K>(H, k, k, 1, 1), F[k]);
   }
 #pragma unroll 1
   for (int it = 0; it < iters; ++it) {
-    closed_update<K, false>(H, F, U, nv, P);
-    closed_update<K, true>(H, U, F, nv, P);
+    closed_update<K, false, HT>(H, F, U, nv, P);
+    closed_update<K, true, HT>(H, U, F, nv, P);
   }
-  closed_update<K, false>(H, F, U, nv, P);
+  closed_update<K, false, HT>(H, F, U, nv, P);
 
   float cap = 0.f;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     float p, r;
     cf q, d[2];
-    closed_bkl<K, false>(H, F, k, nv, P, p, q, r, d);
+    closed_bkl<K, false, HT>(H, F, k, nv, P, p, q, r, d);
     const float num =
         P * cabs2(cadd(cmulc(d[0], U[k][0]), cmulc(d[1], U[k][1])));
     const float den =
@@ -204,16 +246,6 @@ __device__ __forceinline__ float solve_closed(const cf (&H)[K][K][2][2],
 }
 
 // ---- the general body ---------------------------------------------------
-
-// A thread's channels in shared memory: plane pl at s[pl * stride].
-template <int K, int N>
-struct SharedH {
-  const float* s;
-  __device__ __forceinline__ cf get(int k, int j, int r, int c) const {
-    const int pl = 2 * (((k * K + j) * N + r) * N + c);
-    return {s[pl * kGeneralThreads], s[(pl + 1) * kGeneralThreads]};
-  }
-};
 
 template <int K, int N, bool REV>
 __device__ __forceinline__ void link_matvec(const SharedH<K, N>& H, int k,
@@ -345,15 +377,15 @@ __device__ __forceinline__ float solve_general(const SharedH<K, N>& H,
 
 // ---- kernels --------------------------------------------------------------
 
-// A block's elements summed in a fixed order into partial[blockIdx.x].
+// A block's elements summed in a fixed order into *out.
 template <int T>
-__device__ __forceinline__ void block_sum(float acc, float* partial) {
+__device__ __forceinline__ void block_sum(float acc, float* out) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     acc += __shfl_down_sync(0xffffffffu, acc, off);
   }
   if constexpr (T == 32) {
-    if (threadIdx.x == 0) partial[blockIdx.x] = acc;
+    if (threadIdx.x == 0) *out = acc;
   } else {
     __shared__ float s_warp_sum[T / 32];
     if ((threadIdx.x & 31) == 0) s_warp_sum[threadIdx.x >> 5] = acc;
@@ -362,7 +394,7 @@ __device__ __forceinline__ void block_sum(float acc, float* partial) {
       float v = s_warp_sum[0];
 #pragma unroll
       for (int w = 1; w < T / 32; ++w) v += s_warp_sum[w];
-      partial[blockIdx.x] = v;
+      *out = v;
     }
   }
 }
@@ -390,7 +422,7 @@ __global__ void __launch_bounds__(kClosedThreads)
     });
     acc = solve_closed<K>(H, p.nv, p.P, p.iters);
   }
-  block_sum<kClosedThreads>(acc, p.partial);
+  block_sum<kClosedThreads>(acc, p.partial + blockIdx.x);
 }
 
 template <int K, int N, int NS, bool kInject>
@@ -412,7 +444,79 @@ __global__ void __launch_bounds__(kGeneralThreads)
     const SharedH<K, N> H{mine};
     acc = solve_general<K, N, NS>(H, p.nv, p.P, p.iters, p.init_iters);
   }
-  block_sum<kGeneralThreads>(acc, p.partial);
+  block_sum<kGeneralThreads>(acc, p.partial + blockIdx.x);
+}
+
+// The wide form's column: K^2 N^2 2 floats a thread, in shared memory
+// while a warp's columns fit (wide.cuh), else in the scratch buffer.
+template <int K, int N>
+struct WideIA {
+  static constexpr int NP = K * K * N * N * 2;
+  static constexpr long long kBytes =
+      (long long)NP * wide::kThreads * (long long)sizeof(float);
+  static constexpr bool kGlobal = wide::in_scratch(kBytes);
+};
+
+// Either body on a column, one element a thread, one warp a block, the
+// block walking blocks vb = blockIdx.x, + gridDim.x, ... of the launch (one
+// trip unless the state is in the scratch buffer).
+template <int K, int N, int NS, bool kInject>
+__global__ void __launch_bounds__(wide::kThreads)
+    mc_ia_wide_kernel(const Params p) {
+  using G = WideIA<K, N>;
+  constexpr int NP = G::NP;
+  constexpr int CALLS = (NP + 3) / 4;
+  extern __shared__ float s_col[];  // (NP, wide::kThreads)
+  float* const slot =
+      G::kGlobal ? p.scratch + (long long)blockIdx.x * NP * wide::kThreads
+                 : s_col;
+  float* const mine = slot + threadIdx.x;
+#pragma unroll 1
+  for (int vb = blockIdx.x; vb < p.blocks; vb += gridDim.x) {
+    const int cell = vb / p.parts;
+    const int part = vb % p.parts;
+    const int rep = cell / p.num_tiles;
+    const int tile_idx = cell % p.num_tiles;
+    const int e = part * wide::kThreads + threadIdx.x;
+    float acc = 0.f;
+    if (e < p.tile * p.lane) {
+      if (kInject) {
+        const int r = e / p.lane;
+        const int l = e - r * p.lane;
+        const int* row = p.bits + rep * p.rep_stride +
+                         (long long)(tile_idx * p.tile + r) * p.row_stride + l;
+#pragma unroll 1
+        for (int pl = 0; pl < NP; ++pl) {
+          mine[pl * wide::kThreads] =
+              bits_half_normal((uint32_t)row[(long long)pl * p.lane]);
+        }
+      } else {
+        const unsigned long long attempt =
+            (unsigned long long)(p.start + (long long)rep);
+#pragma unroll 1  // Philox calls; the last may be partly used
+        for (int j = 0; j < CALLS; ++j) {
+          const uint4 x = philox4x32_10(
+              make_uint4((uint32_t)e, (uint32_t)(tile_idx * CALLS + j),
+                         (uint32_t)attempt, (uint32_t)(attempt >> 32)),
+              make_uint2(p.seed, kChannelKey));
+          const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (NP % 4 == 0 || 4 * j + k < NP) {
+              mine[(4 * j + k) * wide::kThreads] = bits_half_normal(w[k]);
+            }
+          }
+        }
+      }
+      const SharedH<K, N, wide::kThreads> H{mine};
+      if constexpr (N == 2 && NS == 1) {
+        acc = solve_closed<K>(H, p.nv, p.P, p.iters);
+      } else {
+        acc = solve_general<K, N, NS>(H, p.nv, p.P, p.iters, p.init_iters);
+      }
+    }
+    block_sum<wide::kThreads>(acc, p.partial + vb);
+  }
 }
 
 // out[cell] = the cell's partials added in order.
@@ -429,11 +533,28 @@ __global__ void ia_sum_parts_kernel(const float* __restrict__ partial,
 bool closed_form(int N, int NS) { return N == 2 && NS == 1; }
 
 int threads_for(int N, int NS) {
+#ifdef MC_IA_K
+  (void)N, (void)NS;
+  return wide::kThreads;
+#else
   return closed_form(N, NS) ? kClosedThreads : kGeneralThreads;
+#endif
 }
 
-// The geometry menu (K, N, Ns): (2, 2, 1), (3, 2, 1), (4, 2, 1) closed form;
-// (3, 4, 1), (2, 4, 2) general.
+#ifdef MC_IA_K
+// A library built for one geometry (ops/_build.py): that one, wide form.
+template <bool kInject>
+int launch_geometry(const Params& p, int K, int N, int NS, int blocks,
+                    cudaStream_t s) {
+  constexpr int kK = MC_IA_K, kN = MC_IA_N, kNS = MC_IA_NS;
+  (void)blocks;
+  if (K != kK || N != kN || NS != kNS) return (int)cudaErrorInvalidValue;
+  return wide::launch(mc_ia_wide_kernel<kK, kN, kNS, kInject>, p,
+                      WideIA<kK, kN>::kBytes, s);
+}
+#else
+// The prebuilt library's geometries (K, N, Ns): (2, 2, 1), (3, 2, 1),
+// (4, 2, 1) closed form; (3, 4, 1), (2, 4, 2) general.
 template <bool kInject>
 int launch_geometry(const Params& p, int K, int N, int NS, int blocks,
                     cudaStream_t s) {
@@ -462,6 +583,7 @@ int launch_geometry(const Params& p, int K, int N, int NS, int blocks,
   }
   return (int)cudaErrorInvalidValue;
 }
+#endif
 
 int launch(Params& p, float* out, int reps, int K, int N, int NS, bool inject,
            void* stream) {
@@ -474,6 +596,7 @@ int launch(Params& p, float* out, int reps, int K, int N, int NS, bool inject,
   const long long cells = (long long)reps * p.num_tiles;
   const long long blocks = cells * p.parts;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  p.blocks = (int)blocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int rc = inject
                      ? launch_geometry<true>(p, K, N, NS, (int)blocks, s)
@@ -495,14 +618,31 @@ extern "C" int mc_ia_num_parts(int tile, int lane, int N, int NS) {
   return (tile * lane + threads - 1) / threads;
 }
 
+// Bytes of the state buffer a launch of this library's geometry needs (the
+// wide form past shared memory, on the current device), else 0; -1 if the
+// device cannot be read.
+extern "C" long long mc_ia_scratch_bytes(int reps, int num_tiles, int tile,
+                                         int lane) {
+#ifdef MC_IA_K
+  return wide::scratch_bytes(
+      (long long)reps * num_tiles *
+          mc_ia_num_parts(tile, lane, MC_IA_N, MC_IA_NS),
+      WideIA<MC_IA_K, MC_IA_N>::kBytes);
+#else
+  (void)reps, (void)num_tiles, (void)tile, (void)lane;
+  return 0;
+#endif
+}
+
 // In-kernel Philox bits (the counterpart of _make_prng_call): rep r of this
 // call is the absolute attempt start + r of the stream keyed by seed.
 extern "C" int mc_ia_prng(void* out, void* partial, int reps, int num_tiles,
                           int tile, int lane, int K, int N, int NS, int iters,
                           int init_iters, float P, float nv, unsigned int seed,
-                          long long start, void* stream) {
+                          long long start, void* scratch, void* stream) {
   Params p = {};
   p.partial = static_cast<float*>(partial);
+  p.scratch = static_cast<float*>(scratch);
   p.num_tiles = num_tiles;
   p.tile = tile;
   p.lane = lane;
@@ -518,14 +658,17 @@ extern "C" int mc_ia_prng(void* out, void* partial, int reps, int num_tiles,
 // Channel bits read from an int32 device tensor in the JAX layout (the
 // counterpart of build_inject): (reps, num_tiles * tile, planes * lane) with
 // strides (rep_stride, row_stride, 1), plane pl at lanes
-// [pl * lane, (pl + 1) * lane).
+// [pl * lane, (pl + 1) * lane). scratch: mc_ia_scratch_bytes of device
+// memory, or null where that is 0 (both entry points).
 extern "C" int mc_ia_inject(const void* bits, void* out, void* partial,
                             int reps, int num_tiles, int tile, int lane, int K,
                             int N, int NS, int iters, int init_iters, float P,
                             float nv, long long rep_stride,
-                            long long row_stride, void* stream) {
+                            long long row_stride, void* scratch,
+                            void* stream) {
   Params p = {};
   p.bits = static_cast<const int*>(bits);
+  p.scratch = static_cast<float*>(scratch);
   p.rep_stride = rep_stride;
   p.row_stride = row_stride;
   p.partial = static_cast<float*>(partial);

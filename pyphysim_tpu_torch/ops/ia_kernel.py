@@ -20,9 +20,13 @@ Two bodies, as in the JAX kernel:
   * any other (K, N, Ns): full-matrix Bkl, LDL^H solves and an
     ``init_iters``-step orthogonal-iteration init.
 
-The CUDA kernel is instantiated for the geometry menu ``MENU``;
-``iterations``, ``init_iters``, ``P`` and the noise variance are run-time
-arguments. Two bit sources:
+Any ``K >= 2``, ``N >= 2`` and ``1 <= Ns <= N`` runs, as in the JAX
+kernel, on the CPU and on the card: the prebuilt library holds the CUDA
+kernel at the geometries ``PREBUILT``, and any other is compiled into a
+library of its own on its first launch (``ops/_build.py``
+``load(geometry)``, the kernel's wide form); ``iterations``,
+``init_iters``, ``P`` and the noise variance are run-time arguments. Two
+bit sources:
 
   * PRNG mode (:meth:`MonteCarloMaxSinr.build`): Philox4x32-10 streams of
     the absolute attempt (layout in ``ops/philox.py``), drawn in registers
@@ -51,11 +55,12 @@ from .planes import (EPS, cabs2, dominant_right_singular, gdotc,
                      herm_solve_cols_ldl, mat_H, mat_mul, orth_iter_init,
                      vnormalize)
 
-__all__ = ["MonteCarloMaxSinr", "MENU", "from_jax_attrs"]
+__all__ = ["MonteCarloMaxSinr", "PREBUILT", "from_jax_attrs"]
 
-# (K, N, Ns) instantiated in mc_ia.cu: the closed form at K = 2, 3, 4 and
-# the general body at the two points tests/test_ia_pallas.py pins
-MENU = ((2, 2, 1), (3, 2, 1), (4, 2, 1), (3, 4, 1), (2, 4, 2))
+# (K, N, Ns) in the prebuilt library: the closed form at K = 2, 3, 4 and
+# the general body at the two points tests/test_ia_pallas.py pins; any
+# other builds on its first launch
+PREBUILT = ((2, 2, 1), (3, 2, 1), (4, 2, 1), (3, 4, 1), (2, 4, 2))
 
 
 def _f32(x) -> float:
@@ -88,9 +93,6 @@ class MonteCarloMaxSinr:
         if iterations < 0 or init_iters < 0:
             raise ValueError("iteration counts must be >= 0")
         self.device = require_cuda(device)
-        if self.device.type == "cuda" and (K, N, Ns) not in MENU:
-            raise ValueError(f"(K, N, Ns) = {(K, N, Ns)} is not in the CUDA "
-                             f"kernel's geometry menu {MENU}")
         self.tile = int(tile)
         self.lane = int(lane)
         self.iterations = int(iterations)
@@ -116,17 +118,49 @@ class MonteCarloMaxSinr:
     def solves_per_grid_step(self) -> int:
         return self.tile * self.lane
 
+    @property
+    def prebuilt(self) -> bool:
+        """True if the prebuilt library holds this geometry."""
+        return (self.K, self.N, self.Ns) in PREBUILT
+
+    def geometry_build(self):
+        """``(source, defines)`` of this geometry's own library for
+        ``ops/_build.py``, or None if it is prebuilt."""
+        if self.prebuilt:
+            return None
+        return "mc_ia", {"MC_IA_K": self.K, "MC_IA_N": self.N,
+                         "MC_IA_NS": self.Ns}
+
     def prng_kernel_profile(self, reps: int, num_tiles: int
                             ) -> Dict[str, object]:
         """What ``ops/sass.py`` needs to count one PRNG-mode call's
-        instructions at a closed-form point: the kernel instance's
-        mangled-name pattern, the threads launched (one solve each), and
-        its one loop, the Max-SINR iterations."""
+        instructions at a closed-form point: the library and the kernel
+        instance's mangled-name pattern, the threads launched (one solve
+        each), and its loops in listing order: in the prebuilt kernel the
+        Max-SINR iterations alone; in the wide form (K >= 5) the Philox
+        calls that fill a column, the iterations, and the walk over the
+        blocks (one trip while the channels fit in shared memory, which
+        the geometry's library, built if need be, says)."""
+        from . import _build
         if not self.closed_form:
             raise ValueError("the SASS profile covers the closed-form body")
-        return {"pattern": f"mc_ia_closed_kernelILi{self.K}ELb0EE",
-                "threads": reps * num_tiles * self.tile * self.lane,
-                "loops": 1, "loop_trips": self.iterations}
+        threads = reps * num_tiles * self.tile * self.lane
+        library = _build.library_path(self.geometry_build())
+        if self.prebuilt:
+            return {"library": library,
+                    "pattern": f"mc_ia_closed_kernelILi{self.K}ELb0EE",
+                    "threads": threads, "loops": 1,
+                    "loop_trips": self.iterations}
+        scratch = _build.load(self.geometry_build()).mc_ia_scratch_bytes(
+            reps, num_tiles, self.tile, self.lane)
+        if scratch != 0:
+            raise ValueError("the SASS profile covers the wide form while "
+                             "its channels fit in shared memory")
+        trips = [self.num_planes // 4, self.iterations, 1]
+        return {"library": library,
+                "pattern": f"mc_ia_wide_kernelILi{self.K}ELi2ELi1ELb0EE",
+                "threads": threads, "loops": len(trips),
+                "loop_trips": trips}
 
     # ------------------------------------------------------------------
     # The plain PyTorch version
@@ -337,22 +371,26 @@ class MonteCarloMaxSinr:
     def _launch(self, reps, num_tiles, bits, noise_var, seed=0, start=0):
         from . import _build
         dev = self.device if bits is None else bits.device
-        lib = _build.load()
+        lib = _build.load(self.geometry_build())
         parts = lib.mc_ia_num_parts(self.tile, self.lane, self.N, self.Ns)
         partial = torch.empty(reps * num_tiles * parts, dtype=torch.float32,
                               device=dev)
         out = torch.empty((reps, num_tiles), dtype=torch.float32, device=dev)
+        scratch = _build.state_buffer(lib.mc_ia_scratch_bytes(
+            reps, num_tiles, self.tile, self.lane), dev,
+            f"MonteCarloMaxSinr(K={self.K}, N={self.N}, Ns={self.Ns})")
         geom = (reps, num_tiles, self.tile, self.lane, self.K, self.N,
                 self.Ns, self.iterations, self.init_iters, _f32(self.P),
                 _f32(noise_var))
         stream = torch.cuda.current_stream(dev).cuda_stream
         if bits is None:
             rc = lib.mc_ia_prng(out.data_ptr(), partial.data_ptr(), *geom,
-                                seed & 0xFFFFFFFF, start, stream)
+                                seed & 0xFFFFFFFF, start, scratch.data_ptr(),
+                                stream)
         else:
             rc = lib.mc_ia_inject(bits.data_ptr(), out.data_ptr(),
                                   partial.data_ptr(), *geom, bits.stride(0),
-                                  bits.stride(1), stream)
+                                  bits.stride(1), scratch.data_ptr(), stream)
         _build.check(rc, "mc_ia_prng" if bits is None else "mc_ia_inject")
         self.launch_count += 1
         return out

@@ -6,7 +6,9 @@ reads them from the library that ``ops/_build.py`` built: ``cuobjdump
 -sass`` (CUDA toolkit) disassembles it, :func:`function_sass` picks one
 kernel's listing, :func:`pipe_counts` sorts its instructions into the
 pipes of a Hopper SM, and :func:`issue_bound_ms` turns the counts into
-the least time the card could take.
+the least time the card could take. :func:`kernel_sass` finds the listing
+a wrapper's ``prng_kernel_profile`` names, in the prebuilt library or in
+the library of one geometry built on its first use.
 
 Counting rules, per thread (a warp issues each instruction once for its
 32 threads):
@@ -56,7 +58,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 __all__ = ["PIPE_RATES", "SMS", "CLOCK_HZ", "ERFINV_TAIL", "function_sass",
-           "loop_ops", "pipe_counts", "issue_bound_ms"]
+           "kernel_sass", "loop_ops", "pipe_counts", "issue_bound_ms"]
 
 SMS = 132                 # H100 SXM
 CLOCK_HZ = 1.98e9         # boost clock (67 TFLOP/s f32 = 132 * 128 * 2 * it)
@@ -111,10 +113,11 @@ def _cuobjdump() -> str:
     return found
 
 
-@functools.lru_cache(maxsize=1)
+@functools.lru_cache(maxsize=16)
 def _listings(library: Path) -> Tuple[str, ...]:
     """``cuobjdump -sass`` of the library, split into (name, listing, ...):
-    one run per library, as the whole dump takes seconds."""
+    one run per library (the prebuilt one and each geometry's), as the
+    whole dump of the prebuilt one takes seconds."""
     text = subprocess.run([_cuobjdump(), "-sass", str(library)],
                           capture_output=True, text=True, check=True).stdout
     return tuple(re.split(r"^\s*Function : (\S+)\s*$", text,
@@ -131,6 +134,15 @@ def function_sass(library: Path, pattern: str) -> str:
         raise RuntimeError(f"{len(found)} kernels of {library.name} match "
                            f"{pattern!r}: {[n for n, _ in found]}")
     return found[0][1]
+
+
+def kernel_sass(profile: Dict[str, object]) -> str:
+    """The listing of the kernel instance that a wrapper's
+    ``prng_kernel_profile`` names (``pattern``), in the library it names
+    (``library``: a geometry's own), else in the prebuilt library."""
+    from . import _build
+    library = profile.get("library") or _build.library_path()
+    return function_sass(Path(library), str(profile["pattern"]))
 
 
 class _Insn:

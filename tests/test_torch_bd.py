@@ -233,8 +233,12 @@ def test_prng_mode_is_chunk_invariant_and_in_band():
 
 
 def test_builder_checks():
-    with pytest.raises(ValueError, match="menu"):
-        MonteCarloBD(K=3, Nr_u=1, device="cpu")
+    # any K >= 2 and Nr_u in (1, 2) builds, as in the JAX kernel
+    mc = MonteCarloBD(K=3, Nr_u=1, device="cpu")
+    assert (mc.K, mc.Nr_u, mc.num_planes) == (3, 1, 18) and not mc.prebuilt
+    for bad in ({"K": 1}, {"Nr_u": 3}):
+        with pytest.raises(ValueError):
+            MonteCarloBD(device="cpu", **bad)
     with pytest.raises(ValueError, match="Unknown mode"):
         MonteCarloBD(mode="bogus", device="cpu")
     mc = MonteCarloBD(tile=8, lane=128, device="cpu")
@@ -313,7 +317,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,NR", [(2, 1), (2, 2), (3, 2), (4, 1), (4, 2)])
+@pytest.mark.parametrize("K,NR", [(2, 1), (2, 2), (3, 2), (4, 1), (4, 2),
+                                  (3, 1), (5, 2), (7, 2)])
 def test_cuda_kernel_inject_matches_plain_version(cuda_device, K, NR):
     """Per cell within 2e-4 relative. The guard zeroes a draw whose smaller
     gain is within float32 rounding of 0, so the two may disagree on such a
@@ -339,11 +344,15 @@ def test_cuda_kernel_prng_parity_and_chunk_invariance(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,NR", [(2, 1), (2, 2), (3, 2), (4, 1), (4, 2)])
+@pytest.mark.parametrize("K,NR", [(2, 1), (2, 2), (3, 2), (4, 1), (4, 2),
+                                  (3, 1), (5, 2), (7, 2), (11, 2)])
 def test_cuda_kernel_prng_matches_plain_version_across_menu(cuda_device, K,
                                                             NR):
     """PRNG mode at the bench tile: each rep's sum (16,384 solves) within
-    2e-4 of the plain version's on the same Philox bits, in every mode."""
+    2e-4 of the plain version's on the same Philox bits, in every mode, at
+    the prebuilt geometries and at others, built on first use (at (3, 1)
+    the prebuilt kernel's form, above NT = 8 the wide form in shared
+    memory, and at (11, 2) in the scratch buffer)."""
     for mode in ("normalized", "global", "none"):
         mc = MonteCarloBD(tile=8, lane=512, K=K, Nr_u=NR, mode=mode,
                           device=cuda_device)

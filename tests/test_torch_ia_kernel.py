@@ -28,7 +28,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from pyphysim_tpu.ops.ia_pallas import MonteCarloMaxSinr as J_MC  # noqa: E402
 from pyphysim_tpu_torch.ops import philox  # noqa: E402
-from pyphysim_tpu_torch.ops.ia_kernel import (MENU,  # noqa: E402
+from pyphysim_tpu_torch.ops.ia_kernel import (PREBUILT,  # noqa: E402
                                               MonteCarloMaxSinr,
                                               from_jax_attrs)
 
@@ -129,9 +129,11 @@ def test_from_jax_attrs_and_checks():
                 {"Ns": 3}):
         with pytest.raises(ValueError):
             MonteCarloMaxSinr(device="cpu", **bad)
-    # any geometry runs the plain version; the card takes the menu
+    # any geometry runs, the plain version here and the kernel on the card
+    # (built on its first launch outside the prebuilt library)
     MonteCarloMaxSinr(K=5, N=3, Ns=2, device="cpu")
-    assert (3, 2, 1) in MENU and (2, 4, 2) in MENU
+    assert (3, 2, 1) in PREBUILT and (2, 4, 2) in PREBUILT
+    assert not MonteCarloMaxSinr(K=5, N=3, Ns=2, device="cpu").prebuilt
     mc = MonteCarloMaxSinr(tile=8, lane=128, device="cpu")
     with pytest.raises(ValueError, match="channel bits"):
         mc.build_inject(1, 1)(np.zeros((1, 8, 128), np.uint32), 0.1)
@@ -150,7 +152,8 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K,N,Ns", MENU)
+@pytest.mark.parametrize("K,N,Ns", PREBUILT + ((5, 2, 1), (2, 3, 1),
+                                               (3, 4, 2), (4, 4, 2)))
 def test_cuda_kernel_inject_matches_plain_version(cuda_device, K, N, Ns):
     """Per cell (32,768 solves) within 2e-4 relative: one draw that takes
     another branch at a discontinuity moves such a cell by < 1e-4."""

@@ -9,7 +9,7 @@ import subprocess
 
 import pytest
 
-from pyphysim_tpu_torch.ops import sass
+from pyphysim_tpu_torch.ops import _build, sass
 from pyphysim_tpu_torch.ops.alamouti_kernel import MonteCarloAlamouti
 from pyphysim_tpu_torch.ops.bd_kernel import MonteCarloBD
 
@@ -179,6 +179,7 @@ def test_kernel_profiles():
     bd = MonteCarloBD(tile=8, lane=512, K=2, Nr_u=1, mode="none",
                       device="cpu")
     assert bd.prng_kernel_profile(128, 4) == {
+        "library": _build.library_path(),
         "pattern": "mc_bd_kernelILi2ELi1ELi2ELb0EE",
         "threads": 128 * 4 * 8 * 512, "loops": 5,
         "loop_trips": [2, 2, 2, 2, 2]}
