@@ -9,6 +9,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 from typing import Callable, Dict, List, Sequence, Tuple
 
@@ -18,6 +19,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from chip_smoke import best_ms, ptxas_info  # noqa: E402
 
 Subs = Sequence[Tuple[str, str]]
+MAX_JOBS = 24                # nvcc processes at once
 
 
 def substitute(name: str, text: str, subs: Subs) -> str:
@@ -30,41 +32,49 @@ def substitute(name: str, text: str, subs: Subs) -> str:
     return text
 
 
-def build_variants(sources: Dict[str, Tuple[str, Path]], stem: str,
+def build_variants(sources: Dict[str, tuple], stem: str,
                    kernel: str) -> Dict[str, Tuple[Path, Dict[str, str]]]:
-    """Build each ``name: (CUDA text, include directory)`` of ``sources``
-    into ``ops/_build/tune/lib{stem}{k}.so``, every ``nvcc`` started
-    together: ``{name: (library path, ptxas_info of the instances of the
-    kernel named by the regex kernel)}``."""
+    """Build each ``name: (CUDA text, include directory[, -D defines])`` of
+    ``sources`` into ``ops/_build/tune/lib{stem}{k}.so``, every ``nvcc``
+    started together: ``{name: (library path, ptxas_info of the instances
+    of the kernel named by the regex kernel)}``."""
     from pyphysim_tpu_torch.ops import _build
     out_dir = _build.BUILD_DIR / "tune"
     out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for k, (name, (text, include)) in enumerate(sources.items()):
+    jobs, running = {}, []
+    for k, (name, (text, include, *defines)) in enumerate(sources.items()):
+        while len(running) >= MAX_JOBS:   # bounds the builds' memory
+            running = [p for p in running if p.poll() is None]
+            time.sleep(0.1)
         cu = out_dir / f"{stem}{k}.cu"
         cu.write_text(text)
         lib = out_dir / f"lib{stem}{k}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
-               str(include), "-o", str(lib), str(cu)]
-        jobs[name] = (lib, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS,
+               *_build._defines(defines[0] if defines else {}), "-shared",
+               "-I", str(include), "-o", str(lib), str(cu)]
+        log = out_dir / f"lib{stem}{k}.log"
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        jobs[name] = (lib, log, proc)
+        running.append(proc)
     built = {}
-    for name, (lib, proc) in jobs.items():
-        log = proc.communicate()[0]
+    for name, (lib, log, proc) in jobs.items():
+        proc.wait()
+        text = log.read_text()
         if proc.returncode:
-            raise RuntimeError(f"{name}: nvcc failed\n{log}")
-        built[name] = (lib, ptxas_info(log, kernel))
+            raise RuntimeError(f"{name}: nvcc failed\n{text}")
+        built[name] = (lib, ptxas_info(text, kernel))
     return built
 
 
-def function(lib_path: Path, name: str):
+def function(lib_path: Path, name: str, argtypes=None):
     """The exported C function ``name`` of a variant's library, typed as
-    the main library's (``_build._SIGNATURES``)."""
+    the main library's (``_build._SIGNATURES``, ``_RESTYPES``) or by
+    ``argtypes`` (an older interface)."""
     from pyphysim_tpu_torch.ops import _build
     fn = getattr(ctypes.CDLL(str(lib_path)), name)
-    fn.argtypes = _build._SIGNATURES[name]
-    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes or _build._SIGNATURES[name]
+    fn.restype = _build._RESTYPES.get(name, ctypes.c_int)
     return fn
 
 

@@ -156,14 +156,18 @@ IA_REL_TOL = 2e-4                   # |kernel - plain| / |plain| per cell
 # Geometries outside the prebuilt kernel library, each built into a library
 # of its own at phase 2 (mc_bd.cu's prebuilt form up to NT = 8, else the
 # wide form of mc_bd.cu / mc_ia.cu): BD (K, Nr_u) up to the 7-cell CoMP
-# cluster (7, 2) of the main path, (8, 2) and (11, 2), whose per-element
-# state no longer fits a warp's shared memory; IA
-# (K, N, Ns) with the closed form at K = 5 and the general body at odd N and
-# at the feasibility app's 3-user 4x4 two-stream point
+# cluster (7, 2) of the main path, (8, 2) and (11, 2); IA (K, N, Ns) with
+# the closed form at K = 5, the general body at odd N and at the
+# feasibility app's 3-user 4x4 two-stream point, and IA_SCRATCH, the
+# fewest users of that point whose group state passes 227 KB a block: the
+# scratch buffer of ops/csrc/wide.cuh (a BD geometry gets there first at
+# (61, 2): its unrolled solve builds in minutes and its plain version runs
+# for some ten; bin/probe_wide_builds.py builds and reruns it)
 BD_GEOMETRIES = ((3, 1), (5, 2), (7, 2), (8, 2), (11, 2))
 BD_WIDE_MAIN = (7, 2)
 BD_FORMS = (3, 1)      # built in both forms too: held together and timed
-IA_GEOMETRIES = ((5, 2, 1), (2, 3, 1), (3, 4, 2), (4, 4, 2))
+IA_SCRATCH = (15, 4, 2)
+IA_GEOMETRIES = ((5, 2, 1), (2, 3, 1), (3, 4, 2), (4, 4, 2), IA_SCRATCH)
 IA_WIDE_MAIN = ((5, 2, 1), (3, 4, 2))   # runner (closed); build (general)
 WIDE_PRNG_REPS = 8                  # PRNG parity away from the main points
 WIDE_PLAIN_SLICE = 16               # reps per plain-version call (memory)
@@ -1738,6 +1742,10 @@ def ia_phases(dev, smi):
     if len(instances) != 2 * len(ia_kernel.PREBUILT):
         raise AssertionError(f"ia_build: {len(instances)} mc_ia instances, "
                              f"expected {2 * len(ia_kernel.PREBUILT)}")
+    for K, N, Ns in ia_kernel.PREBUILT:      # every point's launch
+        launch_phase(ia_kernel.MonteCarloMaxSinr(
+            tile=IA_TILE, lane=IA_LANE, K=K, N=N, Ns=Ns, device=dev),
+            f"prebuilt mc_ia K={K} N={N} Ns={Ns}")
 
     g = torch.Generator(device=dev).manual_seed(17)
 
@@ -1906,16 +1914,52 @@ def wide_form(mc):
     return mc
 
 
-def geometry_builds():
-    """``(source, defines)`` of every geometry library the script uses."""
+def geometry_kernels(dev):
+    """A ``MonteCarloBD`` / ``MonteCarloMaxSinr`` on ``dev`` for every
+    geometry library the script uses, at the bench widths (BD ``BD_FORMS``
+    in the wide form too)."""
     from pyphysim_tpu_torch.ops.bd_kernel import MonteCarloBD
     from pyphysim_tpu_torch.ops.ia_kernel import MonteCarloMaxSinr
-    return [*(MonteCarloBD(K=K, Nr_u=NR, device="cpu").geometry_build()
-              for K, NR in BD_GEOMETRIES),
-            wide_form(MonteCarloBD(K=BD_FORMS[0], Nr_u=BD_FORMS[1],
-                                   device="cpu")).geometry_build(),
-            *(MonteCarloMaxSinr(K=K, N=N, Ns=Ns, device="cpu")
-              .geometry_build() for K, N, Ns in IA_GEOMETRIES)]
+    return [*(MonteCarloBD(tile=BD_TILE, lane=BD_LANE, K=K, Nr_u=NR,
+                           device=dev) for K, NR in BD_GEOMETRIES),
+            wide_form(MonteCarloBD(tile=BD_TILE, lane=BD_LANE,
+                                   K=BD_FORMS[0], Nr_u=BD_FORMS[1],
+                                   device=dev)),
+            *(MonteCarloMaxSinr(tile=IA_TILE, lane=IA_LANE,
+                                iterations=IA_ITERS, K=K, N=N, Ns=Ns,
+                                device=dev) for K, N, Ns in IA_GEOMETRIES)]
+
+
+def geometry_builds():
+    """``(source, defines)`` of every geometry library the script uses."""
+    return [mc.geometry_build() for mc in geometry_kernels("cpu")]
+
+
+def launch_phase(mc, label):
+    """One phase line of how ``mc``'s kernel launches on the card, as its
+    library reports it (``mc_*_launch_info``: threads and shared bytes a
+    block, elements a block, lanes an element, the scratch buffer, resident
+    blocks and warps a SM) with its partials a (rep, tile) cell and its
+    scratch bytes at the bench chunk; fails unless a block is resident,
+    the blocks cover the cell and the scratch bytes agree with the scratch
+    flag. Returns the launch."""
+    from pyphysim_tpu_torch.ops import _build
+    launch = mc.launch_info()
+    lib = _build.load(mc.geometry_build())
+    if hasattr(mc, "Nr_u"):
+        parts = lib.mc_bd_num_parts(mc.tile, mc.lane)
+        nbytes = lib.mc_bd_scratch_bytes(BD_CHUNK, BD_TILES, mc.tile, mc.lane)
+    else:
+        parts = lib.mc_ia_num_parts(mc.tile, mc.lane, mc.K, mc.N, mc.Ns)
+        nbytes = lib.mc_ia_scratch_bytes(IA_CHUNK, IA_TILES, mc.tile, mc.lane)
+    phase("geometry_launch", instance=label, **launch, parts=parts,
+          scratch_bytes=nbytes)
+    if not (launch["blocks_per_sm"] >= 1 and
+            parts * launch["elems"] >= mc.tile * mc.lane and
+            launch["scratch"] == (nbytes > 0)):
+        raise AssertionError(f"geometry_launch {label}: {launch}, {parts} "
+                             f"parts, {nbytes} scratch bytes")
+    return launch
 
 
 def bd_solve_flops(K, NR):
@@ -1927,8 +1971,10 @@ def bd_solve_flops(K, NR):
     of B, the two substitutions on Nr_u columns and the scale, and T = Hk -
     W^H tilde with its Gram (T T^H as Hk Hk^H - Y W would be cheaper but
     cancels in float32). Not the water-filling, the channel draws (Philox,
-    erfinvf) or memory traffic, so the bound is a floor. ``mc_bd.cu`` sums
-    B and Y anew for each user, in the plain version's order."""
+    erfinvf) or memory traffic, so the bound is a floor. This is the
+    function's minimum, not the kernel's own count (``mc_bd.cu`` sums the
+    whole Gram's lower triangle and solves spare users on idle
+    sub-groups)."""
     NT, M = K * NR, (K - 1) * NR
     gram = 8 * NT * (NT * (NT + 1) // 2)
     user = sum(5 * j + (M - 1 - j) * (10 * j + 2) for j in range(M))
@@ -1938,18 +1984,23 @@ def bd_solve_flops(K, NR):
 
 
 def ia_solve_flops(K, N, Ns, iters, init_iters):
-    """f32 operations of one Max-SINR solve of the general body as
-    ``mc_ia.cu`` computes it (a complex multiply-add 8): the init (G = M^H
-    M and ``init_iters`` orthogonal-iteration steps a user), 2 iters + 1
-    filter updates (per user: K Ns link products H_kj f, their outer
-    products into Bkl, and per stream the rank-1 downdate, the LDL^H solve
-    and the normalization) and the SINRs; not the channel draws."""
+    """The fewest f32 operations one Max-SINR solve of the general body
+    needs, whatever the kernel (a complex multiply-add 8): the init (each
+    user's Gram M^H M by its triangle, N (N + 1) / 2 entries of N terms,
+    and ``init_iters`` orthogonal-iteration steps), 2 iters + 1 filter
+    updates (per user: K Ns link products H_kj f and their outer products
+    p t t^H into the Hermitian Bkl, by its triangle; per stream the rank-1
+    downdate, by the triangle, the LDL^H solve and the normalization) and
+    the SINRs (the downdate by the triangle, Bkl u in full); not the
+    channel draws. This is the function's minimum, not the kernel's own
+    count: ``mc_ia.cu`` forms whole rows of Bkl, each lane its own."""
+    tri = N * (N + 1) // 2
     ldl = sum(5 * j + (N - 1 - j) * (10 * j + 2) for j in range(N)) + \
         8 * N * (N - 1) + 2 * N
-    first = K * Ns * 18 * N * N
-    update = K * (first + Ns * (10 * N * N + ldl + 10 * N))
-    init = K * (8 * N ** 3 + init_iters * Ns * (8 * N * N + 8 * Ns * N))
-    final = K * (first + Ns * (18 * N * N + 16 * N))
+    first = K * Ns * (8 * N * N + 10 * tri)
+    update = K * (first + Ns * (10 * tri + ldl + 10 * N))
+    init = K * (8 * N * tri + init_iters * Ns * (8 * N * N + 8 * Ns * N))
+    final = K * (first + Ns * (10 * tri + 8 * N * N + 16 * N))
     return init + (2 * iters + 1) * update + final
 
 
@@ -1996,13 +2047,16 @@ def geometry_phases(dev, smi):
     from pyphysim_tpu_torch.ops.bd_kernel import MODES, MonteCarloBD
     from pyphysim_tpu_torch.ops.ia_kernel import MonteCarloMaxSinr
 
-    # 55. the geometry libraries phase 2 built: seconds, registers, spills
-    spilling = []
-    for source, defines in geometry_builds():
+    # 55. the geometry libraries phase 2 built: seconds, registers, spills,
+    # and each PRNG instance's launch (threads and shared bytes a block,
+    # resident warps a SM, the scratch buffer: IA_SCRATCH's state in it)
+    spilling, in_scratch = [], set()
+    for mc in geometry_kernels(dev):
+        source, defines = mc.geometry_build()
         path = _build.library_path((source, defines))
         log = path.with_suffix(".log")
         info = ptxas_info(log.read_text() if log.exists() else "",
-                          "mc_(?:bd|ia)_(?:wide_)?kernel")
+                          "mc_(?:bd|ia)_(?:wide_|general_)?kernel")
         phase("geometry_build", library=path.name, geometry=compact(defines),
               seconds=_build.geometry_build_seconds.get(path.name),
               instances=len(info))
@@ -2013,8 +2067,21 @@ def geometry_phases(dev, smi):
         if len(info) != (2 * len(MODES) if source == "mc_bd" else 2):
             raise AssertionError(f"geometry_build: {len(info)} instances "
                                  f"in {path.name}")
+        for mode in (MODES if source == "mc_bd" else (None,)):
+            if mode is not None:
+                mc.mode = mode
+            launch = launch_phase(mc, f"{path.name} {mode or ''}".strip())
+            if launch["scratch"]:
+                in_scratch.add(compact(defines))
     phase("geometry_spills", spilling_instances=len(spilling),
           names=compact(sorted(spilling)))
+    want = compact(MonteCarloMaxSinr(K=IA_SCRATCH[0], N=IA_SCRATCH[1],
+                                     Ns=IA_SCRATCH[2],
+                                     device="cpu").geometry_build()[1])
+    phase("geometry_scratch", libraries=sorted(in_scratch))
+    if in_scratch != {want}:
+        raise AssertionError(f"geometry_scratch: {sorted(in_scratch)} keep "
+                             f"their state in the scratch buffer, not {want}")
 
     g = torch.Generator(device=dev).manual_seed(55)
 

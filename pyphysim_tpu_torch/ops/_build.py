@@ -37,7 +37,7 @@ from pathlib import Path
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 __all__ = ["NVCC_FLAGS", "build", "load", "library_path", "check",
-           "state_buffer"]
+           "state_buffer", "launch_info"]
 
 _OPS_DIR = Path(__file__).resolve().parent
 SRC_DIR = _OPS_DIR / "csrc"
@@ -66,12 +66,14 @@ _SIGNATURES = {
                            _f, _ll, _ll, _ll, _ll, _vp],
     "mc_bd_num_parts": [_i, _i],
     "mc_bd_scratch_bytes": [_i, _i, _i, _i],
+    "mc_bd_launch_info": [_i, _i, _i, _vp],
     "mc_bd_prng": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _f,
                    ctypes.c_uint, _ll, _vp, _vp],
     "mc_bd_inject": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _f, _ll,
                      _ll, _vp, _vp],
-    "mc_ia_num_parts": [_i, _i, _i, _i],
+    "mc_ia_num_parts": [_i, _i, _i, _i, _i],
     "mc_ia_scratch_bytes": [_i, _i, _i, _i],
+    "mc_ia_launch_info": [_i, _i, _i, _vp],
     "mc_ia_prng": [_vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f, _f,
                    ctypes.c_uint, _ll, _vp, _vp],
     "mc_ia_inject": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f,
@@ -282,3 +284,22 @@ def check(rc: int, what: str) -> None:
     """Raise if a launch function returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+# mc_bd_launch_info / mc_ia_launch_info's ints (wide::launch_info), in order
+_LAUNCH_INFO = ("threads", "shared_bytes", "elems", "lanes", "scratch",
+                "blocks_per_sm")
+
+
+def launch_info(fn, *args) -> Dict[str, object]:
+    """What a library's ``mc_*_launch_info`` function ``fn`` reports for a
+    geometry on the current device: threads and dynamic shared bytes a
+    block, elements a block, lanes an element, whether the state is in the
+    scratch buffer, resident blocks a SM, and ``warps_per_sm``; raises on
+    a CUDA error."""
+    info = (ctypes.c_int * len(_LAUNCH_INFO))()
+    check(fn(*args, ctypes.addressof(info)), "launch_info")
+    out: Dict[str, object] = dict(zip(_LAUNCH_INFO, info))
+    out["scratch"] = bool(out["scratch"])
+    out["warps_per_sm"] = out["blocks_per_sm"] * out["threads"] // 32
+    return out

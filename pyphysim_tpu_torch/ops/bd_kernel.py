@@ -147,6 +147,16 @@ class MonteCarloBD:
             return None
         return "mc_bd", {"MC_BD_K": self.K, "MC_BD_NR": self.Nr_u}
 
+    def launch_info(self) -> Dict[str, object]:
+        """How the PRNG instance of this mode launches on the card, as its
+        library reports it (``mc_bd_launch_info``, ``_build.launch_info``):
+        threads and shared bytes a block, elements a block, lanes an
+        element, the scratch buffer, resident blocks and warps a SM."""
+        from . import _build
+        return _build.launch_info(
+            _build.load(self.geometry_build()).mc_bd_launch_info, self.K,
+            self.Nr_u, MODES.index(self.mode))
+
     def prng_kernel_profile(self, reps: int, num_tiles: int
                             ) -> Dict[str, object]:
         """What ``ops/sass.py`` needs to count one PRNG-mode call's
@@ -163,10 +173,13 @@ class MonteCarloBD:
         mode = MODES.index(self.mode)
         library = _build.library_path(self.geometry_build())
         if self.wide_form:
+            lib = _build.load(self.geometry_build())
             return {"library": library,
                     "pattern": (f"mc_bd_wide_kernelILi{self.K}ELi"
                                 f"{self.Nr_u}ELi{mode}ELb0EE"),
-                    "threads": reps * num_tiles * self.tile * self.lane,
+                    "threads": reps * num_tiles *
+                    lib.mc_bd_num_parts(self.tile, self.lane) *
+                    self.launch_info()["threads"],
                     "loops": None, "loop_trips": None}
         threads = block_threads()
         parts = -(-self.tile * self.lane // threads)

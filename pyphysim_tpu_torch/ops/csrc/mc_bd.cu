@@ -77,32 +77,63 @@
 // NT = kTileFormMaxNt). There the design above breaks: H alone takes NT^2
 // KB a block of 128 threads (196 KB at (7, 2), 256 KB at (8, 2), past the
 // 227 KB a block may opt in to), and B, M x M complex, no longer fits in
-// 255 registers a thread (288 floats at (7, 2)). So the wide form
-// (wide.cuh):
-//   * runs one element a thread in blocks of ONE warp, and keeps the whole
-//     state of an element in a per-thread column, entry n at col[n * 32]:
-//     H (NT^2), B (M^2; L and (D, 1/D) overwrite it in place) and the
-//     right-hand side X (M x Nr_u, W = B^-1 Y^H when solved). A warp's
-//     access to an entry is 256 consecutive bytes, free of bank conflicts;
-//   * the column lives in dynamic shared memory while a warp's columns fit
-//     (kState x 256 B <= 227 KB: up to (10, 2) and (21, 1)); past that in
-//     the scratch buffer of wide.cuh (mc_bd_scratch_bytes says how large);
-//     loads stay coalesced, and L1 / L2 hold the hot rows;
-//   * every loop over users, rows of B and the LDL^H steps is rolled
-//     (run-time offsets), so the code stays small at any K; the loops over
-//     the NT columns of a row are unrolled with the row in registers (the
-//     sums of B and Y read one entry of shared memory per complex
-//     multiply-add, the projection T keeps its Nr_u x NT sums in
-//     registers). Sums run in the order of the plain version, as above;
-//   * the water-filling and the guard are the menu form's.
-// What bounds it: shared-memory traffic, one 8-byte load a complex
-// multiply-add (a SM serves 16 of them a clock against 32 complex FMAs),
-// then the solve's f32 operations. chip_smoke.py prints each instance's
-// registers and spills and holds the kernel to its plain version.
+// 255 registers a thread (288 floats at (7, 2)). A one-thread form that
+// kept the whole state in a per-thread column of shared memory fitted 2
+// warps a SM at (7, 2) and summed every user's B and Y anew from H (134,302
+// operations a solve against the function's 66,094). So the wide form
+// splits an element over a group of lanes and sums its Gram once
+// (wide.cuh holds the storage rule and the group's helpers):
+//   * the Gram once: the group sums G = H H^H (its lower triangle; lane a
+//     its rows a, each entry over the columns in order), and every user's B
+//     (G over the other users' rows) and Y^H (G over those rows and the
+//     user's own) are read from it: the 66,094 operations a solve at
+//     (7, 2) that chip_smoke.py's bd_solve_flops counts. T = Hk - W^H tilde
+//     stays explicit (H's columns read from the slot): T T^H as
+//     Hk Hk^H - Y W would cancel in float32;
+//   * a user's solve on Lu lanes (lane gu holding rows gu, gu + Lu, ... of
+//     B, its factor and X, and those columns of T): the LDL^H and both
+//     substitutions of wide::group_ldl_solve, column by column with a
+//     __syncwarp a step, every sum over q in the plain version's order; the
+//     back substitution sums from the last column down and T's Gram over
+//     the columns as a butterfly (rounding only); complex multiply-adds are
+//     fused chains (wide::cmac ...). U users at once on U sub-groups of the
+//     element's group (the Lu and U rule is at struct Wide);
+//   * the state (H, G's lower triangle, a factor and W a sub-group) in the
+//     element's slot of the block's shared memory; past 227 KB a block, of
+//     the scratch buffer (mc_bd_scratch_bytes says how large), first at
+//     (61, 2). The solve is unrolled over M, so its code and build time
+//     grow with M^2: bin/probe_wide_builds.py (NVIDIA H100 80GB HBM3, 700
+//     W) built (16, 2) in 52 s at 255 registers and 4 bytes of spill,
+//     (24, 2) in 89 s (444 B, 4 warps a SM), (32, 2) 111 s (~1 KB, 2),
+//     (48, 2) 183 s (~2.5 KB, 1; 333 ms for 4,096 solves) and (61, 2), in
+//     the scratch buffer, 274 s (9-12 KB; 952 ms for 4,096 solves), each
+//     right; past (11, 2) a lane's rows want a loop, not an unrolled
+//     slot list (ROADMAP.md);
+//   * the water-filling and the guard are the menu form's, run alike on
+//     every lane of the group.
+// What bounds it (inferred from the timings below; the issue mix is not
+// profiled): instruction issue, with lanes idle in the triangles of the
+// factor and the substitutions. A step's broadcast load, pivot and
+// shuffles cost every lane once whatever rows it holds, so more rows a lane
+// pay less for them (a step skips, at compile time, a slot with no row in
+// play); the work done once an element (the Philox draws, the Gram, the
+// water-filling run on each lane) costs less with more elements a warp.
+// bin/tune_wide_kernel.py measured it (NVIDIA H100 80GB HBM3, 700 W, 128
+// reps x 4 tiles x 8 x 512 PRNG solves): at (7, 2), 4 lanes a user and one
+// user at once (4 rows a lane, 8 elements a warp, shared memory for 8
+// warps a SM) 12.46 ms; 8 lanes a user 16.29 ms and 4 users at once
+// 16.90 ms, each at 16 warps a SM; the one-thread form 63.59 ms. So Lu is
+// the power of two (at least 4) that leaves a lane at most 4 rows, and U
+// the fewest users that leave shared memory for 8 warps a SM (2 at (8, 2)
+// and (11, 2)). chip_smoke.py prints each instance's registers, spills,
+// shared bytes and resident warps and holds the kernel to its plain
+// version.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "philox.cuh"
 #include "planes.cuh"
@@ -124,7 +155,6 @@ constexpr bool kWideForm = MC_BD_WIDE || MC_BD_K * MC_BD_NR > kTileFormMaxNt;
 #else
 constexpr bool kWideForm = false;
 #endif
-constexpr int kBlockThreads = kWideForm ? wide::kThreads : kThreads;
 constexpr uint32_t kChannelKey = 5u;  // ops/philox.py BD_CHANNEL_KEY
 enum Mode { kNormalized = 0, kGlobal = 1, kNone = 2 };
 
@@ -439,201 +469,263 @@ __global__ void __launch_bounds__(kThreads, min_blocks<K * NR>())
 
 // ---- the wide form ------------------------------------------------------
 
-// The per-thread column of the wide form: H, then B, then X.
+// The wide form's plan. A group of L = U Lu lanes an element: all L sum the
+// element's Gram (lane g holding rows g, g + L, ...: RG of them), then the
+// group's U sub-groups of Lu lanes solve U users at once (users u, u + U,
+// ... on sub-group u), lane gu of a sub-group holding rows (and columns)
+// gu, gu + Lu, ... (R of them) of its user's factor and T. Lu is
+// the power of two (at least 4) that leaves each lane at most 4 rows, and U
+// the fewest users (a power of two within a warp) whose warps' state leaves
+// shared memory for wide::kRoomWarps warps a SM: a user more at once costs
+// each element more of the work it does once (the draw, the Gram, the
+// water-filling, run by a wider group), which bin/tune_wide_kernel.py
+// measured to outweigh the warps it adds (the note at the head). The
+// element's state is a slot of the block's memory, in float2 entries:
+//   H  at kH: NT x NT, row-major (entry a NT + c);
+//   G  at kG: the Gram H H^H, its lower triangle packed by columns (entry
+//      G[a][b], a >= b, at kG + gl(a, b)): a column of G is contiguous, so
+//      the rows of a group read it without conflicts;
+//   then for each sub-group u, at kSub + u kSubEntries:
+//   L  the LDL^H factor of its user's B, strictly lower, packed by rows
+//      (wide::tri; wide::group_ldl_solve);
+//   W  at kW (even, for 16-byte loads of a row): W = B^-1 Y^H spread over
+//      the NT rows of H (NT x NR; 0 on the user's own rows), read by the
+//      sub-group as T is formed.
 template <int K, int NR>
 struct Wide {
   static constexpr int NT = K * NR;
   static constexpr int M = (K - 1) * NR;
-  static constexpr int kB = NT * NT;     // B's first entry
-  static constexpr int kX = kB + M * M;  // X's first entry
-  static constexpr int kState = kX + M * NR;
+  static constexpr int Lu = wide::lanes_for((NT + 3) / 4, 4);
+  static constexpr int R = (NT + Lu - 1) / Lu;
+  static constexpr int kH = 0;
+  static constexpr int kG = NT * NT;
+  static constexpr int kSub = (kG + NT * (NT + 1) / 2 + 1) / 2 * 2;
+  static constexpr int kW = (M * (M - 1) / 2 + 1) / 2 * 2;  // in a sub-slot
+  static constexpr int kSubEntries = kW + NT * NR;
+  // a warp's state bytes with u users at once
+  static constexpr long long warp_bytes(int u) {
+    return (long long)(32 / (u * Lu)) *
+           wide::group_stride(kSub + u * kSubEntries, u * Lu) *
+           (long long)sizeof(float2);
+  }
+  static constexpr int default_users() {
+    int u = 1;
+    while (!wide::leaves_room(warp_bytes(u)) && 2 * u * Lu <= 32 && u < K) {
+      u *= 2;
+    }
+    return u;
+  }
+  static constexpr int U = default_users();
+  static constexpr int L = U * Lu;  // lanes an element
+  static constexpr int RG = (NT + L - 1) / L;
+  static constexpr int kPerWarp = 32 / L;  // elements a warp
+  static constexpr int kEntries = kSub + U * kSubEntries;
+  static constexpr int kStride = wide::group_stride(kEntries, L);
+  static constexpr int kWarps =
+      wide::group_warps((long long)kPerWarp * kStride * sizeof(float2));
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kElems = kPerWarp * kWarps;  // elements a block
   static constexpr long long kBytes =
-      (long long)kState * wide::kThreads * (long long)sizeof(float2);
+      (long long)kElems * kStride * (long long)sizeof(float2);
   static constexpr bool kGlobal = wide::in_scratch(kBytes);
+  static_assert(Lu >= NR * NR && L <= 32 && (Lu & (Lu - 1)) == 0 &&
+                    (U & (U - 1)) == 0,
+                "lanes: powers of two, at most a warp");
+
+  // G[a][b] (a >= b) in the packed lower triangle
+  __device__ static constexpr int gl(int a, int b) {
+    return b * NT - b * (b - 1) / 2 + (a - b);
+  }
 };
 
-__device__ __forceinline__ cf wload(const float2* col, int n) {
-  const float2 v = col[n * wide::kThreads];
-  return {v.x, v.y};
+// Row t of tilde (the other users' rows of H, in order) for user rows from
+// own on.
+template <int NR>
+__device__ __forceinline__ int other_row(int t, int own) {
+  return t < own ? t : t + NR;
 }
 
-__device__ __forceinline__ void wstore(float2* col, int n, cf v) {
-  col[n * wide::kThreads] = make_float2(v.re, v.im);
-}
-
-// user_gains for the wide form: the same sums in the same order, on the
-// thread's column (H, B and X there); k is a run-time index.
+// The stream gains of user k into gains (k a run-time index) from the
+// element's Gram, on the Lu lanes of a sub-group (lane gu; sub, its slot
+// area): B = G over the other users' rows, X = Y^H = G over (other, own)
+// rows, W = B^-1 X by the sub-group's LDL^H (X rows over the lanes), then T
+// = Hk - W^H tilde on the lane's columns (the sum over the rows of tilde in
+// order, H read from the slot; the user's own rows add W's zeros, exactly)
+// and its Gram (p, q, r) or |T|^2: each lane's columns in order, then a
+// butterfly over the sub-group (a fixed tree where the plain version sums
+// the columns in order). `store` false: the sub-group has no user this
+// round (it solves user k all the same and keeps nothing).
 template <int K, int NR>
-__device__ __forceinline__ void user_gains_wide(float2* col, int k,
-                                                float (&gains)[K * NR]) {
+__device__ __forceinline__ void user_gains_group(float2* st, float2* sub,
+                                                 int gu, int k, bool store,
+                                                 float (&gains)[K * NR]) {
   using G = Wide<K, NR>;
-  constexpr int NT = G::NT;
-  constexpr int M = G::M;
-  float2* const B = col + G::kB * wide::kThreads;
-  float2* const X = col + G::kX * wide::kThreads;
+  constexpr int NT = G::NT, M = G::M, Lu = G::Lu, R = G::R;
+  using wide::ld;
+  // G[a][b] for any a, b (the upper triangle as the lower's conjugate)
+  auto gram = [&](int a, int b) {
+    const cf v = ld(st, G::kG + G::gl(a > b ? a : b, a > b ? b : a));
+    return a >= b ? v : planes::cconj(v);
+  };
   const int own = NR * k;  // the user's first row of H
-  // B = tilde tilde^H (upper triangle) and X = Y^H with Y = Hk tilde^H,
-  // row i of tilde (the other users' rows, in order) held in registers
-#pragma unroll 1
-  for (int i = 0; i < M; ++i) {
-    const int hi = (i < own ? i : i + NR) * NT;
-    cf ti[NT];
+  cf x[R][NR];
 #pragma unroll
-    for (int c = 0; c < NT; ++c) ti[c] = wload(col, hi + c);
+  for (int r = 0; r < R; ++r) {
+    const int i = gu + r * Lu < M ? gu + r * Lu : M - 1;
+    const int oi = other_row<NR>(i, own);
 #pragma unroll
-    for (int r = 0; r < NR; ++r) {
-      const int hr = (own + r) * NT;
-      cf acc = planes::cmul(wload(col, hr), planes::cconj(ti[0]));
-#pragma unroll
-      for (int c = 1; c < NT; ++c) {
-        acc = planes::cadd(
-            acc, planes::cmul(wload(col, hr + c), planes::cconj(ti[c])));
-      }
-      wstore(X, i * NR + r, planes::cconj(acc));
-    }
-#pragma unroll 1
-    for (int j = i; j < M; ++j) {
-      const int hj = (j < own ? j : j + NR) * NT;
-      cf acc = planes::cmulc(ti[0], wload(col, hj));
-#pragma unroll
-      for (int c = 1; c < NT; ++c) {
-        acc = planes::cadd(acc, planes::cmulc(ti[c], wload(col, hj + c)));
-      }
-      wstore(B, i * M + j, acc);
-    }
+    for (int s = 0; s < NR; ++s) x[r][s] = gram(oi, own + s);
   }
-  // LDL^H of B in place (planes::herm_solve_cols_ldl): L below the
-  // diagonal, (D, 1/D) on it; B[i][j > i] above it, B[j][i] its conjugate
-#pragma unroll 1
-  for (int j = 0; j < M; ++j) {
-    float d = wload(B, j * M + j).re;
-#pragma unroll 1
-    for (int q = 0; q < j; ++q) {
-      d = d - planes::cabs2(wload(B, j * M + q)) * wload(B, q * M + q).re;
-    }
-    d = fmaxf(d, planes::kEps);
-    const float dinv = 1.0f / d;
-    wstore(B, j * M + j, {d, dinv});
-#pragma unroll 1
-    for (int i = j + 1; i < M; ++i) {
-      cf acc = planes::cconj(wload(B, j * M + i));
-#pragma unroll 1
-      for (int q = 0; q < j; ++q) {
-        acc = planes::csub(
-            acc, planes::cscale(planes::cmulc(wload(B, i * M + q),
-                                              wload(B, j * M + q)),
-                                wload(B, q * M + q).re));
-      }
-      wstore(B, i * M + j, planes::cscale(acc, dinv));
-    }
-  }
-  // forward substitution L z = X (unit diagonal)
-#pragma unroll 1
-  for (int i = 1; i < M; ++i) {
-    cf x[NR];
+  wide::group_ldl_solve<M, Lu, R, NR>(
+      sub, gu,
+      [&](int r, int j) {
+        const int i = gu + r * Lu < M ? gu + r * Lu : M - 1;
+        return gram(other_row<NR>(i, own), other_row<NR>(j, own));
+      },
+      [&](int j) {
+        const int oj = other_row<NR>(j, own);
+        return ld(st, G::kG + G::gl(oj, oj)).re;
+      },
+      x);
+  // W over the rows of H: the solution on the other users' rows, 0 on the
+  // user's own
+  float2* const w_rows = sub + G::kW;
 #pragma unroll
-    for (int t = 0; t < NR; ++t) x[t] = wload(X, i * NR + t);
-#pragma unroll 1
-    for (int j = 0; j < i; ++j) {
-      const cf l = wload(B, i * M + j);
-#pragma unroll
-      for (int t = 0; t < NR; ++t) {
-        x[t] = planes::csub(x[t], planes::cmul(l, wload(X, j * NR + t)));
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < NR; ++t) wstore(X, i * NR + t, x[t]);
-  }
-  // the diagonal scale, then back substitution L^H x = z
-#pragma unroll 1
-  for (int i = M - 1; i >= 0; --i) {
-    const float dinv = wload(B, i * M + i).im;
-    cf x[NR];
-#pragma unroll
-    for (int t = 0; t < NR; ++t) {
-      x[t] = planes::cscale(wload(X, i * NR + t), dinv);
-    }
-#pragma unroll 1
-    for (int j = i + 1; j < M; ++j) {
-      const cf l = wload(B, j * M + i);
-#pragma unroll
-      for (int t = 0; t < NR; ++t) {
-        x[t] = planes::csub(x[t], planes::cmulc(wload(X, j * NR + t), l));
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < NR; ++t) wstore(X, i * NR + t, x[t]);
-  }
-  // T = Hk - W^H tilde: the sums over the rows of tilde for every column
-  // at once in registers, then T column by column into its Gram
-  cf acc[NR][NT];
-  {
-    const int h0 = (own > 0 ? 0 : NR) * NT;  // row 0 of tilde
-#pragma unroll
-    for (int c = 0; c < NT; ++c) {
-      const cf h = wload(col, h0 + c);
+  for (int r = 0; r < R; ++r) {
+    const int i = gu + r * Lu;
+    if (i < M) {
 #pragma unroll
       for (int s = 0; s < NR; ++s) {
-        acc[s][c] = planes::cmul(planes::cconj(wload(X, s)), h);
+        wide::st2(w_rows, other_row<NR>(i, own) * NR + s, x[r][s]);
       }
     }
   }
-#pragma unroll 1
-  for (int t = 1; t < M; ++t) {
-    const int ht = (t < own ? t : t + NR) * NT;
-    cf w[NR];
+  if (gu < NR * NR) wide::st2(w_rows, own * NR + gu, {0.f, 0.f});
+  __syncwarp();
+  float pp = 0.f, rr = 0.f;
+  cf qq = {0.f, 0.f};
 #pragma unroll
-    for (int s = 0; s < NR; ++s) w[s] = planes::cconj(wload(X, t * NR + s));
+  for (int r = 0; r < R; ++r) {
+    const int c = gu + r * Lu;
+    const int cr = c < NT ? c : NT - 1;
+    cf acc[NR];
 #pragma unroll
-    for (int c = 0; c < NT; ++c) {
-      const cf h = wload(col, ht + c);
+    for (int a = 0; a < NT; ++a) {
+      cf w[NR];
+      if constexpr (NR == 2) {
+        wide::ld_pair(w_rows, 2 * a, w[0], w[1]);
+      } else {
+        w[0] = ld(w_rows, a);
+      }
+      const cf h = ld(st, G::kH + a * NT + cr);
 #pragma unroll
       for (int s = 0; s < NR; ++s) {
-        acc[s][c] = planes::cadd(acc[s][c], planes::cmul(w[s], h));
+        acc[s] = a == 0 ? planes::cmulc(h, w[s]) : wide::cmacc(acc[s], h, w[s]);
+      }
+    }
+    if (c < NT) {
+      const cf t0 = planes::csub(ld(st, G::kH + own * NT + c), acc[0]);
+      pp = pp + planes::cabs2(t0);
+      if constexpr (NR == 2) {
+        const cf t1 = planes::csub(ld(st, G::kH + (own + 1) * NT + c), acc[1]);
+        rr = rr + planes::cabs2(t1);
+        qq = planes::cadd(qq, planes::cmulc(t0, t1));
       }
     }
   }
-  float p = 0.f, r = 0.f;
-  cf q = {0.f, 0.f};
-#pragma unroll
-  for (int c = 0; c < NT; ++c) {
-    const cf t0 = planes::csub(wload(col, own * NT + c), acc[0][c]);
-    p = p + planes::cabs2(t0);
-    if constexpr (NR == 2) {
-      const cf t1 = planes::csub(wload(col, (own + 1) * NT + c), acc[1][c]);
-      r = r + planes::cabs2(t1);
-      q = planes::cadd(q, planes::cmulc(t0, t1));
-    }
+  pp = wide::group_sum<Lu>(pp);
+  if constexpr (NR == 2) {
+    rr = wide::group_sum<Lu>(rr);
+    qq = {wide::group_sum<Lu>(qq.re), wide::group_sum<Lu>(qq.im)};
   }
-  store_gains<K, NR>(p, q, r, k, gains);
+  if (store) store_gains<K, NR>(pp, qq, rr, k, gains);
+  __syncwarp();
 }
 
+// One element's sum capacity on its group (the same value on every lane):
+// _solve_block + _guarded of bd_pallas.py, with every user's B and Y read from
+// the element's one Gram G = H H^H.
 template <int K, int NR, int MODE>
-__device__ __forceinline__ float solve_element_wide(float2* col, float nv,
-                                                    float ipu) {
+__device__ __forceinline__ float solve_element_group(float2* st, int g,
+                                                     float nv, float ipu) {
+  using G = Wide<K, NR>;
+  constexpr int NT = G::NT, L = G::L, Lu = G::Lu, U = G::U, RG = G::RG;
+  using wide::ld;
+  // G = H H^H, its lower triangle: the lane's rows a of H in registers, each
+  // entry G[a][b] (b <= a) summed over the columns in order by fused
+  // multiply-adds (row b read by the whole group at once); a slot's loop
+  // ends at its last row
+#pragma unroll
+  for (int r = 0; r < RG; ++r) {
+    const int a = g + r * L;
+    const int ar = a < NT ? a : NT - 1;
+    const int last = (r * L + L < NT ? r * L + L : NT) - 1;
+    cf ha[NT];
+#pragma unroll
+    for (int c = 0; c < NT; ++c) ha[c] = ld(st, G::kH + ar * NT + c);
+#pragma unroll 1
+    for (int b = 0; b <= last; ++b) {
+      cf hb[NT];
+      if constexpr (NT % 2 == 0) {
+#pragma unroll
+        for (int c = 0; c < NT; c += 2) {
+          wide::ld_pair(st, G::kH + b * NT + c, hb[c], hb[c + 1]);
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < NT; ++c) hb[c] = ld(st, G::kH + b * NT + c);
+      }
+      cf acc = planes::cmulc(ha[0], hb[0]);
+#pragma unroll
+      for (int c = 1; c < NT; ++c) acc = wide::cmacc(acc, ha[c], hb[c]);
+      if (b <= a && a < NT) wide::st2(st, G::kG + G::gl(a, b), acc);
+    }
+  }
+  __syncwarp();
+  // the users, U at once (a round's spare sub-groups solve the last user
+  // again and keep nothing); each gain is then on one sub-group's lanes and
+  // 0 on the others', so a butterfly across the sub-groups gathers it
+  // exactly
+  const int u = g / Lu, gu = g % Lu;
+  float2* const sub = st + G::kSub + u * G::kSubEntries;
   float gains[K * NR];
 #pragma unroll
   for (int i = 0; i < K * NR; ++i) gains[i] = 0.f;
-#pragma unroll 1  // users
-  for (int k = 0; k < K; ++k) user_gains_wide<K, NR>(col, k, gains);
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += U) {
+    const int k = k0 + u;
+    user_gains_group<K, NR>(st, sub, gu, k < K ? k : K - 1, k < K, gains);
+  }
+  if constexpr (U > 1) {
+#pragma unroll
+    for (int i = 0; i < K * NR; ++i) {
+#pragma unroll
+      for (int off = L / 2; off >= Lu; off >>= 1) {
+        gains[i] += __shfl_xor_sync(0xffffffffu, gains[i], off, L);
+      }
+    }
+  }
   return capacity_of_gains<K, NR, MODE>(gains, nv, ipu);
 }
 
-// The wide form: one element a thread, one warp a block, the block walking
-// blocks vb = blockIdx.x, + gridDim.x, ... of the launch (one trip unless
-// the state is in the scratch buffer), partial[vb] its elements' sum.
+// The wide form: a group of Wide::L lanes an element, Wide::kElems elements
+// a block, the block walking blocks vb = blockIdx.x, + gridDim.x, ... of the
+// launch (one trip unless the state is in the scratch buffer), partial[vb]
+// its elements' sum: each warp's group leaders by a shuffle tree, then the
+// warps in order.
 template <int K, int NR, int MODE, bool kInject>
-__global__ void __launch_bounds__(wide::kThreads)
+__global__ void __launch_bounds__(Wide<K, NR>::kThreads)
     mc_bd_wide_kernel(const Params p) {
   using G = Wide<K, NR>;
-  constexpr int NT = G::NT;
-  constexpr int CALLS = (2 * NT * NT + 3) / 4;  // two entries a call
-  extern __shared__ float2 s_col[];  // (kState, wide::kThreads)
+  constexpr int NT = G::NT, L = G::L;
+  extern __shared__ float4 s_state[];
+  __shared__ float s_warp_sum[G::kWarps];
   float2* const slot =
-      G::kGlobal
-          ? p.scratch + (long long)blockIdx.x * G::kState * wide::kThreads
-          : s_col;
-  float2* const col = slot + threadIdx.x;  // this thread's element
+      G::kGlobal ? p.scratch + (long long)blockIdx.x * G::kElems * G::kStride
+                 : reinterpret_cast<float2*>(s_state);
+  const int g = threadIdx.x % L;       // the lane in its group
+  const int grp = threadIdx.x / L;     // the element in the block
+  float2* const st = slot + grp * G::kStride;
   const int elems = p.tile * p.lane;
 #pragma unroll 1
   for (int vb = blockIdx.x; vb < p.blocks; vb += gridDim.x) {
@@ -641,45 +733,19 @@ __global__ void __launch_bounds__(wide::kThreads)
     const int part = vb % p.parts;
     const int rep = cell / p.num_tiles;
     const int tile_idx = cell % p.num_tiles;
-    const int e = part * wide::kThreads + threadIdx.x;
-    float acc = 0.f;
-    if (e < elems) {
-      if (kInject) {
-        const int r = e / p.lane;
-        const int l = e - r * p.lane;
-        const int* row = p.bits + rep * p.rep_stride +
-                         (long long)(tile_idx * p.tile + r) * p.row_stride + l;
-#pragma unroll 1
-        for (int en = 0; en < NT * NT; ++en) {
-          col[en * wide::kThreads] = make_float2(
-              bits_half_normal((uint32_t)row[(long long)(2 * en) * p.lane]),
-              bits_half_normal(
-                  (uint32_t)row[(long long)(2 * en + 1) * p.lane]));
-        }
-      } else {
-        const unsigned long long attempt =
-            (unsigned long long)(p.start + (long long)rep);
-#pragma unroll 1  // Philox calls; odd NT leaves the last one half used
-        for (int j = 0; j < CALLS; ++j) {
-          const uint4 x = philox4x32_10(
-              make_uint4((uint32_t)e, (uint32_t)(tile_idx * CALLS + j),
-                         (uint32_t)attempt, (uint32_t)(attempt >> 32)),
-              make_uint2(p.seed, kChannelKey));
-          col[(2 * j) * wide::kThreads] =
-              make_float2(bits_half_normal(x.x), bits_half_normal(x.y));
-          if (2 * j + 1 < NT * NT) {
-            col[(2 * j + 1) * wide::kThreads] =
-                make_float2(bits_half_normal(x.z), bits_half_normal(x.w));
-          }
-        }
-      }
-      acc = solve_element_wide<K, NR, MODE>(col, p.nv, p.ipu);
+    const int e = part * G::kElems + grp;
+    const bool valid = e < elems;
+    __syncwarp();  // the previous trip's reads of the slot are done
+    if (valid) {
+      wide::draw_entries<L, kInject>(p, st + G::kH, g, e, rep, tile_idx,
+                                     NT * NT, kChannelKey);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      acc += __shfl_down_sync(0xffffffffu, acc, off);
-    }
-    if (threadIdx.x == 0) p.partial[vb] = acc;
+    __syncwarp();
+    // every group solves (an element past the end on whatever its slot
+    // holds: the warp's lanes stay together) and only valid ones count
+    const float cap = solve_element_group<K, NR, MODE>(st, g, p.nv, p.ipu);
+    wide::block_partial<G::kWarps>((valid && g == 0) ? cap : 0.f, s_warp_sum,
+                                   p.partial + vb);
   }
 }
 
@@ -697,7 +763,7 @@ __global__ void bd_sum_parts_kernel(const float* __restrict__ partial,
 template <int K, int NR, int MODE, bool kInject>
 int launch_wide(const Params& p, cudaStream_t s) {
   return wide::launch(mc_bd_wide_kernel<K, NR, MODE, kInject>, p,
-                      Wide<K, NR>::kBytes, s);
+                      Wide<K, NR>::kBytes, Wide<K, NR>::kThreads, s);
 }
 
 template <int K, int NR, int MODE, bool kInject>
@@ -754,12 +820,24 @@ int launch_geometry(const Params& p, int K, int NR, int mode, int blocks,
 }
 #endif
 
+// Elements a block: kThreads, or the wide form's.
+constexpr int block_elems() {
+#ifdef MC_BD_K
+  if constexpr (kWideForm) return Wide<MC_BD_K, MC_BD_NR>::kElems;
+#endif
+  return kThreads;
+}
+
+int num_parts(int tile, int lane) {
+  return (tile * lane + block_elems() - 1) / block_elems();
+}
+
 int launch(Params& p, float* out, int reps, int K, int NR, int mode,
            bool inject, void* stream) {
   if (reps < 1 || p.num_tiles < 1 || p.tile < 1 || p.lane < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  p.parts = (p.tile * p.lane + kBlockThreads - 1) / kBlockThreads;
+  p.parts = num_parts(p.tile, p.lane);
   const long long cells = (long long)reps * p.num_tiles;
   const long long blocks = cells * p.parts;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
@@ -776,12 +854,17 @@ int launch(Params& p, float* out, int reps, int K, int NR, int mode,
   return (int)cudaGetLastError();
 }
 
+template <int kK, int kNR>
+struct Geo {
+  static constexpr int K = kK, NR = kNR;
+};
+
 }  // namespace
 
 // Partials per (rep, tile) cell: the wrapper's scratch holds
 // reps * num_tiles * mc_bd_num_parts(tile, lane) floats.
 extern "C" int mc_bd_num_parts(int tile, int lane) {
-  return (tile * lane + kBlockThreads - 1) / kBlockThreads;
+  return num_parts(tile, lane);
 }
 
 // Bytes of the state buffer a launch of this library's geometry needs (the
@@ -798,6 +881,51 @@ extern "C" long long mc_bd_scratch_bytes(int reps, int num_tiles, int tile,
   (void)reps, (void)num_tiles, (void)tile, (void)lane;
   return 0;
 #endif
+}
+
+// How geometry (K, NR) launches in mode `mode` (PRNG) on the current
+// device: wide::launch_info's six ints in info (threads a block, dynamic
+// shared bytes a block, elements a block, lanes an element, 1 if the state
+// is in the scratch buffer, resident blocks a SM). Returns a CUDA error code
+// (cudaErrorInvalidValue for a geometry this library does not hold).
+extern "C" int mc_bd_launch_info(int K, int NR, int mode, int* info) {
+  int rc = (int)cudaErrorInvalidValue;
+  auto one = [&](auto kernel, int threads, long long bytes, int elems,
+                 int lanes) {
+    rc = wide::launch_info(kernel, threads, bytes, elems, lanes, info);
+  };
+  auto modes = [&](auto k_nr, auto tile_form) {
+    constexpr int kK = decltype(k_nr)::K, kNR = decltype(k_nr)::NR;
+    (void)tile_form;
+    auto pick = [&](auto m) {
+      constexpr int kM = decltype(m)::value;
+      if constexpr (decltype(tile_form)::value) {
+        one(mc_bd_kernel<kK, kNR, kM, false>, kThreads,
+            smem_bytes<kK * kNR>(), kThreads, 1);
+      } else {
+        using G = Wide<kK, kNR>;
+        one(mc_bd_wide_kernel<kK, kNR, kM, false>, G::kThreads, G::kBytes,
+            G::kElems, G::L);
+      }
+    };
+    if (mode == kNormalized) pick(std::integral_constant<int, kNormalized>{});
+    if (mode == kGlobal) pick(std::integral_constant<int, kGlobal>{});
+    if (mode == kNone) pick(std::integral_constant<int, kNone>{});
+  };
+#ifdef MC_BD_K
+  if (K == MC_BD_K && NR == MC_BD_NR) {
+    modes(Geo<MC_BD_K, MC_BD_NR>{},
+          std::integral_constant<bool, !kWideForm>{});
+  }
+#else
+  using T = std::true_type;
+  if (K == 2 && NR == 1) modes(Geo<2, 1>{}, T{});
+  if (K == 2 && NR == 2) modes(Geo<2, 2>{}, T{});
+  if (K == 3 && NR == 2) modes(Geo<3, 2>{}, T{});
+  if (K == 4 && NR == 1) modes(Geo<4, 1>{}, T{});
+  if (K == 4 && NR == 2) modes(Geo<4, 2>{}, T{});
+#endif
+  return rc;
 }
 
 // In-kernel Philox bits (the counterpart of _make_prng_call): rep r of this

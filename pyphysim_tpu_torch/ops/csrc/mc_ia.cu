@@ -33,31 +33,57 @@
 //     user and matrix loop unrolled with K a template parameter, and only
 //     the Max-SINR iteration loop a run-time loop; the reverse network reads
 //     the same registers conjugate-transposed, so H is held once;
-//   * the general body (N = 4) keeps H (K * K * 32 floats) in shared
-//     memory, one plane per row of 32 threads (conflict-free), a block of
-//     one warp so that 288 planes fit in 36 KB; its Bkl, LDL^H factors and
-//     filters stay in registers;
+//   * the general body (any other (N, Ns), mc_ia_general_kernel, in the
+//     prebuilt library and in a geometry's own) splits an element over a
+//     group of lanes (wide.cuh). One thread an element had kept H in shared
+//     memory and F, U, Bkl and the factors in registers: 255 registers and
+//     3,328 bytes of spill stores a thread at (3, 4, 2), 6 warps a SM. The
+//     K user updates of a half-iteration are independent, so U of them run
+//     at once on sub-groups of Lu lanes; lane gu holds rows gu, gu + Lu, ...
+//     of its user's links (read from the element's slot), of first and Bkl
+//     (registers) and of t = link f (the sub-group's T, in the slot, read
+//     whole for the outer products); F and U live in the slot, whole for
+//     every lane. A link product sums over the columns in order on one lane,
+//     first += p t t^H takes the (j, l) terms in order, each stream's
+//     Bkl^-1 d is wide::group_ldl_solve (its back substitution from the last
+//     column down: rounding only), u = normalize(x) and the SINR's sums over
+//     the rows run on every lane of the sub-group on vectors gathered whole
+//     by shuffles (so in order), and the capacities are summed over users
+//     and streams in order. Complex multiply-adds are fused chains. Its
+//     loops over users and links stay rolled, so any K builds alike; past
+//     227 KB a block (first at (15, 4, 2) for (N, Ns)
+//     = (4, 2): one warp a block) its slots are in the scratch buffer,
+//     read through L2 (chip_smoke.py holds that point to its plain
+//     version: 2.18 s for 2,097,152 solves, 3.6 % of its operation bound);
 //   * each thread draws its element's channel words with Philox in
 //     registers; inject-mode loads are coalesced along the lane;
 //   * a block sums its elements in a fixed order (a shuffle tree, then its
 //     warps), writes one partial, and a second pass adds a (rep, tile)'s
 //     partials in order. No float atomics: a rerun and another chunking give
 //     the same bits.
-// The prebuilt library holds the five geometries of launch_geometry below;
-// any other (K, N, Ns) is built on its first use with -DMC_IA_K=..
-// -DMC_IA_N=.. -DMC_IA_NS=.. (ops/_build.py) in the wide form,
-// mc_ia_wide_kernel: either body, one warp a block, each thread's channels
-// (K^2 N^2 2 floats) in a column at stride 32 as the general body keeps
-// them. At K >= 5 the closed form's channel no longer fits in registers
-// (200 floats at K = 5) and moves there too. The columns live in dynamic
-// shared memory (opted in above 48 KB: 64 KB at (4, 4, Ns)) while a warp's
-// fit in 227 KB, past that in the scratch buffer of wide.cuh
-// (mc_ia_scratch_bytes says how large). The
-// Philox calls that fill a column are a rolled loop; the bodies are the
-// ones above, so Bkl, the LDL^H factors and the filters stay in registers
-// (K N Ns complex values each for F and U) and spill at the largest
-// geometries.
-// chip_smoke.py prints ptxas's registers and spills for each instance.
+// The prebuilt library holds the five geometries of with_geometry below; any
+// other (K, N, Ns) is built on its first use with -DMC_IA_K=.. -DMC_IA_N=..
+// -DMC_IA_NS=.. (ops/_build.py): the general body as above, or the closed
+// body in mc_ia_wide_kernel, one element a thread in blocks of one warp
+// with each thread's channels (K^2 N^2 2 floats) in a column at stride 32
+// of shared memory (past K = 4 they no longer fit in registers: 200 floats
+// at K = 5), past 227 KB a warp in the scratch buffer of wide.cuh
+// (mc_ia_scratch_bytes says how large).
+// What bounds the general body (inferred from the timings below; not
+// profiled): instruction issue along chains of small steps (a user's Bkl is
+// N x N: its factor, substitutions, gathers and normalization are a few
+// operations between shuffles and __syncwarp).
+// bin/tune_wide_kernel.py --grid timed every pair of lanes a user (2, 4, 8)
+// and users at once (1, 2, 4) (NVIDIA H100 80GB HBM3, 700 W, 128 reps x 4
+// tiles x 8 x 512 PRNG solves, 10 iterations): two rows a lane and 2 users
+// at once was the best pair at (2, 3, 1) (2.85 ms), (3, 4, 1), (2, 4, 2)
+// and (3, 4, 2) (23.87 ms, the parent's one-thread body 29.21) and 6 %
+// behind the best at (4, 4, 2) (39.55 ms, a lane a row 37.53); a lane a
+// row cost 1.6x at (2, 3, 1), more users at once up to 1.9x. Where the
+// one-thread body fitted in registers it was faster: (2, 3, 1) 1.49 ms,
+// (2, 4, 2) 6.93 ms against 9.86 (ROADMAP.md queues it). chip_smoke.py
+// prints each instance's registers, spills, shared bytes and resident
+// warps.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,7 +105,6 @@ using planes::cscale;
 using planes::csub;
 
 constexpr int kClosedThreads = 128;
-constexpr int kGeneralThreads = 32;
 constexpr uint32_t kChannelKey = 6u;  // ops/philox.py IA_CHANNEL_KEY
 
 struct Params {
@@ -134,7 +159,7 @@ __device__ __forceinline__ void draw_planes(const Params& p, int rep,
 
 // A thread's channels in a column (shared or device memory): plane pl at
 // s[pl * T].
-template <int K, int N, int T = kGeneralThreads>
+template <int K, int N, int T>
 struct SharedH {
   const float* s;
   __device__ __forceinline__ cf get(int k, int j, int r, int c) const {
@@ -245,132 +270,317 @@ __device__ __forceinline__ float solve_closed(const HT& H, float nv, float P,
   return isfinite(cap) ? cap : 0.f;
 }
 
-// ---- the general body ---------------------------------------------------
+// ---- the general body: a group of lanes an element -----------------------
 
-template <int K, int N, bool REV>
-__device__ __forceinline__ void link_matvec(const SharedH<K, N>& H, int k,
-                                            int j, const cf (&v)[N],
-                                            cf (&out)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    cf acc = cmul(REV ? cconj(H.get(j, k, 0, i)) : H.get(k, j, i, 0), v[0]);
-#pragma unroll
-    for (int c = 1; c < N; ++c) {
-      acc = cadd(acc,
-                 cmul(REV ? cconj(H.get(j, k, c, i)) : H.get(k, j, i, c), v[c]));
-    }
-    out[i] = acc;
-  }
-}
-
-// first = nv I + sum_j sum_l p t t^H (t = H_kj f_jl) and D[l] = H_kk f_kl.
-template <int K, int N, int NS, bool REV>
-__device__ __forceinline__ void general_first(const SharedH<K, N>& H,
-                                              const cf (&F)[K][NS][N], int k,
-                                              float nv, float p,
-                                              cf (&first)[N][N],
-                                              cf (&D)[NS][N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int c = 0; c < N; ++c) first[i][c] = {i == c ? nv : 0.f, 0.f};
-  }
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-#pragma unroll
-    for (int l = 0; l < NS; ++l) {
-      cf t[N];
-      link_matvec<K, N, REV>(H, k, j, F[j][l], t);
-      planes::herm_add_outer<N>(first, t, p);
-      if (j == k) {
-#pragma unroll
-        for (int i = 0; i < N; ++i) D[l][i] = t[i];
-      }
-    }
-  }
-}
-
-template <int K, int N, int NS, bool REV>
-__device__ __forceinline__ void general_update(const SharedH<K, N>& H,
-                                               const cf (&F)[K][NS][N],
-                                               cf (&out)[K][NS][N], float nv,
-                                               float p, float inv_sqrt_ns) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    cf first[N][N], D[NS][N];
-    general_first<K, N, NS, REV>(H, F, k, nv, p, first, D);
-#pragma unroll
-    for (int l = 0; l < NS; ++l) {
-      cf B[N][N], rhs[N][1], x[N][1];
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-#pragma unroll
-        for (int c = 0; c < N; ++c) B[i][c] = first[i][c];
-        rhs[i][0] = D[l][i];
-      }
-      planes::herm_add_outer<N>(B, D[l], -p);
-      planes::herm_solve_cols_ldl<N, 1>(B, rhs, x);
-      cf u[N];
-#pragma unroll
-      for (int i = 0; i < N; ++i) u[i] = x[i][0];
-      planes::vnormalize<N>(u);
-#pragma unroll
-      for (int i = 0; i < N; ++i) out[k][l][i] = cscale(u[i], inv_sqrt_ns);
-    }
-  }
-}
-
+// The general body's plan: a group of L = U Lu lanes an element, whose U
+// sub-groups of Lu lanes update U users at once (users u, u + U, ... on
+// sub-group u; the K users of a half-iteration are independent), lane gu of
+// a sub-group holding rows gu, gu + Lu, ... (R of them) of its user's links,
+// filters and Hermitian matrices. Lu is the power of two >= N / 2
+// (two rows a lane) and U = 2, the plan bin/tune_wide_kernel.py --grid
+// measured best or within 6 % of it at every geometry it times (see the
+// note at the head). The element's state is a slot of the block's memory,
+// in float2 entries:
+//   H  at kH: the links, H[k][j][r][c] at ((k K + j) N + r) N + c (the JAX
+//      plane order);
+//   F  at kF, U at kU: the precoders and receive filters, vector (k, l)
+//      at (k NS + l) N, each set whole for every lane to read;
+//   then for each sub-group u, at kSub + u kSubEntries:
+//   T  t = link(k, j) v_jl of its user, vector (j, l) at (j NS + l) N;
+//   L  at kT + KS N: the LDL^H factor, strictly lower, packed by rows
+//      (wide::tri; wide::group_ldl_solve).
 template <int K, int N, int NS>
-__device__ __forceinline__ float solve_general(const SharedH<K, N>& H,
-                                               float nv, float P, int iters,
-                                               int init_iters) {
-  const float inv_sqrt_ns = (float)(1.0 / sqrt((double)NS));
-  const float p_rev = P / (float)NS;
-  cf F[K][NS][N], U[K][NS][N];
+struct GroupIA {
+  static constexpr int Lu = wide::lanes_for((N + 1) / 2, 1);
+  static constexpr int R = (N + Lu - 1) / Lu;
+  static constexpr int U = Lu < 32 ? 2 : 1;
+  static constexpr int L = U * Lu;         // lanes an element
+  static constexpr int kPerWarp = 32 / L;  // elements a warp
+  static constexpr int KS = K * NS;        // vectors of a set
+  static constexpr int kH = 0;
+  static constexpr int kF = K * K * N * N;
+  static constexpr int kU = kF + KS * N;
+  static constexpr int kSub = (kU + KS * N + 1) / 2 * 2;
+  static constexpr int kL = KS * N;        // in a sub-slot
+  static constexpr int kSubEntries = (kL + N * (N - 1) / 2 + 1) / 2 * 2;
+  static constexpr int kEntries = kSub + U * kSubEntries;
+  static constexpr int kStride = wide::group_stride(kEntries, L);
+  static constexpr int kWarps =
+      wide::group_warps((long long)kPerWarp * kStride * sizeof(float2));
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kElems = kPerWarp * kWarps;  // elements a block
+  static constexpr long long kBytes =
+      (long long)kElems * kStride * (long long)sizeof(float2);
+  static constexpr bool kGlobal = wide::in_scratch(kBytes);
+  static_assert(L <= 32 && (Lu & (Lu - 1)) == 0 && (U & (U - 1)) == 0,
+                "lanes: powers of two, at most a warp");
+};
+
+// Vector v (N entries at st[n]) whole on every lane of the group (a
+// broadcast read).
+template <int N>
+__device__ __forceinline__ void ld_vec(const float2* st, int n, cf (&v)[N]) {
+  if constexpr (N % 2 == 0) {
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    cf M[N][N], cols[NS][N];
+    for (int c = 0; c < N; c += 2) wide::ld_pair(st, n + c, v[c], v[c + 1]);
+  } else {
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
+    for (int c = 0; c < N; ++c) v[c] = wide::ld(st, n + c);
+  }
+}
+
+// The vector whose row a the sub-group's lane a % Lu holds in own[a / Lu],
+// whole on every lane of the sub-group (a shuffle a row).
+template <int N, int Lu, int R>
+__device__ __forceinline__ void gather(const cf (&own)[R], cf (&v)[N]) {
 #pragma unroll
-      for (int c = 0; c < N; ++c) M[i][c] = H.get(k, k, i, c);
-    }
-    planes::orth_iter_init<N, NS>(M, init_iters, cols);
+  for (int a = 0; a < N; ++a) v[a] = wide::bcast<Lu>(own[a / Lu], a % Lu);
+}
+
+// Writes vector v (whole on every lane of a sub-group) times scale to
+// st[n ...]: each lane its rows; none where `keep` is false.
+template <int N, int Lu>
+__device__ __forceinline__ void st_vec(float2* st, int n, int gu, bool keep,
+                                       const cf (&v)[N], float scale) {
+#pragma unroll
+  for (int a = 0; a < N; ++a) {
+    if (keep && a % Lu == gu) wide::st2(st, n + a, cscale(v[a], scale));
+  }
+}
+
+// The lane's rows of first = nv I + sum_j sum_l p t t^H of user k, t =
+// link(k, j) v_jl (link H[k][j], or REV H[j][k]^H) over the vectors v of the
+// set at st[src], in _solve_block_general's order, by fused multiply-adds (a
+// term (p t_i) conj(t_c), where the plain version rounds (t_i conj(t_c)) p);
+// each t also goes to the sub-group's T (at sub).
+template <int K, int N, int NS, bool REV>
+__device__ __forceinline__ void group_first(
+    const float2* st, float2* sub, int gu, int src, int k, float nv, float p,
+    cf (&fr)[GroupIA<K, N, NS>::R][N]) {
+  using G = GroupIA<K, N, NS>;
+  constexpr int Lu = G::Lu, R = G::R;
+#pragma unroll 1
+  for (int j = 0; j < K; ++j) {
+    // H[k][j] row i (forward) or column i of H[j][k] (reverse) starts here
+    const int base = REV ? (j * K + k) * N * N : (k * K + j) * N * N;
 #pragma unroll
     for (int l = 0; l < NS; ++l) {
+      cf v[N];
+      ld_vec<N>(st, src + (j * NS + l) * N, v);
 #pragma unroll
-      for (int i = 0; i < N; ++i) F[k][l][i] = cscale(cols[l][i], inv_sqrt_ns);
+      for (int r = 0; r < R; ++r) {
+        const int i = gu + r * Lu < N ? gu + r * Lu : N - 1;
+        cf acc;
+#pragma unroll
+        for (int c = 0; c < N; ++c) {
+          const cf h = REV ? cconj(wide::ld(st, base + c * N + i))
+                           : wide::ld(st, base + i * N + c);
+          acc = c == 0 ? cmul(h, v[0]) : wide::cmac(acc, h, v[c]);
+        }
+        if (gu + r * Lu < N) wide::st2(sub, (j * NS + l) * N + i, acc);
+      }
     }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = gu + r * Lu;
+#pragma unroll
+    for (int c = 0; c < N; ++c) fr[r][c] = {i == c ? nv : 0.f, 0.f};
   }
 #pragma unroll 1
-  for (int it = 0; it < iters; ++it) {
-    general_update<K, N, NS, false>(H, F, U, nv, P, inv_sqrt_ns);
-    general_update<K, N, NS, true>(H, U, F, nv, p_rev, inv_sqrt_ns);
-  }
-  general_update<K, N, NS, false>(H, F, U, nv, P, inv_sqrt_ns);
-
-  float cap = 0.f;
+  for (int jl = 0; jl < G::KS; ++jl) {
+    cf t[N];
+    ld_vec<N>(sub, jl * N, t);
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    cf first[N][N], D[NS][N];
-    general_first<K, N, NS, false>(H, F, k, nv, P, first, D);
+    for (int r = 0; r < R; ++r) {
+      const int i = gu + r * Lu < N ? gu + r * Lu : N - 1;
+      const cf pti = cscale(wide::ld(sub, jl * N + i), p);
+#pragma unroll
+      for (int c = 0; c < N; ++c) fr[r][c] = wide::cmacc(fr[r][c], pti, t[c]);
+    }
+  }
+}
+
+// The lane's rows of Bkl = first - p d d^H for d (whole on every lane; the
+// lane's own rows of it in dr).
+template <int N, int R>
+__device__ __forceinline__ void group_bkl(const cf (&fr)[R][N],
+                                          const cf (&dr)[R], const cf (&d)[N],
+                                          float p, cf (&b)[R][N]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const cf pd = cscale(dr[r], p);
+#pragma unroll
+    for (int c = 0; c < N; ++c) b[r][c] = wide::cmsubc(fr[r][c], pd, d[c]);
+  }
+}
+
+// d = t of user k's stream l (whole, and the lane's rows of it).
+template <int N, int Lu, int R>
+__device__ __forceinline__ void load_d(const float2* sub, int n, int gu,
+                                       cf (&d)[N], cf (&dr)[R]) {
+  ld_vec<N>(sub, n, d);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    dr[r] = wide::ld(sub, n + (gu + r * Lu < N ? gu + r * Lu : N - 1));
+  }
+}
+
+// One direction of the Max-SINR update: the set at st[dst] = for each user k
+// and stream l, normalize(Bkl^-1 d) / sqrt(NS), over the set at st[src]; U
+// users at once (a round's spare sub-groups update the last user again and
+// keep nothing).
+template <int K, int N, int NS, bool REV>
+__device__ __forceinline__ void group_update(float2* st, float2* sub, int u,
+                                             int gu, int src, int dst,
+                                             float nv, float p,
+                                             float inv_sqrt_ns) {
+  using G = GroupIA<K, N, NS>;
+  constexpr int Lu = G::Lu, R = G::R;
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += G::U) {
+    const bool keep = k0 + u < K;
+    const int k = keep ? k0 + u : K - 1;
+    cf fr[R][N];
+    group_first<K, N, NS, REV>(st, sub, gu, src, k, nv, p, fr);
 #pragma unroll
     for (int l = 0; l < NS; ++l) {
-      cf B[N][N];
+      cf d[N], dr[R], b[R][N], x[R][1];
+      load_d<N, Lu, R>(sub, (k * NS + l) * N, gu, d, dr);  // d = H_kk f_kl
 #pragma unroll
-      for (int i = 0; i < N; ++i) {
+      for (int r = 0; r < R; ++r) x[r][0] = dr[r];
+      group_bkl<N, R>(fr, dr, d, p, b);
+      wide::group_ldl_solve<N, Lu, R, 1>(
+          sub + G::kL, gu, [&](int r, int j) { return b[r][j]; },
+          [&](int j) { return wide::bcast<Lu>(b[j / Lu][j].re, j % Lu); }, x);
+      cf xr[R], uv[N];
 #pragma unroll
-        for (int c = 0; c < N; ++c) B[i][c] = first[i][c];
-      }
-      planes::herm_add_outer<N>(B, D[l], -P);
-      const float num = P * cabs2(planes::gdotc<N>(U[k][l], D[l]));
-      cf w[N];
-      planes::matvec<N>(B, U[k][l], w);
-      const float den =
-          fmaxf(fabsf(planes::gdotc<N>(U[k][l], w).re), planes::kEps);
-      const float c = log2f(1.0f + num / den);
-      cap = (k == 0 && l == 0) ? c : cap + c;
+      for (int r = 0; r < R; ++r) xr[r] = x[r][0];
+      gather<N, Lu, R>(xr, uv);
+      planes::vnormalize<N>(uv);
+      st_vec<N, Lu>(st, dst + (k * NS + l) * N, gu, keep, uv, inv_sqrt_ns);
     }
+    __syncwarp();  // T is the next round's
+  }
+}
+
+// Sum capacity of one element on its group (the same value on every lane):
+// _solve_block_general of ia_pallas.py.
+template <int K, int N, int NS>
+__device__ __forceinline__ float solve_general_group(float2* st, int g,
+                                                     float nv, float P,
+                                                     int iters,
+                                                     int init_iters) {
+  using G = GroupIA<K, N, NS>;
+  constexpr int L = G::L, Lu = G::Lu, R = G::R, U = G::U;
+  const int u = g / Lu, gu = g % Lu;
+  float2* const sub = st + G::kSub + u * G::kSubEntries;
+  const float inv_sqrt_ns = (float)(1.0 / sqrt((double)NS));
+  const float p_rev = P / (float)NS;
+  // the init: init_iters steps of orthogonal iteration on H[k][k]^H H[k][k]
+  // (planes::orth_iter_init), the lane's rows of the Gram in registers, the
+  // iterate whole on every lane (its Gram-Schmidt run on every lane alike)
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += U) {
+    const bool keep = k0 + u < K;
+    const int k = keep ? k0 + u : K - 1;
+    const int base = (k * K + k) * N * N;
+    cf gk[R][N];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int i = gu + r * Lu < N ? gu + r * Lu : N - 1;
+#pragma unroll
+      for (int c = 0; c < N; ++c) {
+        cf acc;
+#pragma unroll
+        for (int t = 0; t < N; ++t) {
+          const cf term = cmul(cconj(wide::ld(st, base + t * N + i)),
+                               wide::ld(st, base + t * N + c));
+          acc = t == 0 ? term : cadd(acc, term);
+        }
+        gk[r][c] = acc;
+      }
+    }
+    cf cols[NS][N];
+#pragma unroll
+    for (int l = 0; l < NS; ++l) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) cols[l][i] = {i == l ? 1.f : 0.f, 0.f};
+    }
+#pragma unroll 1
+    for (int it = 0; it < init_iters; ++it) {
+#pragma unroll
+      for (int l = 0; l < NS; ++l) {
+        cf own[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          cf acc = cmul(gk[r][0], cols[l][0]);
+#pragma unroll
+          for (int c = 1; c < N; ++c) acc = cadd(acc, cmul(gk[r][c], cols[l][c]));
+          own[r] = acc;
+        }
+        gather<N, Lu, R>(own, cols[l]);
+      }
+      planes::mgs<NS, N>(cols);
+    }
+#pragma unroll
+    for (int l = 0; l < NS; ++l) {
+      st_vec<N, Lu>(st, G::kF + (k * NS + l) * N, gu, keep, cols[l],
+                    inv_sqrt_ns);
+    }
+  }
+  __syncwarp();
+#pragma unroll 1
+  for (int it = 0; it < iters; ++it) {
+    group_update<K, N, NS, false>(st, sub, u, gu, G::kF, G::kU, nv, P,
+                                  inv_sqrt_ns);
+    group_update<K, N, NS, true>(st, sub, u, gu, G::kU, G::kF, nv, p_rev,
+                                 inv_sqrt_ns);
+  }
+  group_update<K, N, NS, false>(st, sub, u, gu, G::kF, G::kU, nv, P,
+                                inv_sqrt_ns);
+
+  // SINR P |u^H d|^2 / |re(u^H Bkl u)| a stream (each sum over rows whole on
+  // every lane of the sub-group), U users at once; then the capacities,
+  // gathered from the sub-groups by shuffles, summed over users and
+  // streams in order
+  float cap = 0.f;
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += U) {
+    const int k = k0 + u < K ? k0 + u : K - 1;
+    cf fr[R][N];
+    group_first<K, N, NS, false>(st, sub, gu, G::kF, k, nv, P, fr);
+    float cl[NS];
+#pragma unroll
+    for (int l = 0; l < NS; ++l) {
+      cf d[N], dr[R], b[R][N], uv[N];
+      load_d<N, Lu, R>(sub, (k * NS + l) * N, gu, d, dr);
+      ld_vec<N>(st, G::kU + (k * NS + l) * N, uv);
+      group_bkl<N, R>(fr, dr, d, P, b);
+      const float num = P * cabs2(planes::gdotc<N>(uv, d));
+      cf wr[R], w[N];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        cf acc = cmul(b[r][0], uv[0]);
+#pragma unroll
+        for (int c = 1; c < N; ++c) acc = cadd(acc, cmul(b[r][c], uv[c]));
+        wr[r] = acc;
+      }
+      gather<N, Lu, R>(wr, w);
+      const float den =
+          fmaxf(fabsf(planes::gdotc<N>(uv, w).re), planes::kEps);
+      cl[l] = log2f(1.0f + num / den);
+    }
+#pragma unroll
+    for (int v = 0; v < U; ++v) {
+#pragma unroll
+      for (int l = 0; l < NS; ++l) {
+        const float c = __shfl_sync(0xffffffffu, cl[l], v * Lu, L);
+        if (k0 + v < K) cap = (k0 + v == 0 && l == 0) ? c : cap + c;
+      }
+    }
+    __syncwarp();
   }
   return isfinite(cap) ? cap : 0.f;
 }
@@ -425,26 +635,48 @@ __global__ void __launch_bounds__(kClosedThreads)
   block_sum<kClosedThreads>(acc, p.partial + blockIdx.x);
 }
 
+// The general body: a group of GroupIA::L lanes an element,
+// GroupIA::kElems elements a block, the block walking blocks vb = blockIdx.x,
+// + gridDim.x, ... of the launch (one trip unless the state is in the
+// scratch buffer); partial[vb] its elements' sum. The bound names one block
+// a SM: with the threads alone ptxas held (3, 4, 2) and (4, 4, 2) to 72
+// registers and spilled 4 bytes; with it, 79 and none.
 template <int K, int N, int NS, bool kInject>
-__global__ void __launch_bounds__(kGeneralThreads)
+__global__ void __launch_bounds__(GroupIA<K, N, NS>::kThreads, 1)
     mc_ia_general_kernel(const Params p) {
-  constexpr int NP = K * K * N * N * 2;
-  __shared__ float s_H[NP * kGeneralThreads];
-  const int cell = blockIdx.x / p.parts;
-  const int part = blockIdx.x % p.parts;
-  const int rep = cell / p.num_tiles;
-  const int tile_idx = cell % p.num_tiles;
-  const int e = part * kGeneralThreads + threadIdx.x;
-  float acc = 0.f;
-  if (e < p.tile * p.lane) {
-    float* mine = s_H + threadIdx.x;
-    draw_planes<NP, kInject>(p, rep, tile_idx, e, [&](int pl, float v) {
-      mine[pl * kGeneralThreads] = v;
-    });
-    const SharedH<K, N> H{mine};
-    acc = solve_general<K, N, NS>(H, p.nv, p.P, p.iters, p.init_iters);
+  using G = GroupIA<K, N, NS>;
+  constexpr int L = G::L;
+  extern __shared__ float4 s_state[];
+  __shared__ float s_warp_sum[G::kWarps];
+  float2* const slot =
+      G::kGlobal ? reinterpret_cast<float2*>(p.scratch) +
+                       (long long)blockIdx.x * G::kElems * G::kStride
+                 : reinterpret_cast<float2*>(s_state);
+  const int g = threadIdx.x % L;    // the lane in its group
+  const int grp = threadIdx.x / L;  // the element in the block
+  float2* const st = slot + grp * G::kStride;
+  const int elems = p.tile * p.lane;
+#pragma unroll 1
+  for (int vb = blockIdx.x; vb < p.blocks; vb += gridDim.x) {
+    const int cell = vb / p.parts;
+    const int part = vb % p.parts;
+    const int rep = cell / p.num_tiles;
+    const int tile_idx = cell % p.num_tiles;
+    const int e = part * G::kElems + grp;
+    const bool valid = e < elems;
+    __syncwarp();  // the previous trip's reads of the slot are done
+    if (valid) {
+      wide::draw_entries<L, kInject>(p, st + G::kH, g, e, rep, tile_idx,
+                                     K * K * N * N, kChannelKey);
+    }
+    __syncwarp();
+    // every group solves (an element past the end on whatever its slot
+    // holds: the warp's lanes stay together) and only valid ones count
+    const float cap = solve_general_group<K, N, NS>(st, g, p.nv, p.P, p.iters,
+                                                   p.init_iters);
+    wide::block_partial<G::kWarps>((valid && g == 0) ? cap : 0.f, s_warp_sum,
+                                   p.partial + vb);
   }
-  block_sum<kGeneralThreads>(acc, p.partial + blockIdx.x);
 }
 
 // The wide form's column: K^2 N^2 2 floats a thread, in shared memory
@@ -457,12 +689,13 @@ struct WideIA {
   static constexpr bool kGlobal = wide::in_scratch(kBytes);
 };
 
-// Either body on a column, one element a thread, one warp a block, the
+// The closed body on a column, one element a thread, one warp a block, the
 // block walking blocks vb = blockIdx.x, + gridDim.x, ... of the launch (one
 // trip unless the state is in the scratch buffer).
 template <int K, int N, int NS, bool kInject>
 __global__ void __launch_bounds__(wide::kThreads)
     mc_ia_wide_kernel(const Params p) {
+  static_assert(N == 2 && NS == 1, "the closed body");
   using G = WideIA<K, N>;
   constexpr int NP = G::NP;
   constexpr int CALLS = (NP + 3) / 4;
@@ -509,11 +742,7 @@ __global__ void __launch_bounds__(wide::kThreads)
         }
       }
       const SharedH<K, N, wide::kThreads> H{mine};
-      if constexpr (N == 2 && NS == 1) {
-        acc = solve_closed<K>(H, p.nv, p.P, p.iters);
-      } else {
-        acc = solve_general<K, N, NS>(H, p.nv, p.P, p.iters, p.init_iters);
-      }
+      acc = solve_closed<K>(H, p.nv, p.P, p.iters);
     }
     block_sum<wide::kThreads>(acc, p.partial + vb);
   }
@@ -530,60 +759,75 @@ __global__ void ia_sum_parts_kernel(const float* __restrict__ partial,
   out[cell] = v;
 }
 
-bool closed_form(int N, int NS) { return N == 2 && NS == 1; }
+constexpr bool closed_form(int N, int NS) { return N == 2 && NS == 1; }
 
-int threads_for(int N, int NS) {
+template <int kK, int kN, int kNS>
+struct Geo {
+  static constexpr int K = kK, N = kN, NS = kNS;
+};
+
+// Calls fn(Geo<K, N, NS>{}) for the library's geometry (K, N, NS); returns
+// false if it holds none such. The prebuilt library's geometries: (2, 2, 1),
+// (3, 2, 1), (4, 2, 1) closed form; (3, 4, 1), (2, 4, 2) general. A library
+// built for one geometry (ops/_build.py) holds that one.
+template <typename Fn>
+bool with_geometry(int K, int N, int NS, Fn&& fn) {
 #ifdef MC_IA_K
-  (void)N, (void)NS;
-  return wide::kThreads;
+  if (K != MC_IA_K || N != MC_IA_N || NS != MC_IA_NS) return false;
+  fn(Geo<MC_IA_K, MC_IA_N, MC_IA_NS>{});
 #else
-  return closed_form(N, NS) ? kClosedThreads : kGeneralThreads;
+  if (K == 2 && N == 2 && NS == 1) {
+    fn(Geo<2, 2, 1>{});
+  } else if (K == 3 && N == 2 && NS == 1) {
+    fn(Geo<3, 2, 1>{});
+  } else if (K == 4 && N == 2 && NS == 1) {
+    fn(Geo<4, 2, 1>{});
+  } else if (K == 3 && N == 4 && NS == 1) {
+    fn(Geo<3, 4, 1>{});
+  } else if (K == 2 && N == 4 && NS == 2) {
+    fn(Geo<2, 4, 2>{});
+  } else {
+    return false;
+  }
 #endif
+  return true;
 }
 
 #ifdef MC_IA_K
-// A library built for one geometry (ops/_build.py): that one, wide form.
-template <bool kInject>
-int launch_geometry(const Params& p, int K, int N, int NS, int blocks,
-                    cudaStream_t s) {
-  constexpr int kK = MC_IA_K, kN = MC_IA_N, kNS = MC_IA_NS;
-  (void)blocks;
-  if (K != kK || N != kN || NS != kNS) return (int)cudaErrorInvalidValue;
-  return wide::launch(mc_ia_wide_kernel<kK, kN, kNS, kInject>, p,
-                      WideIA<kK, kN>::kBytes, s);
-}
+constexpr bool kOneGeometry = true;
 #else
-// The prebuilt library's geometries (K, N, Ns): (2, 2, 1), (3, 2, 1),
-// (4, 2, 1) closed form; (3, 4, 1), (2, 4, 2) general.
-template <bool kInject>
-int launch_geometry(const Params& p, int K, int N, int NS, int blocks,
-                    cudaStream_t s) {
-  if (closed_form(N, NS)) {
-    switch (K) {
-      case 2:
-        mc_ia_closed_kernel<2, kInject><<<blocks, kClosedThreads, 0, s>>>(p);
-        return 0;
-      case 3:
-        mc_ia_closed_kernel<3, kInject><<<blocks, kClosedThreads, 0, s>>>(p);
-        return 0;
-      case 4:
-        mc_ia_closed_kernel<4, kInject><<<blocks, kClosedThreads, 0, s>>>(p);
-        return 0;
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  }
-  if (K == 3 && N == 4 && NS == 1) {
-    mc_ia_general_kernel<3, 4, 1, kInject><<<blocks, kGeneralThreads, 0, s>>>(p);
-    return 0;
-  }
-  if (K == 2 && N == 4 && NS == 2) {
-    mc_ia_general_kernel<2, 4, 2, kInject><<<blocks, kGeneralThreads, 0, s>>>(p);
-    return 0;
-  }
-  return (int)cudaErrorInvalidValue;
-}
+constexpr bool kOneGeometry = false;
 #endif
+
+// Geometry Geo's kernel, threads and elements a block, state bytes a block
+// (the closed body in the prebuilt kernel, one element a thread, or past
+// K = 4 in the wide form; the general body in lane groups), passed to
+// fn(kernel, threads, slot_bytes, elems, lanes).
+template <typename Geom, bool kInject, typename Fn>
+void with_kernel(Geom, Fn&& fn) {
+  constexpr int K = Geom::K, N = Geom::N, NS = Geom::NS;
+  if constexpr (!closed_form(N, NS)) {
+    using G = GroupIA<K, N, NS>;
+    fn(mc_ia_general_kernel<K, N, NS, kInject>, G::kThreads, G::kBytes,
+       G::kElems, G::L);
+  } else if constexpr (kOneGeometry) {
+    fn(mc_ia_wide_kernel<K, N, NS, kInject>, wide::kThreads,
+       WideIA<K, N>::kBytes, wide::kThreads, 1);
+  } else {
+    fn(mc_ia_closed_kernel<K, kInject>, kClosedThreads, 0LL, kClosedThreads,
+       1);
+  }
+}
+
+// Elements a block of geometry (K, N, NS); 0 if the library has none such.
+int block_elems(int K, int N, int NS) {
+  int elems = 0;
+  with_geometry(K, N, NS, [&](auto geo) {
+    with_kernel<decltype(geo), false>(
+        geo, [&](auto, int, long long, int e, int) { elems = e; });
+  });
+  return elems;
+}
 
 int launch(Params& p, float* out, int reps, int K, int N, int NS, bool inject,
            void* stream) {
@@ -591,16 +835,29 @@ int launch(Params& p, float* out, int reps, int K, int N, int NS, bool inject,
       p.iters < 0 || p.init_iters < 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const int threads = threads_for(N, NS);
-  p.parts = (p.tile * p.lane + threads - 1) / threads;
+  const int elems = block_elems(K, N, NS);
+  if (elems < 1) return (int)cudaErrorInvalidValue;
+  p.parts = (p.tile * p.lane + elems - 1) / elems;
   const long long cells = (long long)reps * p.num_tiles;
   const long long blocks = cells * p.parts;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   p.blocks = (int)blocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int rc = inject
-                     ? launch_geometry<true>(p, K, N, NS, (int)blocks, s)
-                     : launch_geometry<false>(p, K, N, NS, (int)blocks, s);
+  int rc = 0;
+  auto go = [&](auto kernel, int threads, long long bytes, int, int) {
+    if (bytes == 0) {
+      kernel<<<(unsigned int)blocks, threads, 0, s>>>(p);
+    } else {
+      rc = wide::launch(kernel, p, bytes, threads, s);
+    }
+  };
+  with_geometry(K, N, NS, [&](auto geo) {
+    if (inject) {
+      with_kernel<decltype(geo), true>(geo, go);
+    } else {
+      with_kernel<decltype(geo), false>(geo, go);
+    }
+  });
   if (rc != 0) return rc;
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
@@ -612,26 +869,50 @@ int launch(Params& p, float* out, int reps, int K, int N, int NS, bool inject,
 }  // namespace
 
 // Partials per (rep, tile) cell: the wrapper's scratch holds
-// reps * num_tiles * mc_ia_num_parts(tile, lane, N, Ns) floats.
-extern "C" int mc_ia_num_parts(int tile, int lane, int N, int NS) {
-  const int threads = threads_for(N, NS);
-  return (tile * lane + threads - 1) / threads;
+// reps * num_tiles * mc_ia_num_parts(tile, lane, K, N, Ns) floats (0 for a
+// geometry this library does not hold).
+extern "C" int mc_ia_num_parts(int tile, int lane, int K, int N, int NS) {
+  const int elems = block_elems(K, N, NS);
+  return elems < 1 ? 0 : (tile * lane + elems - 1) / elems;
 }
 
-// Bytes of the state buffer a launch of this library's geometry needs (the
-// wide form past shared memory, on the current device), else 0; -1 if the
+// Bytes of the state buffer a launch of this library's geometry needs (its
+// state past shared memory, on the current device), else 0; -1 if the
 // device cannot be read.
 extern "C" long long mc_ia_scratch_bytes(int reps, int num_tiles, int tile,
                                          int lane) {
 #ifdef MC_IA_K
-  return wide::scratch_bytes(
-      (long long)reps * num_tiles *
-          mc_ia_num_parts(tile, lane, MC_IA_N, MC_IA_NS),
-      WideIA<MC_IA_K, MC_IA_N>::kBytes);
+  long long bytes = 0;
+  with_kernel<Geo<MC_IA_K, MC_IA_N, MC_IA_NS>, false>(
+      Geo<MC_IA_K, MC_IA_N, MC_IA_NS>{},
+      [&](auto, int, long long slot, int, int) {
+        bytes = wide::scratch_bytes(
+            (long long)reps * num_tiles *
+                mc_ia_num_parts(tile, lane, MC_IA_K, MC_IA_N, MC_IA_NS),
+            slot);
+      });
+  return bytes;
 #else
   (void)reps, (void)num_tiles, (void)tile, (void)lane;
   return 0;
 #endif
+}
+
+// How geometry (K, N, NS) launches (PRNG) on the current device:
+// wide::launch_info's six ints in info (threads a block, dynamic shared bytes
+// a block, elements a block, lanes an element, 1 if the state is in the
+// scratch buffer, resident blocks a SM). Returns a CUDA error code
+// (cudaErrorInvalidValue for a geometry this library does not hold).
+extern "C" int mc_ia_launch_info(int K, int N, int NS, int* info) {
+  int rc = (int)cudaErrorInvalidValue;
+  with_geometry(K, N, NS, [&](auto geo) {
+    with_kernel<decltype(geo), false>(
+        geo, [&](auto kernel, int threads, long long bytes, int elems,
+                 int lanes) {
+          rc = wide::launch_info(kernel, threads, bytes, elems, lanes, info);
+        });
+  });
+  return rc;
 }
 
 // In-kernel Philox bits (the counterpart of _make_prng_call): rep r of this

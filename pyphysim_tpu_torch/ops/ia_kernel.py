@@ -24,7 +24,8 @@ Any ``K >= 2``, ``N >= 2`` and ``1 <= Ns <= N`` runs, as in the JAX
 kernel, on the CPU and on the card: the prebuilt library holds the CUDA
 kernel at the geometries ``PREBUILT``, and any other is compiled into a
 library of its own on its first launch (``ops/_build.py``
-``load(geometry)``, the kernel's wide form); ``iterations``,
+``load(geometry)``; the general body runs a group of lanes an element, the
+closed body past K = 4 one element a thread; ``launch_info``); ``iterations``,
 ``init_iters``, ``P`` and the noise variance are run-time arguments. Two
 bit sources:
 
@@ -130,6 +131,16 @@ class MonteCarloMaxSinr:
             return None
         return "mc_ia", {"MC_IA_K": self.K, "MC_IA_N": self.N,
                          "MC_IA_NS": self.Ns}
+
+    def launch_info(self) -> Dict[str, object]:
+        """How the PRNG instance launches on the card, as its library
+        reports it (``mc_ia_launch_info``, ``_build.launch_info``): threads
+        and shared bytes a block, elements a block, lanes an element, the
+        scratch buffer, resident blocks and warps a SM."""
+        from . import _build
+        return _build.launch_info(
+            _build.load(self.geometry_build()).mc_ia_launch_info, self.K,
+            self.N, self.Ns)
 
     def prng_kernel_profile(self, reps: int, num_tiles: int
                             ) -> Dict[str, object]:
@@ -372,7 +383,8 @@ class MonteCarloMaxSinr:
         from . import _build
         dev = self.device if bits is None else bits.device
         lib = _build.load(self.geometry_build())
-        parts = lib.mc_ia_num_parts(self.tile, self.lane, self.N, self.Ns)
+        parts = lib.mc_ia_num_parts(self.tile, self.lane, self.K, self.N,
+                                    self.Ns)
         partial = torch.empty(reps * num_tiles * parts, dtype=torch.float32,
                               device=dev)
         out = torch.empty((reps, num_tiles), dtype=torch.float32, device=dev)

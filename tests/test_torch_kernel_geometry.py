@@ -18,6 +18,7 @@ Tolerances and why:
   commands and library names.
 """
 
+import ctypes
 import subprocess
 from pathlib import Path
 
@@ -121,7 +122,26 @@ def test_ia_takes_every_jax_geometry(K, N, Ns):
 
 # -- one library a geometry ------------------------------------------------
 
-def test_geometry_builds_and_library_names():
+class _Lib:
+    """A geometry's library: the IA wide form's scratch bytes; the BD wide
+    form's partials and launch (128 threads and 32 elements a block: 4
+    lanes a solve)."""
+
+    def __init__(self, nbytes=0):
+        self.nbytes = nbytes
+
+    def mc_ia_scratch_bytes(self, reps, num_tiles, tile, lane):
+        return self.nbytes
+
+    def mc_bd_num_parts(self, tile, lane):
+        return -(-tile * lane // 32)
+
+    def mc_bd_launch_info(self, K, NR, mode, info):
+        (ctypes.c_int * 6).from_address(info)[:] = [128, 0, 32, 4, 0, 2]
+        return 0
+
+
+def test_geometry_builds_and_library_names(monkeypatch):
     assert MonteCarloBD(K=3, Nr_u=2, device="cpu").geometry_build() is None
     assert MonteCarloBD(K=7, Nr_u=2, device="cpu").geometry_build() == \
         ("mc_bd", {"MC_BD_K": 7, "MC_BD_NR": 2})
@@ -134,6 +154,8 @@ def test_geometry_builds_and_library_names():
     assert a.parent == b.parent == _build.BUILD_DIR
     assert a.name.startswith("libmc_bd_K7_NR2_") and a.suffix == ".so"
     assert a != b != _build.library_path()
+    # the wide form's profile asks its library how it launches
+    monkeypatch.setattr(_build, "load", lambda geo=None: _Lib())
     assert MonteCarloBD(K=7, Nr_u=2, device="cpu").prng_kernel_profile(
         1, 1)["library"] == a
     assert MonteCarloBD(K=3, Nr_u=2, device="cpu").prng_kernel_profile(
@@ -144,9 +166,10 @@ def test_wide_profiles(monkeypatch):
     """The SASS profile names the instance in the library it is built into:
     a BD geometry up to NT = 8 runs the prebuilt kernel's form and lists
     its loops (at odd NT the Philox calls that fill two entries), the BD
-    wide form lists none (its bound is the solve's operations), the IA
-    wide closed form its Philox calls, iterations and block walk, while
-    its library says the channels fit in shared memory."""
+    wide form lists none (its bound is the solve's operations) and counts
+    the threads its library says it launches (a group of lanes a solve),
+    the IA wide closed form its Philox calls, iterations and block walk,
+    while its library says the channels fit in shared memory."""
     assert bd_kernel.tile_form_max_nt() == 8
     tile = MonteCarloBD(tile=8, lane=512, K=3, Nr_u=1, mode="none",
                         device="cpu")
@@ -160,29 +183,24 @@ def test_wide_profiles(monkeypatch):
     assert MonteCarloBD(K=9, Nr_u=1, device="cpu").wide_form
     assert MonteCarloBD(K=5, Nr_u=2, device="cpu").wide_form
     assert not MonteCarloBD(K=4, Nr_u=2, device="cpu").wide_form
-    bd = MonteCarloBD(tile=8, lane=512, K=7, Nr_u=2, mode="global",
-                      device="cpu").prng_kernel_profile(128, 4)
-    assert bd["pattern"] == "mc_bd_wide_kernelILi7ELi2ELi1ELb0EE"
-    assert bd["library"].name.startswith("libmc_bd_K7_NR2_")
-    assert bd["loops"] is None and bd["threads"] == 128 * 4 * 8 * 512
-
-    class Lib:
-        def __init__(self, nbytes):
-            self.nbytes = nbytes
-
-        def mc_ia_scratch_bytes(self, reps, num_tiles, tile, lane):
-            return self.nbytes
-
     asked = []
     monkeypatch.setattr(_build, "load",
-                        lambda geo=None: asked.append(geo) or Lib(0))
+                        lambda geo=None: asked.append(geo) or _Lib(0))
+    bd = MonteCarloBD(tile=8, lane=512, K=7, Nr_u=2, mode="global",
+                      device="cpu").prng_kernel_profile(128, 4)
+    assert set(map(str, asked)) == {str(("mc_bd", {"MC_BD_K": 7,
+                                                   "MC_BD_NR": 2}))}
+    assert bd["pattern"] == "mc_bd_wide_kernelILi7ELi2ELi1ELb0EE"
+    assert bd["library"].name.startswith("libmc_bd_K7_NR2_")
+    assert bd["loops"] is None and bd["threads"] == 128 * 4 * 8 * 512 * 4
+    asked.clear()
     ia = MonteCarloMaxSinr(tile=8, lane=512, iterations=10, K=5,
                            device="cpu").prng_kernel_profile(128, 4)
     assert asked == [("mc_ia", {"MC_IA_K": 5, "MC_IA_N": 2, "MC_IA_NS": 1})]
     assert ia["pattern"] == "mc_ia_wide_kernelILi5ELi2ELi1ELb0EE"
     assert ia["loops"] == 3 and ia["loop_trips"] == [50, 10, 1]
     assert ia["library"].name.startswith("libmc_ia_K5_N2_NS1_")
-    monkeypatch.setattr(_build, "load", lambda geo=None: Lib(1 << 20))
+    monkeypatch.setattr(_build, "load", lambda geo=None: _Lib(1 << 20))
     with pytest.raises(ValueError, match="shared memory"):
         MonteCarloMaxSinr(K=16, device="cpu").prng_kernel_profile(1, 1)
 

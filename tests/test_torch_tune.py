@@ -155,3 +155,109 @@ def test_fill_main_path_parity_sees_every_draw_of_a_step(monkeypatch,
     assert all(f["differ_from_plain"] == 0 for f in lines)
     draws = chip_smoke.recorded_draws(lambda: None)
     assert draws == []
+
+
+def test_wide_tuner_variants(tmp_path, monkeypatch):
+    """``bin/tune_wide_kernel.py``: at every geometry the committed source
+    (a library of one geometry, or the prebuilt one) and the parent's; with
+    ``--grid`` also every pair of lanes a user's solve (at most
+    ``MAX_ROWS`` rows a lane) and users at once (within a warp, below 2 K),
+    each a copy of the source whose Lu and U rules alone are replaced by
+    the pair, and 1 or 2 warps a block, in a copy of the headers whose
+    ``wide.cuh`` alone differs in ``kMaxWarps``."""
+    import tune_wide_kernel as tw
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    parent = tmp_path / "parent" / "pyphysim_tpu_torch" / "ops" / "csrc"
+    parent.mkdir(parents=True)
+    for f in ("mc_bd.cu", "mc_ia.cu"):
+        (parent / f).write_text(f"// the parent's {f}\n")
+    bd_text = (_build.SRC_DIR / "mc_bd.cu").read_text()
+    ia_text = (_build.SRC_DIR / "mc_ia.cu").read_text()
+    points, srcs = tw.sources(str(tmp_path / "parent"), None)
+    assert [(s, g) for s, g, _ in points] == [
+        *(("mc_bd", g) for g in tw.BD_POINTS),
+        *(("mc_ia", g) for g in tw.IA_POINTS)]
+    assert sorted(n for (s, g, n) in srcs if g == (7, 2)) == [
+        "committed", "parent"]
+    assert srcs["mc_bd", (7, 2), "committed"] == (
+        bd_text, _build.SRC_DIR, {"MC_BD_K": 7, "MC_BD_NR": 2})
+    assert srcs["mc_bd", (7, 2), "parent"] == (
+        "// the parent's mc_bd.cu\n", parent, {"MC_BD_K": 7, "MC_BD_NR": 2})
+    # the prebuilt IA points share one library each side: the whole source
+    assert srcs["mc_ia", "prebuilt", "committed"] == (
+        ia_text, _build.SRC_DIR, {})
+    assert srcs["mc_ia", "prebuilt", "parent"][2] == {}
+
+    _, grid = tw.sources(str(tmp_path / "parent"), None, grid=True)
+    names = {k[1:]: v for k, v in grid.items() if k[0] == "mc_bd"}
+    # (7, 2): 14 rows, so 4, 8 or 16 lanes a user; users within a warp
+    assert sorted(n for g, n in names if g == (7, 2)) == sorted(
+        ["committed", "parent", "1 warp a block", "2 warps a block"] +
+        [f"{n} lanes a user, {u} users at once" for n in (4, 8, 16)
+         for u in (1, 2, 4, 8) if n * u <= 32])
+    # (11, 2): 22 rows, 4 lanes a user would hold 6 a lane
+    assert {n for g, n in names if g == (11, 2)} == {
+        "committed", "parent", "1 warp a block", "2 warps a block",
+        *(f"{n} lanes a user, {u} users at once" for n in (8, 16)
+          for u in (1, 2, 4) if n * u <= 32)}
+    text, include, defines = names[(7, 2), "16 lanes a user, 2 users at once"]
+    assert include == _build.SRC_DIR
+    assert defines == {"MC_BD_K": 7, "MC_BD_NR": 2}
+    assert text == bd_text.replace(
+        "static constexpr int Lu = wide::lanes_for((NT + 3) / 4, 4);",
+        "static constexpr int Lu = 16;").replace(
+        "static constexpr int U = default_users();",
+        "static constexpr int U = 2;")
+    assert text != bd_text
+    text, include, defines = names[(7, 2), "2 warps a block"]
+    assert text == bd_text and defines == {"MC_BD_K": 7, "MC_BD_NR": 2}
+    assert include.parent == tmp_path / "tune"
+    for header in _build.SRC_DIR.glob("*.cuh"):
+        copy = (include / header.name).read_text()
+        if header.name == "wide.cuh":
+            assert copy == header.read_text().replace(
+                "constexpr int kMaxWarps = 4;", "constexpr int kMaxWarps = 2;")
+            assert copy != header.read_text()
+        else:
+            assert copy == header.read_text()
+    ia = {k[1:]: v for k, v in grid.items() if k[0] == "mc_ia"}
+    assert sorted(n for g, n in ia if g == (3, 4, 2)) == sorted(
+        ["committed", "parent", "1 warp a block", "2 warps a block"] +
+        [f"{n} lanes a user, {u} users at once" for n in (2, 4, 8)
+         for u in (1, 2, 4)])
+    text, _, defines = ia[(3, 4, 2), "8 lanes a user, 1 users at once"]
+    assert defines == {"MC_IA_K": 3, "MC_IA_N": 4, "MC_IA_NS": 2}
+    assert text == ia_text.replace(
+        "static constexpr int Lu = wide::lanes_for((N + 1) / 2, 1);",
+        "static constexpr int Lu = 8;").replace(
+        "static constexpr int U = Lu < 32 ? 2 : 1;",
+        "static constexpr int U = 1;")
+    # the prebuilt IA library's variants change every general-body instance
+    assert ia["prebuilt", "4 lanes a user, 2 users at once"][2] == {}
+    # a source whose rule moved on is refused, not timed as the committed
+    monkeypatch.setitem(tw._RULES, "mc_ia", ("no such rule", "nor this"))
+    with pytest.raises(RuntimeError, match="no such rule"):
+        tw.sources(None, "ia", grid=True)
+
+
+def test_probe_stops_a_build_at_its_timeout():
+    """``bin/probe_wide_builds.py``: a build that outlasts ``--timeout`` is
+    stopped with every process it started (its process group), one that
+    ends in time gets its seconds; the geometry's library is the one
+    ``ops/_build.py`` would build."""
+    import subprocess
+    import time
+
+    import probe_wide_builds as pw
+    slow = subprocess.Popen(["bash", "-c", "sleep 30 & sleep 30"],
+                            start_new_session=True)
+    quick = subprocess.Popen(["true"], start_new_session=True)
+    tic = time.time()
+    seconds = pw.wait_all({"slow": slow, "quick": quick}, timeout=1.0)
+    assert time.time() - tic < 10
+    assert seconds["slow"] is None and slow.returncode is not None
+    assert 0 <= seconds["quick"] < 2
+    assert pw.kernel_of("mc_bd", (61, 2), "cpu").geometry_build() == (
+        "mc_bd", {"MC_BD_K": 61, "MC_BD_NR": 2})
+    assert pw.kernel_of("mc_ia", (15, 4, 2), "cpu").geometry_build() == (
+        "mc_ia", {"MC_IA_K": 15, "MC_IA_N": 4, "MC_IA_NS": 2})
