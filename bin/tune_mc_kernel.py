@@ -113,7 +113,7 @@ def main() -> int:
 
             def call(fn=fn, out=out, g_re=g_re, g_im=g_im, o=o, geom=geom):
                 out.zero_()
-                _build.check(fn(g_re, g_im, o, *geom, SEED, 0,
+                _build.check(fn(g_re, g_im, o, *geom, SEED, 0, None,
                                 torch.cuda.current_stream().cuda_stream),
                              "variant")
                 return out

@@ -81,6 +81,17 @@ against its plain PyTorch version on the card:
     registers and spills, each library's build seconds, and the times
     beside the bounds; the 1-rank sharded builds of the three main points
     equal their unsharded launches (phase 41).
+  * the flagship kernel and ``block_fir`` at shapes past their first
+    forms (phases 61-64, ``shape_phases``): the Monte Carlo kernel's
+    general form at 51 taps of 32 rays (the IEEE 802.11 exponential
+    profile, Trms = 250 ns) through the bulk runner in PRNG and inject
+    mode and both product types (``f1_*``); 70,000 reps (two launches of
+    the fast instance) and 70,000 tiles (the general form's folded grid)
+    in one call (``f2_*``); ``block_fir``'s segments form at 81 taps
+    through ``TdlChannel`` / ``TdlMimoChannel.corrupt_data(...,
+    block_size=564)`` and at COST259-HT's long spans and blocks of 8,192
+    and 16,384 (``b_route``); each against its plain version, with its
+    time, bound, launches and library call.
   * the notebooks (phases 47-54, ``notebook_phases``): each of
     ``notebooks/0*_torch.py`` that touches a tensor (all but 07) run at
     its own settings with ``DEVICE="cuda"`` and again on the CPU, the card
@@ -100,6 +111,7 @@ minutes including the nvcc builds, one per source, in parallel).
 
 import contextlib
 import functools
+import hashlib
 import json
 import os
 import subprocess
@@ -119,6 +131,26 @@ FIR_ROWS = (8192, 1000, 1)          # time-domain step's rows; ragged counts
 # (not a multiple of 16), 20 taps over 96 samples, 64 taps over 127
 FIR_GEOMETRIES = ((1000, 565, None), (1000, 564, tuple(range(0, 100, 5))),
                   (256, 564, tuple(range(0, 128, 2))))
+# phases 61-64 (shape_phases): the flagship kernel and block_fir past their
+# first forms. F1: the IEEE 802.11 exponential-decay profile (taps every
+# 50 ns, power exp(-k Ts / Trms), k <= 10 Trms / Ts) at Trms = 250 ns, 51
+# taps, under 32 Jakes rays (TL = 1,632); F2: the flagship past the grid's
+# 65,535 a dimension; B1: the same model at 400 ns (81 taps), block 564 over
+# the time-domain step's 8,192 rows, SISO and 2x2 MIMO; B2: COST259-HT at
+# 20 MHz (span 361), block 8,192 over 1,024 rows, and at 100 MHz (span
+# 1,802), block 16,384 over 256 rows
+EXP_TRMS_F1, EXP_TRMS_B1, EXP_RAYS = 250e-9, 400e-9, 32
+F2_REPS, F2_TILES, F2_TILE, F2_SPLIT = 70000, 70000, 8, 65530
+F2_PLAIN_SLICE = 4096               # reps a plain call (memory)
+F2_CELL = 1000                      # symbols a cell of F2's whole-call check
+F1_PLAIN_SLICE = 8                  # reps a plain call at 1,632 pairs
+# taps of F1's equal-power profile (every 50 ns, a span of 52 inside the
+# flagship's CP of 52): 20 past the general form's first chunk of 32,
+# carrying 38 % of the power (the exponential's taps past 31 carry 0.2 %)
+FLAT_TAPS = 52
+FIR_SHAPES = (("T81_B564", "exponential", 20e6, 564, 256, 32),
+              ("HT20_B8192", "ht", 20e6, 8192, 256, 4),
+              ("HT100_B16384", "ht", 100e6, 16384, 64, 4))
 FILL_ROWS, FILL_WORDS = 512, 2049   # phase 3: 1,049,088 draws a kind, odd m
 FILL_ULP_LIMIT = 2                  # normals: kernel vs plain, in ulps
 FILL_GRID_COUNTERS = 132 * 16 * 256  # counters one fill grid covers a stride
@@ -475,6 +507,7 @@ def main() -> int:
     phases_13_to_19 = mimo_bd_phases(dev, smi)
     phases_20_to_26 = ia_phases(dev, smi)
     wide_entries = geometry_phases(dev, smi)
+    shape_entries = shape_phases(dev, smi)
     comp_bd_fill_err = comp_bd_phases(dev, smi)
     mimo = mimo_phases(dev, smi)
     fir_entry, fill_entry = phases_8_to_12
@@ -491,7 +524,7 @@ def main() -> int:
     fill_entry["launches"] += app_phases(dev, smi)
     notebooks = notebook_phases(dev, smi)
     entries = [*mc_entries, *phases_8_to_12, *phases_13_to_19,
-               phases_20_to_26, *wide_entries]
+               phases_20_to_26, *wide_entries, *shape_entries]
     for entry in entries:
         more = parallel.get(entry["name"], {})
         # a kernel's launches on this slice's paths join its main path's
@@ -1002,7 +1035,11 @@ def flagship_phases(dev, smi, dtype):
     k4 = mc.build(4, NUM_TILES)(seed, snr, 4)
     torch.cuda.synchronize()
     same = bool(torch.equal(k32[4:8], k4))
-    phase(f"chunk_invariance {dtype}", rows_4_to_7_equal_start_4=same)
+    # the bench chunk's counts as a digest: equal across trees that keep
+    # the fast instance's arithmetic
+    digest = hashlib.sha256(k32.cpu().numpy().tobytes()).hexdigest()[:16]
+    phase(f"chunk_invariance {dtype}", rows_4_to_7_equal_start_4=same,
+          prng_counts_digest=digest)
     if not same:
         raise AssertionError("kernel results depend on the chunking")
 
@@ -2350,6 +2387,423 @@ def geometry_phases(dev, smi):
     return entries
 
 
+def exponential_profile(trms, ts):
+    """The IEEE 802.11 exponential-decay profile: taps every ``ts``, power
+    exp(-k ts / trms) for k <= 10 trms / ts."""
+    import numpy as np
+    from pyphysim_tpu_torch.channels import TdlChannelProfile
+    k = np.arange(int(round(10 * trms / ts)) + 1)
+    return TdlChannelProfile(10 * np.log10(np.exp(-k * ts / trms)), k * ts,
+                             f"exponential {trms * 1e9:g} ns")
+
+
+def shape_profile(kind, bandwidth):
+    from pyphysim_tpu_torch.channels import COST259_HTx
+    return (COST259_HTx if kind == "ht"
+            else exponential_profile(EXP_TRMS_B1, 1 / bandwidth))
+
+
+def device_bits(dev, seed, mc, num_tiles):
+    """An inject-mode bit source on the card for ``mc``'s runner: (unpack
+    index, start, n) -> the chunk's four int32 bit tensors, from a seeded
+    generator."""
+    import torch
+
+    def bits(unpack_idx, start, n):
+        g = torch.Generator(device=dev).manual_seed(
+            seed + 1000003 * unpack_idx + start)
+
+        def draw(*shape):
+            return torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+                                 device=dev, generator=g)
+        return (draw(n, 8, mc.TLp),
+                *(draw(n, num_tiles * mc.tile, mc.used_p) for _ in range(3)))
+    return bits
+
+
+def shape_mc_entry(name, mc, launches, err, ms, plain_ms, reps, tiles):
+    """A ``kernels`` entry of the flagship kernel at one shape, its bound
+    from this run's SASS (PRNG mode)."""
+    profile = mc.prng_kernel_profile(reps, tiles)
+    counts, bound, bound_by, pipe = sass_bound(
+        profile, 8 * mc.taps * mc.used + 4 * reps * tiles,
+        mc_flops(mc, reps, tiles))
+    return {"name": name, "route": "cuda",
+            "source": "pyphysim_tpu_torch/ops/csrc/mc_ofdm_tdl.cu",
+            "replaces": "pyphysim_tpu/ops/mc_pallas.py:336",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "timed_by": "wrapper_events", "wrapper_ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None, "sass_per_thread": counts["total"],
+            "bound_pipe": pipe, "share_of_bound": bound / ms}
+
+
+def f1_phases(dev, smi, dtype):
+    """Phase 61: the flagship kernel's general form at 51 taps of 32 rays
+    (TL = 1,632) through the bulk runner, PRNG and inject mode, at the
+    bench chunk: inject and PRNG parity with the plain version (and at
+    FLAT_TAPS equal-power taps, where the taps past the first 32 carry
+    power), chunk invariance, the main path at 5 / 15 / 30 dB (BER finite,
+    in (0, 0.5), falling with SNR), times and the SASS bound."""
+    import numpy as np
+    import torch
+    from apps.ofdm.ofdm_mc_kernel_torch import OfdmMcKernelSimulationRunner
+    from pyphysim_tpu_torch.channels import (JakesSampleGenerator,
+                                             TdlChannel, TdlChannelProfile)
+    from pyphysim_tpu_torch.ops.mc_kernel import MonteCarloOfdmTdl
+
+    def make_runner(snrs, rep_max, batch):
+        r = OfdmMcKernelSimulationRunner(device=dev,
+                                         read_command_line_args=False,
+                                         matmul_dtype=dtype)
+        r.params.add("SNR", np.array(snrs))
+        r.params.set_unpack_parameter("SNR")
+        r.rep_max, r.batch_size = rep_max, batch
+        r.tile, r.num_tiles = TILE, NUM_TILES
+        r.jakes = JakesSampleGenerator(Fd=30.0, Ts=1 / 20e6, L=EXP_RAYS,
+                                       device=dev)
+        r.channel = TdlChannel(r.jakes, exponential_profile(EXP_TRMS_F1,
+                                                            1 / 20e6))
+        r.mc = MonteCarloOfdmTdl(r.ofdm, r.channel, M=16, tile=TILE,
+                                 matmul_dtype=dtype, device=dev)
+        r.update_progress_function_style = None
+        return r
+
+    base = make_runner([15.0], 1, 1)
+    mc = base.mc
+    plan = mc.kernel_plan(32, NUM_TILES)
+    if (mc.taps, mc.TL) != (51, 1632) or not plan["general"]:
+        raise AssertionError(f"f1: {mc.taps} taps, TL {mc.TL}, {plan}")
+    cell_bits = TILE * mc.used * mc.bits_per_symbol
+    reps, chunk, seed, snr = 4, 32, 1234567, 10 ** 1.5
+    amp = mc.amp(snr)
+    bits = device_bits(dev, 17, mc, NUM_TILES)(0, 0, reps)
+    got = mc.build_inject(reps, NUM_TILES)(*bits, amp)
+    want = mc.simulate_block_reference(*bits, amp)
+    torch.cuda.synchronize()
+    err = check_cells(f"f1_inject_parity {dtype}", got, want, cell_bits)
+
+    # the second chunk of taps, where it carries power: FLAT_TAPS taps of
+    # equal power, inject and PRNG mode against the plain version
+    flat = MonteCarloOfdmTdl(
+        base.ofdm,
+        TdlChannel(JakesSampleGenerator(Fd=30.0, Ts=1 / 20e6, L=EXP_RAYS,
+                                        device=dev),
+                   TdlChannelProfile(np.zeros(FLAT_TAPS),
+                                     np.arange(FLAT_TAPS) / 20e6,
+                                     f"equal power {FLAT_TAPS}")),
+        M=16, tile=TILE, matmul_dtype=dtype, device=dev)
+    flat_plan = flat.kernel_plan(reps, NUM_TILES)
+    if flat.taps != FLAT_TAPS or not flat_plan["general"]:
+        raise AssertionError(f"f1 flat: {flat.taps} taps, {flat_plan}")
+    bits = device_bits(dev, 19, flat, NUM_TILES)(0, 0, reps)
+    flat_amp = flat.amp(snr)
+    err = max(err, check_cells(
+        f"f1_flat_inject_parity {dtype}",
+        flat.build_inject(reps, NUM_TILES)(*bits, flat_amp),
+        flat.simulate_block_reference(*bits, flat_amp), cell_bits))
+    err = max(err, check_cells(
+        f"f1_flat_prng_parity {dtype}",
+        flat.build(reps, NUM_TILES)(seed, snr, 0),
+        flat.prng_reference(reps, NUM_TILES, seed, flat_amp, 0), cell_bits))
+
+    def plain(n, start):
+        return torch.cat([mc.prng_reference(
+            min(F1_PLAIN_SLICE, n - r), NUM_TILES, seed, amp, start + r)
+            for r in range(0, n, F1_PLAIN_SLICE)])
+    k32 = mc.build(chunk, NUM_TILES)(seed, snr, 0)
+    err = max(err, check_cells(f"f1_prng_parity {dtype}", k32,
+                               plain(chunk, 0), cell_bits))
+    k4 = mc.build(4, NUM_TILES)(seed, snr, 4)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(k32[4:8], k4))
+    phase(f"f1_chunk_invariance {dtype}", rows_4_to_7_equal_start_4=same,
+          plan=compact(plan))
+    if not same:
+        raise AssertionError("f1: kernel results depend on the chunking")
+
+    snrs = [5.0, 15.0, 30.0]
+    launches = 0
+    for mode in ("prng", "inject"):
+        runner = make_runner(snrs, 64 if mode == "prng" else chunk, chunk)
+        if mode == "inject":
+            runner.bit_source = device_bits(dev, 23, runner.mc, NUM_TILES)
+        runner.mc.launch_count = 0
+        runner.mc.reference_count = 0
+        bers, seconds = run_sweep(runner)
+        n = runner.mc.launch_count
+        phase(f"f1_main_path {dtype}", mode=mode, profile="exponential "
+              f"Trms=250ns,taps={mc.taps},rays={mc.rays}", snr_db=snrs,
+              ber=bers, runned_reps=runner.runned_reps, seconds=seconds,
+              kernel_launches=n, chunks=runner.chunks_dispatched,
+              plain_calls=runner.mc.reference_count)
+        if not all(0 < b < 0.5 for b in bers) or \
+                any(b >= a for a, b in zip(bers, bers[1:])):
+            raise AssertionError(f"f1 {mode}: BER {bers} not finite in "
+                                 f"(0, 0.5) or not falling with SNR")
+        check_launches(f"f1_main_path {dtype} {mode}", n,
+                       runner.chunks_dispatched, runner.mc.reference_count)
+        launches += n
+
+    run32 = mc.build(chunk, NUM_TILES)
+    ms = best_ms(lambda: run32(seed, snr, 0), inner=10)
+    plain_ms = once_ms(lambda: plain(chunk, 0))
+    entry = shape_mc_entry(
+        "mc_ofdm_tdl_general_prng_T51_L32" +
+        ("_bf16" if dtype == "bfloat16" else ""), mc, launches, err, ms,
+        plain_ms, chunk, NUM_TILES)
+    syms = chunk * NUM_TILES * TILE * mc.used
+    phase(f"f1_times {dtype}", card=repr(smi),
+          shape=f"reps={chunk},tiles={NUM_TILES},tile={TILE},"
+          f"used={mc.used},taps={mc.taps},rays={mc.rays}", kernel_ms=ms,
+          kernel_sym_per_s=syms / ms * 1e3, plain_ms=plain_ms,
+          bound_ms=entry["bound_ms"], bound_by=entry["bound_by"],
+          bound_pipe=entry["bound_pipe"],
+          sass_per_thread=entry["sass_per_thread"],
+          sass_per_symbol=entry["sass_per_thread"] *
+          mc.prng_kernel_profile(chunk, NUM_TILES)["threads"] / syms,
+          share_of_bound=entry["share_of_bound"])
+    return entry
+
+
+def f2_phases(dev, smi):
+    """Phase 62: the flagship kernel (COST259-TU, 16 rays, tile 8) past the
+    grid's 65,535 a dimension. 70,000 reps in one ``build`` call (two
+    launches of the fast instance): rows [65,530, 70,000) bit for bit a
+    call of those reps from start 65,530, and rows held to the plain
+    version around the split. 70,000 tiles of 2 reps in one call (the
+    general form's folded grid): its first and last tiles held to the
+    plain version on those tiles, and its first 65,535 tiles bit for bit
+    a call of 65,535 tiles (the fast instance: the same sums in the same
+    order). Returns the two ``kernels`` entries."""
+    import torch
+    from apps.ofdm.ofdm_mc_kernel_torch import OfdmMcKernelSimulationRunner
+    from pyphysim_tpu_torch.ops.mc_kernel import (MonteCarloOfdmTdl,
+                                                  launch_slices)
+    r = OfdmMcKernelSimulationRunner(device=dev, read_command_line_args=False)
+    mc = MonteCarloOfdmTdl(r.ofdm, r.channel, M=16, tile=F2_TILE,
+                           device=dev)
+    seed, snr = 4242, 10 ** 1.5
+    amp = mc.amp(snr)
+    cell_bits = F2_TILE * mc.used * mc.bits_per_symbol
+
+    mc.launch_count = 0
+    run_reps = mc.build(F2_REPS, 1)
+    big = run_reps(seed, snr, 0)
+    torch.cuda.synchronize()
+    reps_launches = mc.launch_count
+    part = mc.build(F2_REPS - F2_SPLIT, 1)(seed, snr, F2_SPLIT)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(big[F2_SPLIT:], part))
+    lo = max(launch_slices(F2_REPS)[0][1] - 16, 0)   # across the split
+    n = min(32, F2_REPS - lo)
+    err = check_cells("f2_reps_plain", big[lo:lo + n],
+                      mc.prng_reference(n, 1, seed, amp, lo), cell_bits)
+    phase("f2_reps", reps=F2_REPS, tiles=1, tile=F2_TILE,
+          launches=reps_launches, slices=compact(launch_slices(F2_REPS)),
+          rows_65530_on_equal_start_65530=same,
+          plan=compact(mc.kernel_plan(65535, 1)))
+    if not same or reps_launches != len(launch_slices(F2_REPS)):
+        raise AssertionError(f"f2 reps: split rows differ ({same}) or "
+                             f"{reps_launches} launches")
+
+    mc.launch_count = 0
+    run_tiles = mc.build(2, F2_TILES)
+    wide = run_tiles(seed, snr, 0)
+    torch.cuda.synchronize()
+    tiles_launches = mc.launch_count
+    fast_tiles = min(65535, F2_TILES)     # the fast instance's grid y
+    fast = mc.build(2, fast_tiles)(seed, snr, 0)
+    torch.cuda.synchronize()
+    folded_equal = bool(torch.equal(wide[:, :fast_tiles], fast))
+    ends = (0, F2_TILES - 8)
+    for t0 in ends:
+        err = max(err, check_cells(
+            f"f2_tiles_plain first_tile={t0}", wide[:, t0:t0 + 8],
+            mc.prng_reference(2, 8, seed, amp, 0, first_tile=t0),
+            cell_bits))
+    plan = mc.kernel_plan(2, F2_TILES)
+    phase("f2_tiles", reps=2, tiles=F2_TILES, tile=F2_TILE,
+          launches=tiles_launches, plan=compact(plan),
+          first_65535_tiles_equal_a_65535_tile_call=folded_equal,
+          total_errors=int(wide.sum()))
+    if not (plan["general"] and tiles_launches == 1 and folded_equal):
+        raise AssertionError(f"f2 tiles: plan {plan}, {tiles_launches} "
+                             f"launches, fast-form tiles equal "
+                             f"{folded_equal}")
+
+    def plain_reps():
+        return torch.cat([mc.prng_reference(
+            min(F2_PLAIN_SLICE, F2_REPS - r0), 1, seed, amp, r0)
+            for r0 in range(0, F2_REPS, F2_PLAIN_SLICE)])
+
+    def plain_tiles():
+        return torch.cat([mc.prng_reference(
+            2, min(F2_PLAIN_SLICE, F2_TILES - t0), seed, amp, 0,
+            first_tile=t0)
+            for t0 in range(0, F2_TILES, F2_PLAIN_SLICE)], dim=1)
+    reps_ms = best_ms(lambda: run_reps(seed, snr, 0), inner=3)
+    tiles_ms = best_ms(lambda: run_tiles(seed, snr, 0), inner=3)
+    reps_plain = plain_reps()
+    reps_plain_ms = once_ms(plain_reps)
+    tiles_plain = plain_tiles()
+    tiles_plain_ms = once_ms(plain_tiles)
+    torch.cuda.synchronize()
+    # every count against the plain version, summed into cells of the
+    # flagship's size (F2_CELL symbols of 8-symbol tiles or reps): a cell of
+    # one 8-symbol tile allows fewer than 2 flips, which 140,000 such cells
+    # pass only by chance at the rate the flagship's cells show
+    group = F2_CELL // F2_TILE
+    err = max(err, check_cells("f2_reps_all_plain",
+                               big.reshape(-1, group).sum(1),
+                               reps_plain.reshape(-1, group).sum(1),
+                               group * cell_bits),
+              check_cells("f2_tiles_all_plain",
+                          wide.reshape(2, -1, group).sum(2),
+                          tiles_plain.reshape(2, -1, group).sum(2),
+                          group * cell_bits))
+    entries = [
+        shape_mc_entry("mc_ofdm_tdl_prng_reps70000", mc, reps_launches, err,
+                       reps_ms, reps_plain_ms, F2_REPS, 1),
+        shape_mc_entry("mc_ofdm_tdl_general_prng_tiles70000", mc,
+                       tiles_launches, err, tiles_ms, tiles_plain_ms, 2,
+                       F2_TILES)]
+    for entry, shape in zip(entries, (f"reps={F2_REPS},tiles=1",
+                                      f"reps=2,tiles={F2_TILES}")):
+        phase("f2_times", card=repr(smi), kernel=entry["name"],
+              shape=f"{shape},tile={F2_TILE},used={mc.used}",
+              kernel_ms=entry["ms"], plain_ms=entry["plain_ms"],
+              bound_ms=entry["bound_ms"], bound_by=entry["bound_by"],
+              share_of_bound=entry["share_of_bound"],
+              sass_per_thread=entry["sass_per_thread"])
+    return entries
+
+
+def b_route(dev, smi, name, kind, bandwidth, block, attempts, blocks):
+    """Phase 63 / 64 at one shape: ``TdlChannel.corrupt_data(...,
+    block_size=block)`` of ``attempts`` Jakes states over ``blocks``
+    blocks (one block_fir launch), and for the 81-tap profile the 2x2
+    ``TdlMimoChannel`` route at the same rows (another); block_fir held
+    to its plain version at the route's rows and the route to the FFT
+    route; then block_fir's time at those rows beside its bound, its
+    plain version, one grouped ``conv1d`` and the FFT route. Returns the
+    ``kernels`` entry."""
+    import torch
+    from pyphysim_tpu_torch.channels import (JakesSampleGenerator,
+                                             TdlChannel, TdlMimoChannel,
+                                             fading)
+    from pyphysim_tpu_torch.ops import fir
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+    from pyphysim_tpu_torch.utils.misc import randn_c
+    ts = 1 / bandwidth
+    profile = shape_profile(kind, bandwidth)
+    launches, err, rows_seen = 0, 0.0, None
+    routes = [("siso", None)] + ([("mimo", (2, 2))]
+                                 if kind == "exponential" else [])
+    for route, shape in routes:
+        gen = JakesSampleGenerator(30.0, ts, 16, shape=shape, device=dev)
+        ch = (TdlMimoChannel(gen, profile) if shape
+              else TdlChannel(gen, profile))
+        n = attempts if shape is None else attempts // 4
+        s_state, s_x = AttemptStreams.from_range(71, 0, n, dev).split(2)
+        x = (randn_c(s_x, blocks * block) if shape is None
+             else randn_c(s_x, shape[1], blocks * block))
+        state = ch.init_state(s_state)
+        fir.block_fir.launch_count = 0
+        fir.block_fir.reference_count = 0
+        y, ir_block, _ = ch.corrupt_data(state, x, block_size=block)
+        torch.cuda.synchronize()
+        n_launch = fir.block_fir.launch_count
+        check_launches(f"b_route {name} {route}", n_launch, 1,
+                       fir.block_fir.reference_count)
+        launches += n_launch
+        taps = ir_block.tap_values_sparse
+        if shape is None:
+            x_rows = x.reshape(-1, block)
+            t_rows = taps.movedim(-2, -1).reshape(-1, taps.shape[-2])
+        else:
+            x_rows, t_rows = mimo_rows(ir_block, x, block)
+        offsets = [int(d) for d in ir_block.tap_indexes_sparse]
+        got = fir.block_fir(x_rows, t_rows, offsets, block)
+        ref = fir.block_fir_reference(x_rows, t_rows, offsets, block)
+        rel = rel_diff(got, ref)
+        saved = fading.BLOCK_CONV_IMPL
+        fading.BLOCK_CONV_IMPL = "fft"
+        try:
+            y_fft = (fading.tdl_filter_block_fft(ir_block, x, block)
+                     if shape is None else
+                     fading.tdl_filter_block_fft_mimo(ir_block, x, block))
+        finally:
+            fading.BLOCK_CONV_IMPL = saved
+        fft_rel = rel_diff(y, y_fft)
+        plan = fir.kernel_plan(x_rows.shape[0], block, tuple(offsets))
+        phase("b_route", shape=name, route=route, taps=len(offsets),
+              span=offsets[-1] + 1, block_size=block,
+              rows=x_rows.shape[0], out=tuple(y.shape),
+              block_fir_launches=n_launch, form=plan["form"],
+              warps=plan["warps"], stages=plan["stages"],
+              segment=plan["segment"], segments=plan["segments"],
+              smem_bytes=plan["smem_bytes"], kernel_vs_plain_rel=rel,
+              fir_limit=FIR_REL_TOL, route_vs_fft_route_rel=fft_rel,
+              route_limit=MIMO_REL_TOL)
+        if not (rel <= FIR_REL_TOL and fft_rel <= MIMO_REL_TOL):
+            raise AssertionError(f"b_route {name} {route}: block_fir "
+                                 f"{rel}, route against FFT {fft_rel}")
+        err = max(err, float((got - ref).abs().max()))
+        if rows_seen is None:
+            rows_seen = (x_rows, t_rows, offsets)
+
+    x_rows, t_rows, offsets = rows_seen
+    rows = x_rows.shape[0]
+    args = (x_rows, t_rows, offsets, block)
+    ms = graph_ms(lambda: fir.block_fir(*args))
+    wrapper_ms = best_ms(lambda: fir.block_fir(*args), inner=10)
+    plain_ms = best_ms(lambda: fir.block_fir_reference(*args))
+    fft_ms = best_ms(lambda: fir.block_fir_fft(*args), inner=10)
+    span = offsets[-1] + 1
+    dense = torch.zeros(rows, span, dtype=torch.complex64, device=dev)
+    dense[:, offsets] = t_rows
+    weight = dense.flip(-1)[:, None, :].contiguous()
+
+    def conv1d():
+        return torch.nn.functional.conv1d(x_rows[None], weight,
+                                          padding=span - 1, groups=rows)[0]
+    y = fir.block_fir(*args)
+    conv_rel = rel_diff(conv1d(), y)
+    conv_ms = best_ms(conv1d, inner=3)
+    nbytes = fir_bytes(rows, block, offsets)
+    flops = 8 * rows * block * len(offsets)
+    bound, bound_by = bound_ms(nbytes=nbytes, flops=flops)
+    plan = fir.kernel_plan(rows, block, tuple(offsets))
+    phase("b_times", card=repr(smi), shape=name, rows=rows, block_size=block,
+          taps=len(offsets), span=span, form=plan["form"], kernel_ms=ms,
+          wrapper_ms=wrapper_ms, bound_ms=bound, bound_by=bound_by,
+          byte_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+          flop_bound_ms=flops / F32_FLOP_PER_S * 1e3,
+          share_of_bound=bound / ms, plain_ms=plain_ms, conv1d_ms=conv_ms,
+          conv1d_rel_diff=conv_rel, fft_route_ms=fft_ms, launches=launches)
+    return {"name": f"block_fir_{name}", "route": "cuda",
+            "source": "pyphysim_tpu_torch/ops/csrc/block_fir.cu",
+            "replaces": "pyphysim_tpu/ops/fir_pallas.py:52",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "timed_by": "graph_replay", "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": conv_ms, "fft_route_ms": fft_ms,
+            "form": plan["form"]}
+
+
+def shape_phases(dev, smi):
+    """Phases 61-64: the flagship kernel and block_fir past their first
+    forms (F1 in each product type, F2, then B1 and B2 through the
+    channels' block routes). Returns their ``kernels`` entries."""
+    start_time = time.perf_counter()
+    entries = [f1_phases(dev, smi, dtype) for dtype in MC_DTYPES]
+    entries += f2_phases(dev, smi)
+    entries += [b_route(dev, smi, *shape) for shape in FIR_SHAPES]
+    phase("shape_seconds", phases_61_to_64=time.perf_counter() - start_time)
+    return entries
+
+
 def comp_bd_runner(dev, metrics, rep_max, batch, config=None,
                    engine="device"):
     """``BDSimulationRunner`` at bench.py's point: SNR 20 dB, Pe 10 dBm,
@@ -2621,13 +3075,13 @@ def mimo_inputs(dev, nr, nt, switched=False, seed=61):
     return ch, ch.init_state(s_state), x
 
 
-def mimo_rows(ir_block, x):
+def mimo_rows(ir_block, x, block=MIMO_BLOCK):
     """The (x rows, tap rows) the MIMO kernel route hands to block_fir:
     every (r, t) pair's blocks, the signal repeated for each r."""
     taps = ir_block.tap_values_sparse                # (n, T, Nr, Nt, nb)
     n, T, nr, nt, nb = taps.shape
-    x_rows = x.reshape(n, 1, nt, nb, MIMO_BLOCK).expand(
-        n, nr, nt, nb, MIMO_BLOCK).reshape(-1, MIMO_BLOCK)
+    x_rows = x.reshape(n, 1, nt, nb, block).expand(
+        n, nr, nt, nb, block).reshape(-1, block)
     return x_rows, taps.movedim(1, -1).reshape(-1, T)
 
 

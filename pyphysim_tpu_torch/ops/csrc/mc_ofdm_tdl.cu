@@ -46,6 +46,10 @@
 //     loads), then the epilogue; one Philox call per symbol;
 //   * a warp-shuffle + shared-memory reduction and one integer atomicAdd per
 //     block.
+// These instances take up to 32 taps, 1,024 (tap, ray) pairs and 65,535
+// tiles a launch; every other shape the TPU kernel takes runs in the
+// general form below (mc_ofdm_tdl_general_kernel), and the host cuts a
+// call of more than 65,535 reps into launches (ops/mc_kernel.py).
 // Phases: the argument t C cos(phi) + psi reaches ~28 rad at t = 4096, so it
 // is reduced by hand (Cody-Waite, 2 pi in two parts) to [-pi, pi], where
 // __sincosf is within 2^-21.4; the phase's own f32 rounding at t = 4096 is
@@ -87,7 +91,7 @@ struct Params {
   long long d_row_stride;
   int* out;  // (reps, num_tiles), zeroed by the wrapper
   int num_tiles, tile, used, TL, T, L;
-  int rows_log2;   // log2 of the rows of a block: min(kRows, tile)
+  int rows_log2;   // log2 of the rows of a block (make_plan's)
   int bin_chunks;  // blocks across the used bins
   int M, Lq, half_bits;
   float C, amp, qam_scale, inv_scale;
@@ -157,7 +161,7 @@ __device__ __forceinline__ int symbol_errors(const Params& p, float hr,
   uint32_t dbits, w1, w2;
   if (kInject) {
     const long long off = rep * p.d_rep_stride +
-                          (long long)(tile_idx * p.tile + s) * p.d_row_stride +
+                          ((long long)tile_idx * p.tile + s) * p.d_row_stride +
                           u;
     dbits = (uint32_t)p.db[off];
     w1 = (uint32_t)p.n1[off];
@@ -319,6 +323,181 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
+// The general form: any number of taps, of (tap, ray) pairs and of reps
+// and tiles. The fast instances above hold G_tap (at most 32 taps) in
+// registers, the pairs in a static 8 KB and index the grid by (rows and
+// bins, tile, rep); this form keeps their arithmetic in the same order (a
+// tap's rays summed l = 0..L-1, the product's four partial sums over the
+// taps in order, the same epilogue), so at 32 taps or fewer it gives their
+// counts bit for bit. What changes:
+//   * the taps go through in chunks of kChunk: a thread holds one chunk of
+//     G_tap in registers and kGroup rows' partial sums, so the product
+//     reloads G_tap (from L1) once a chunk and kGroup rows;
+//   * the pairs' rates and phases and h[row, tap] live in a slot of
+//     dynamic shared memory sized by TL and T (the rows a block holds
+//     shrink as T grows), or, past 227 KB, in a slot of a device scratch
+//     buffer per resident block (General::scratch);
+//   * the grid is one dimension over (rep, tile, rows, bins) with 64-bit
+//     index math, each block walking blocks of that space.
+// What bounds it: instruction issue, as the fast form; at 51 taps of 32
+// rays the product's 256 FFMA a symbol (64 padded taps) and its G_tap
+// reloads set ~645 instructions a symbol against the fast form's ~268 at 16
+// taps (PERF.md).
+constexpr int kChunk = 32;            // taps of G_tap in registers at once
+constexpr int kGroup = 4;             // rows whose partial sums a thread holds
+constexpr long long kMaxSmem = 232448 - 1024;  // a block's dynamic bytes
+                                      // (227 KB less the static reduction)
+constexpr long long kMaxGrid = 1 << 24;       // blocks launched, shared memory
+constexpr int kScratchBlocksPerSm = 4;        // slots a SM, past shared memory
+
+struct General {
+  const float2* g2;        // G_tap as (re, im) pairs, (Tp, used), zero past T
+  float* scratch;          // slots of slot_floats each, or null
+  long long slot_floats;   // a block's wl, psi (TLe each), then h
+  long long blocks;        // reps * num_tiles * row_blocks * bin_chunks
+  int TLe;                 // TL rounded up to even (h 16-byte aligned)
+  int Tp;                  // taps rounded up to kChunk
+  int h_stride;            // float2 a row of h: Tp + 2
+  int row_blocks;          // tile >> rows_log2
+};
+
+template <bool kInject, bool kBf16>
+__global__ void __launch_bounds__(kMaxThreads)
+    mc_ofdm_tdl_general_kernel(const Params p, const General g) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_warp_sum[kMaxThreads / 32];
+  float* slot = g.scratch ? g.scratch + (long long)blockIdx.x * g.slot_floats
+                          : smem;
+  float* s_wl = slot;
+  float* s_psi = slot + g.TLe;
+  float2* s_h = reinterpret_cast<float2*>(slot + 2 * g.TLe);
+  const int nrows = 1 << p.rows_log2;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+#pragma unroll 1
+  for (long long b = blockIdx.x; b < g.blocks; b += gridDim.x) {
+    // b = ((rep * num_tiles + tile) * row_blocks + row_block) * bin_chunks
+    //     + chunk
+    const int chunk = (int)(b % p.bin_chunks);
+    long long q = b / p.bin_chunks;
+    const int row_block = (int)(q % g.row_blocks);
+    q /= g.row_blocks;
+    const int tile_idx = (int)(q % p.num_tiles);
+    const int rep = (int)(q / p.num_tiles);
+    const int row0 = row_block * nrows;
+    const unsigned long long attempt =
+        (unsigned long long)(p.start + (long long)rep);
+    const uint32_t att_lo = (uint32_t)attempt;
+    const uint32_t att_hi = (uint32_t)(attempt >> 32);
+
+#pragma unroll 1
+    for (int il = threadIdx.x; il < p.TL; il += blockDim.x) {
+      uint32_t phi_bits, psi_bits;
+      if (kInject) {
+        const int* pb = p.pb + rep * p.pb_rep_stride;
+        phi_bits = (uint32_t)pb[il];
+        psi_bits = (uint32_t)pb[p.pb_row_stride + il];
+      } else {
+        const uint4 x = philox4x32_10(
+            make_uint4((uint32_t)il, 0u, att_lo, att_hi),
+            make_uint2(p.seed, 0u));
+        phi_bits = x.x;
+        psi_bits = x.y;
+      }
+      s_wl[il] = p.C * cos_reduced(u01(phi_bits) * kTwoPi);
+      s_psi[il] = u01(psi_bits) * kTwoPi;
+    }
+    __syncthreads();
+
+    // h[row, tap], taps T..Tp-1 zero
+    const long long t_base = (long long)tile_idx * p.tile + row0;
+#pragma unroll 1
+    for (int k = threadIdx.x; k < (g.Tp << p.rows_log2); k += blockDim.x) {
+      const int r = k & (nrows - 1);
+      const int tap = k >> p.rows_log2;
+      float hr = 0.f, hi = 0.f;
+      if (tap < p.T) {
+        const float t = (float)(t_base + r);
+        const float* wl = s_wl + (long long)tap * p.L;
+        const float* ps = s_psi + (long long)tap * p.L;
+#pragma unroll 1
+        for (int l = 0; l < p.L; ++l) {
+          float c, s;
+          phasor<kBf16>(fmaf(t, wl[l], ps[l]), c, s);
+          hr += c;
+          hi += s;
+        }
+      }
+      s_h[r * g.h_stride + tap] = make_float2(hr, hi);
+    }
+    __syncthreads();
+
+    int errors = 0;
+    const int u = chunk * blockDim.x + threadIdx.x;
+    if (u < p.used) {
+#pragma unroll 1
+      for (int r0 = 0; r0 < nrows; r0 += kGroup) {
+        float ar[kGroup], br[kGroup], ai[kGroup], bi[kGroup];
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) ar[j] = br[j] = ai[j] = bi[j] = 0.f;
+#pragma unroll 1
+        for (int c = 0; c < g.Tp; c += kChunk) {
+          const float2* gp = g.g2 + (size_t)c * p.used + u;
+          float gr[kChunk], gi[kChunk];
+#pragma unroll
+          for (int t = 0; t < kChunk; ++t) {
+            const float2 gt = __ldg(gp + (size_t)t * p.used);
+            gr[t] = gt.x;
+            gi[t] = gt.y;
+          }
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) {
+            const float4* h4 = reinterpret_cast<const float4*>(
+                s_h + (r0 + j) * g.h_stride + c);
+#pragma unroll
+            for (int q2 = 0; q2 < kChunk / 2; ++q2) {
+              const float4 v = h4[q2];
+              ar[j] = fmaf(v.x, gr[2 * q2], ar[j]);
+              br[j] = fmaf(-v.y, gi[2 * q2], br[j]);
+              ai[j] = fmaf(v.x, gi[2 * q2], ai[j]);
+              bi[j] = fmaf(v.y, gr[2 * q2], bi[j]);
+              ar[j] = fmaf(v.z, gr[2 * q2 + 1], ar[j]);
+              br[j] = fmaf(-v.w, gi[2 * q2 + 1], br[j]);
+              ai[j] = fmaf(v.z, gi[2 * q2 + 1], ai[j]);
+              bi[j] = fmaf(v.w, gr[2 * q2 + 1], bi[j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) {
+          errors += symbol_errors<kInject>(p, ar[j] + br[j], ai[j] + bi[j],
+                                           rep, tile_idx, row0 + r0 + j, u,
+                                           att_lo, att_hi);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      errors += __shfl_down_sync(0xffffffffu, errors, off);
+    }
+    if (lane == 0) s_warp_sum[warp] = errors;
+    __syncthreads();
+    if (warp == 0) {
+      int v = lane < (int)(blockDim.x >> 5) ? s_warp_sum[lane] : 0;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      }
+      if (lane == 0 && v != 0) {
+        atomicAdd(p.out + (long long)rep * p.num_tiles + tile_idx, v);
+      }
+    }
+    __syncthreads();   // the slot and s_warp_sum serve the next block
+  }
+}
+
 __global__ void philox_fill_kernel(const uint32_t* __restrict__ ctr,
                                    const uint32_t* __restrict__ key,
                                    uint32_t* __restrict__ out, long long n) {
@@ -346,8 +525,6 @@ Params make_params(const float* g_re, const float* g_im, int* out,
   p.TL = TL;
   p.T = T;
   p.L = T > 0 ? TL / T : 0;
-  const int rows = tile < kRows ? tile : kRows;
-  while ((1 << p.rows_log2) < rows) ++p.rows_log2;
   p.M = M;
   int bits = 0;
   while ((1 << bits) < M) ++bits;
@@ -358,6 +535,68 @@ Params make_params(const float* g_re, const float* g_im, int* out,
   p.qam_scale = qam_scale;
   p.inv_scale = inv_scale;
   return p;
+}
+
+// How a call runs (ops/mc_kernel.py kernel_plan reads it): the fast
+// instances (16 or 32 taps) while T <= 32, TL <= kMaxTL and the grid's
+// (rep, tile) fit its y / z dimensions and 32-bit indices; else the
+// general form, its rows a block shrunk until h takes at most half of
+// kMaxSmem, its slot in shared memory or, past kMaxSmem, in scratch.
+struct Plan {
+  int general, rows_log2, bin_chunks, threads;
+  long long smem_bytes, scratch_bytes, grid;
+  General g;
+};
+
+int make_plan(int reps, int num_tiles, int tile, int used, int TL, int T,
+              Plan* pl) {
+  // a tile is a power of two >= 8 and T taps hold L rays each (the
+  // wrapper checks); anything else is not a call of this kernel
+  if (reps < 1 || num_tiles < 1 || tile < 8 || (tile & (tile - 1)) ||
+      used < 1 || T < 1 || TL < T || TL % T) {
+    return (int)cudaErrorInvalidValue;
+  }
+  *pl = Plan{};
+  pl->bin_chunks = (used + kMaxThreads - 1) / kMaxThreads;
+  const int per_chunk = (used + pl->bin_chunks - 1) / pl->bin_chunks;
+  pl->threads = ((per_chunk + 31) / 32) * 32;
+  const int rows = tile < kRows ? tile : kRows;
+  while ((1 << pl->rows_log2) < rows) ++pl->rows_log2;
+  pl->general = !(T <= 32 && TL <= kMaxTL && reps <= 65535 &&
+                  num_tiles <= 65535 &&
+                  (long long)reps * num_tiles <= 0x7fffffffLL &&
+                  (long long)num_tiles * tile <= 0x7fffffffLL);
+  if (!pl->general) {
+    pl->grid = (long long)(tile >> pl->rows_log2) * pl->bin_chunks;
+    return 0;
+  }
+  General& g = pl->g;
+  g.TLe = (TL + 1) & ~1;
+  g.Tp = (T + kChunk - 1) / kChunk * kChunk;
+  g.h_stride = g.Tp + 2;
+  while (pl->rows_log2 > 2 &&
+         8LL * g.h_stride << pl->rows_log2 > kMaxSmem / 2) {
+    --pl->rows_log2;
+  }
+  g.row_blocks = tile >> pl->rows_log2;
+  g.slot_floats = 2LL * g.TLe + (2LL * g.h_stride << pl->rows_log2);
+  g.blocks = (long long)reps * num_tiles * g.row_blocks * pl->bin_chunks;
+  const long long slot_bytes = 4 * g.slot_floats;
+  if (slot_bytes <= kMaxSmem) {
+    pl->smem_bytes = slot_bytes;
+    pl->grid = g.blocks < kMaxGrid ? g.blocks : kMaxGrid;
+    return 0;
+  }
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return (int)cudaErrorInvalidDevice;
+  }
+  const long long slots = (long long)sms * kScratchBlocksPerSm;
+  pl->grid = g.blocks < slots ? g.blocks : slots;
+  pl->scratch_bytes = pl->grid * slot_bytes;
+  return 0;
 }
 
 template <int kTaps>
@@ -376,36 +615,85 @@ void launch_taps(const Params& p, dim3 grid, int threads, bool inject,
   }
 }
 
-int launch(Params& p, int reps, bool inject, bool bf16, void* stream) {
-  // tile: a power of two >= 8 (the wrapper checks); T taps of L rays
-  if (p.TL > kMaxTL || p.T < 1 || p.T > 32 || p.T * p.L != p.TL ||
-      (1 << p.rows_log2) > p.tile || p.tile % (1 << p.rows_log2) != 0 ||
-      reps > 65535 || p.num_tiles > 65535) {
-    return (int)cudaErrorInvalidValue;
+template <bool kInject, bool kBf16>
+int launch_general(const Params& p, const Plan& pl, cudaStream_t s) {
+  const auto kernel = mc_ofdm_tdl_general_kernel<kInject, kBf16>;
+  static bool opted = false;      // opted in to kMaxSmem once
+  if (pl.smem_bytes > 48 * 1024 && !opted) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (rc != cudaSuccess) return (int)rc;
+    opted = true;
   }
-  p.bin_chunks = (p.used + kMaxThreads - 1) / kMaxThreads;
-  const int per_chunk = (p.used + p.bin_chunks - 1) / p.bin_chunks;
-  const int threads = ((per_chunk + 31) / 32) * 32;
-  const dim3 grid((p.tile >> p.rows_log2) * p.bin_chunks, p.num_tiles, reps);
+  kernel<<<(unsigned int)pl.grid, pl.threads, (size_t)pl.smem_bytes, s>>>(
+      p, pl.g);
+  return 0;
+}
+
+int launch(Params& p, int reps, bool inject, bool bf16, const void* g2,
+           void* scratch, void* stream) {
+  Plan pl;
+  int rc = make_plan(reps, p.num_tiles, p.tile, p.used, p.TL, p.T, &pl);
+  if (rc != 0) return rc;
+  p.rows_log2 = pl.rows_log2;
+  p.bin_chunks = pl.bin_chunks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p.T <= 16) {
-    launch_taps<16>(p, grid, threads, inject, bf16, s);
-  } else {
-    launch_taps<32>(p, grid, threads, inject, bf16, s);
+  if (!pl.general) {
+    const dim3 grid((unsigned int)pl.grid, p.num_tiles, reps);
+    if (p.T <= 16) {
+      launch_taps<16>(p, grid, pl.threads, inject, bf16, s);
+    } else {
+      launch_taps<32>(p, grid, pl.threads, inject, bf16, s);
+    }
+    return (int)cudaGetLastError();
   }
+  pl.g.g2 = static_cast<const float2*>(g2);
+  pl.g.scratch = static_cast<float*>(scratch);
+  if ((pl.scratch_bytes > 0 && scratch == nullptr) || g2 == nullptr) {
+    return (int)cudaErrorInvalidValue;   // the wrapper passes both
+  }
+  rc = inject ? (bf16 ? launch_general<true, true>(p, pl, s)
+                      : launch_general<true, false>(p, pl, s))
+              : (bf16 ? launch_general<false, true>(p, pl, s)
+                      : launch_general<false, false>(p, pl, s));
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The plan of a call at these sizes (make_plan) as 12 int64: general form
+// (0 / 1), rows a block, blocks across the bins, threads a block, dynamic
+// shared bytes, scratch bytes (0: the slot is in shared memory), blocks
+// launched, blocks of the call, taps rounded to kChunk, floats a slot,
+// kChunk, kGroup.
+extern "C" int mc_ofdm_tdl_plan(int reps, int num_tiles, int tile, int used,
+                                int TL, int T, long long* out) {
+  Plan pl;
+  const int rc = make_plan(reps, num_tiles, tile, used, TL, T, &pl);
+  if (rc != 0) return rc;
+  const long long v[12] = {pl.general,       1LL << pl.rows_log2,
+                           pl.bin_chunks,    pl.threads,
+                           pl.smem_bytes,    pl.scratch_bytes,
+                           pl.grid,          pl.general ? pl.g.blocks : 0,
+                           pl.g.Tp,          pl.g.slot_floats,
+                           kChunk,           kGroup};
+  for (int i = 0; i < 12; ++i) out[i] = v[i];
+  return 0;
+}
+
 // In-kernel Philox bits (the counterpart of _make_prng_call): rep r of this
 // call is the absolute attempt start + r of the stream keyed by seed. G_tap
-// is (T, used); the TL = T * L (tap, ray) pairs draw their rays.
+// is (T, used); the TL = T * L (tap, ray) pairs draw their rays. g2: G_tap
+// as (re, im) pairs, (T rounded up to 32, used) with zero rows past T, which
+// the general form reads; scratch: a device buffer of mc_ofdm_tdl_plan's
+// scratch bytes where that is not 0.
 extern "C" int mc_ofdm_tdl_prng(const void* g_re, const void* g_im, void* out,
                                 int reps, int num_tiles, int tile, int used,
                                 int TL, int T, int M, float C, float amp,
                                 float qam_scale, float inv_scale, int bf16,
-                                unsigned int seed, long long start,
+                                const void* g2, unsigned int seed,
+                                long long start, void* scratch,
                                 void* stream) {
   Params p = make_params(static_cast<const float*>(g_re),
                          static_cast<const float*>(g_im),
@@ -413,7 +701,7 @@ extern "C" int mc_ofdm_tdl_prng(const void* g_re, const void* g_im, void* out,
                          T, M, C, amp, qam_scale, inv_scale);
   p.seed = seed;
   p.start = start;
-  return launch(p, reps, false, bf16 != 0, stream);
+  return launch(p, reps, false, bf16 != 0, g2, scratch, stream);
 }
 
 // Bits read from int32 device tensors in the JAX layout (the counterpart of
@@ -423,9 +711,9 @@ extern "C" int mc_ofdm_tdl_inject(
     const void* g_re, const void* g_im, const void* pb, const void* db,
     const void* n1, const void* n2, void* out, int reps, int num_tiles,
     int tile, int used, int TL, int T, int M, float C, float amp,
-    float qam_scale, float inv_scale, int bf16, long long pb_rep_stride,
-    long long pb_row_stride, long long d_rep_stride, long long d_row_stride,
-    void* stream) {
+    float qam_scale, float inv_scale, int bf16, const void* g2,
+    long long pb_rep_stride, long long pb_row_stride, long long d_rep_stride,
+    long long d_row_stride, void* scratch, void* stream) {
   Params p = make_params(static_cast<const float*>(g_re),
                          static_cast<const float*>(g_im),
                          static_cast<int*>(out), num_tiles, tile, used, TL,
@@ -438,7 +726,7 @@ extern "C" int mc_ofdm_tdl_inject(
   p.pb_row_stride = pb_row_stride;
   p.d_rep_stride = d_rep_stride;
   p.d_row_stride = d_row_stride;
-  return launch(p, reps, true, bf16 != 0, stream);
+  return launch(p, reps, true, bf16 != 0, g2, scratch, stream);
 }
 
 // Philox4x32-10 of n counters (n x 4 words) under one key (2 words), all

@@ -9,9 +9,9 @@ versions of one function:
   * :func:`block_fir`, the wrapper: on CUDA tensors it launches the
     hand-written kernel ``ops/csrc/block_fir.cu`` (its source note says what
     bounds it and what its design does about that; the kernel picks its
-    own instance and shape, :func:`kernel_plan` reads them), on CPU
-    tensors it runs the plain version. There is no fallback from one to
-    the other.
+    own form, instance and shape for any number of taps, block and span,
+    :func:`kernel_plan` reads them), on CPU tensors it runs the plain
+    version. There is no fallback from one to the other.
   * :func:`block_fir_reference`, the plain PyTorch version: one shifted
     multiply-add per tap, as the TPU kernel's body does.
   * :func:`block_fir_fft`, the per-block FFT convolution (the JAX package's
@@ -34,14 +34,15 @@ import torch
 from .sparse_dft import sparse_dft
 
 __all__ = ["block_fir", "block_fir_reference", "block_fir_fft",
-           "kernel_plan", "kernel_profile", "loop_trips", "MAX_TAPS",
-           "MAX_BLOCK_SIZE"]
+           "kernel_plan", "kernel_profile", "loop_trips"]
 
-MAX_TAPS = 64              # the kernel's offsets struct
-MAX_BLOCK_SIZE = 6144      # as the first form, which staged a row in 48 KB
+# the kernel's forms (block_fir.cu make_plan): a whole row in a buffer with
+# the taps unrolled (up to 64), a row cut into segments, one thread an
+# output reading x through the caches
+_FORMS = ("rows", "segments", "direct")
 _PLAN_KEYS = ("tap_bound", "full", "stages", "warps", "row0",
               "stage_elements", "chunks", "out_len", "smem_bytes", "blocks",
-              "rows_per_warp", "kChunks")
+              "rows_per_warp", "kChunks", "form", "segment", "segments")
 
 
 def kernel_plan(rows: int, block_size: int, tap_offsets: Sequence[int],
@@ -49,24 +50,28 @@ def kernel_plan(rows: int, block_size: int, tap_offsets: Sequence[int],
     """How the kernel runs ``rows`` rows of ``block_size`` samples with
     the taps at ``tap_offsets``, as ``block_fir.cu`` ``make_plan`` decides
     it (the C function ``block_fir_plan`` of the built library, or
-    ``plan_fn``, a tuner's variant's): its instance
-    (``tap_bound``, the least of 16 / 32 / 64 that holds T, and ``full``,
-    T equal to it), the row buffers a warp (``stages``), the warps a
-    block, the elements of a row buffer, the shared bytes, the grid and
-    the threads launched. Needs the built library, so the card; raises
-    ``ValueError`` for a shape the kernel does not take."""
+    ``plan_fn``, a tuner's variant's): its ``form`` (``"rows"``: the
+    whole row in a buffer where T <= 64 and four warps of two such buffers
+    fit 227 KB; else ``"segments"``: the row cut into segments of
+    ``segment`` outputs, its halo staged with each; else, past ~29,000
+    samples of span, ``"direct"``),
+    the rows form's instance (``tap_bound``, the least of 16 / 32 / 64
+    that holds T, and ``full``, T equal to it), the buffers a warp
+    (``stages``), the warps a block, the elements of a buffer, the shared
+    bytes, the grid and the threads launched. Needs the built library, so
+    the card; raises ``ValueError`` for arguments that are no FIR (no
+    taps, an empty block)."""
     from . import _build
     offsets = _offsets(tuple(tap_offsets))
     out = (ctypes.c_longlong * len(_PLAN_KEYS))()
     fn = plan_fn or _build.load().block_fir_plan
     if fn(int(rows), int(block_size), len(offsets), offsets[-1], out):
-        raise ValueError(f"the block_fir kernel takes 1 to {MAX_TAPS} "
-                         f"taps, 1 <= block_size <= {MAX_BLOCK_SIZE} and a "
-                         f"span whose row buffer fits in shared memory; "
-                         f"got {len(offsets)} taps, block_size "
-                         f"{block_size}, span {offsets[-1] + 1}")
+        raise ValueError(f"block_fir: no plan for {len(offsets)} taps, "
+                         f"block_size {block_size}, span "
+                         f"{offsets[-1] + 1}")
     plan = dict(zip(_PLAN_KEYS, out))
     plan["full"] = bool(plan["full"])
+    plan["form"] = _FORMS[plan["form"]]
     plan["threads"] = plan["blocks"] * plan["warps"] * 32
     return plan
 
@@ -100,9 +105,12 @@ def kernel_profile(rows: int, block_size: int,
     the instance's mangled-name pattern and the threads launched (its
     loops' trips come from the listing, :func:`loop_trips`)."""
     plan = kernel_plan(rows, block_size, tap_offsets)
-    return {"pattern": (f"block_fir_kernelILi{plan['tap_bound']}"
+    pattern = {"rows": (f"block_fir_kernelILi{plan['tap_bound']}"
                         f"ELb{int(plan['full'])}ELi{plan['stages']}EE"),
-            "threads": plan["threads"], "plan": plan, "rows": rows}
+               "segments": f"block_fir_seg_kernelILi{plan['stages']}EE",
+               "direct": "block_fir_direct_kernel"}[plan["form"]]
+    return {"pattern": pattern, "threads": plan["threads"], "plan": plan,
+            "rows": rows}
 
 
 def loop_trips(loops: Sequence[Dict[str, int]],
@@ -183,9 +191,6 @@ def _launch(x_blocks: torch.Tensor, taps: torch.Tensor,
     from . import _build
     if x_blocks.dtype != torch.complex64 or taps.dtype != torch.complex64:
         raise TypeError("the block_fir kernel takes complex64 tensors")
-    if len(offsets) > MAX_TAPS or block_size > MAX_BLOCK_SIZE:
-        raise ValueError(f"the block_fir kernel takes at most {MAX_TAPS} "
-                         f"taps and block_size <= {MAX_BLOCK_SIZE}")
     x = x_blocks.contiguous()
     t = taps.contiguous()
     rows = x.shape[0]
@@ -194,6 +199,7 @@ def _launch(x_blocks: torch.Tensor, taps: torch.Tensor,
     rc = _build.load().block_fir(
         x.data_ptr(), t.data_ptr(), y.data_ptr(), rows, block_size,
         len(offsets), _host_offsets(offsets),
+        _device_offsets(offsets, x.device).data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "block_fir")
     block_fir.launch_count += 1
@@ -206,3 +212,12 @@ def _host_offsets(offsets: Tuple[int, ...]) -> ctypes.c_void_p:
     takes (the pointer keeps its array alive, the cache the pointer)."""
     return ctypes.cast((ctypes.c_int * len(offsets))(*offsets),
                        ctypes.c_void_p)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_offsets(offsets: Tuple[int, ...],
+                    device: torch.device) -> torch.Tensor:
+    """The offsets as an int32 tensor on ``device``, which the segments and
+    direct forms read (made once a tuple and device: a launch copies
+    nothing)."""
+    return torch.tensor(offsets, dtype=torch.int32, device=device)

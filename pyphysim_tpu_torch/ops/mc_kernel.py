@@ -37,14 +37,23 @@ Two bit sources, as in the JAX package:
     (reps, num_tiles * tile, used_p) — so the port and the JAX kernel see
     identical bits in the tests.
 
+The kernel takes every shape the JAX kernel takes
+(:meth:`MonteCarloOfdmTdl.kernel_plan` says how a launch runs): its fast
+instances hold up to 32 taps and 1,024 (tap, ray) pairs, its general
+form any number of either, and a call of more than 65,535 reps is cut
+into launches of at most that many
+(:func:`launch_slices`), each from its own absolute attempt, so bit for
+bit one launch under the Philox contract.
+
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel, or raises: there is no fallback.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -53,13 +62,26 @@ from .._device import DeviceLike, require_cuda
 from ..utils.misc import level2bits
 from . import philox
 
-__all__ = ["MonteCarloOfdmTdl", "from_jax_arrays"]
+__all__ = ["MonteCarloOfdmTdl", "from_jax_arrays", "launch_slices"]
 
 _TWO_PI = 6.283185307179586
-_ROWS = 64          # symbols per block of the CUDA kernel (kRows there)
-_MAX_THREADS = 512  # used bins per block (kMaxThreads there)
-_MAX_TAPS = 32      # the kernel's register tile of G_tap holds 16 or 32
 _MATMUL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_CHUNK = 32         # G_tap's taps padded to whole chunks (kChunk there)
+_GRID_YZ = 65535    # reps a launch: the fast form's grid z
+# mc_ofdm_tdl_plan's values, in order
+_PLAN_KEYS = ("general", "rows", "bin_chunks", "threads", "smem_bytes",
+              "scratch_bytes", "grid", "blocks", "taps_padded",
+              "slot_floats", "chunk_taps", "group_rows")
+
+
+def launch_slices(reps: int) -> List[Tuple[int, int]]:
+    """The launches one call of ``reps`` reps makes: ``[r0, r1)`` rep ranges
+    of at most 65,535 (the fast form's grid z). Launch ``i`` writes rows
+    ``out[r0:r1]``, reads the inject bits ``[r0:r1]`` and starts at
+    absolute attempt ``start + r0``; every tile of a rep is in its one
+    launch (the general form folds the tiles into its grid)."""
+    return [(r0, min(r0 + _GRID_YZ, reps))
+            for r0 in range(0, reps, _GRID_YZ)]
 
 
 def _matmul_dtype(dtype) -> torch.dtype:
@@ -187,9 +209,6 @@ class MonteCarloOfdmTdl:
             if not np.array_equal(g, np.broadcast_to(g[:, :1], g.shape)):
                 raise ValueError("the rows of a tap of G differ: the rays "
                                  "of a tap must share one row")
-        if taps > _MAX_TAPS:
-            raise ValueError(f"{taps} taps: the kernel takes at most "
-                             f"{_MAX_TAPS}")
         self.matmul_dtype = _matmul_dtype(matmul_dtype)
         self.device = require_cuda(device)
         self.M = int(M)
@@ -212,6 +231,13 @@ class MonteCarloOfdmTdl:
         self.g_tap_re = self._cast(self.g_re[::rays]).contiguous()
         self.g_tap_im = self._cast(self.g_im[::rays]).contiguous()
         self._g_tap = torch.complex(self.g_tap_re, self.g_tap_im)
+        # the general form's G_tap: (re, im) pairs, zero rows up to a whole
+        # chunk of taps
+        self.g_tap_pairs = torch.zeros(
+            (-(-taps // _CHUNK) * _CHUNK, used, 2), dtype=torch.float32,
+            device=self.device)
+        self.g_tap_pairs[:taps] = torch.stack([self.g_tap_re,
+                                               self.g_tap_im], dim=-1)
         self.launch_count = 0
         self.reference_count = 0
 
@@ -267,12 +293,14 @@ class MonteCarloOfdmTdl:
                                  data_bits: torch.Tensor,
                                  n1_bits: torch.Tensor,
                                  n2_bits: torch.Tensor,
-                                 amp: float) -> torch.Tensor:
+                                 amp: float,
+                                 first_tile: int = 0) -> torch.Tensor:
         """All the physics, from random bits to bit-error counts, in plain
         tensor code on the bits' device.
 
         phase_bits: (reps, >= 2, >= TL) int32 — rows 0/1 = (phi, psi)
-        data/n1/n2_bits: (reps, num_tiles * tile, >= used) int32
+        data/n1/n2_bits: (reps, num_tiles * tile, >= used) int32, tiles
+        ``first_tile`` onward of the repetitions (their symbol times)
         Returns (reps, num_tiles) int32 error counts. Mirrors
         ``mc_pallas.py _simulate_block`` step for step, including the
         log-depth row doubling of E and the TL-deep product, so that it
@@ -294,7 +322,8 @@ class MonteCarloOfdmTdl:
         # E[r, il] = e^{j((t0 + r) wl + psi)} by log-depth doubling: trig
         # for the first 8 rows and the 8-step rotator, then each level
         # appends rows [R..2R) = rows [0..R) * e^{j R wl}
-        t8 = (torch.arange(num_tiles, device=dev)[:, None] * tile +
+        t8 = ((torch.arange(num_tiles, device=dev)[:, None] + first_tile) *
+              tile +
               torch.arange(8, device=dev)[None, :]).to(f32)
         ph8 = t8[None, :, :, None] * wl + psi             # (reps,nt,8,TL)
         e_re = torch.cos(ph8)
@@ -357,24 +386,31 @@ class MonteCarloOfdmTdl:
             errs = errs + ((diff >> k) & 1)
         return errs.sum(dim=(2, 3), dtype=torch.int64).to(torch.int32)
 
-    def prng_bits(self, reps: int, num_tiles: int, seed: int, start: int):
+    def prng_bits(self, reps: int, num_tiles: int, seed: int, start: int,
+                  first_tile: int = 0):
         """The PRNG-mode bits of attempts ``[start, start + reps)``:
         phase bits (reps, 2, TL) and data / noise bits
-        (reps, num_tiles * tile, used), int32, drawn with
-        ``ops/philox.py`` (the layout the kernel draws in registers)."""
+        (reps, num_tiles * tile, used) of tiles ``first_tile`` onward,
+        int32, drawn with ``ops/philox.py`` (the layout the kernel draws
+        in registers)."""
         attempts = torch.arange(start, start + reps, dtype=torch.int64,
                                 device=self.device)
         pb = philox.phase_stream_bits(seed, attempts, self.TL)
         db, n1, n2 = philox.symbol_stream_bits(seed, attempts, num_tiles,
-                                               self.tile, self.used)
+                                               self.tile, self.used,
+                                               first_tile)
         return pb, db, n1, n2
 
     def prng_reference(self, reps: int, num_tiles: int, seed: int,
-                       amp: float, start: int = 0) -> torch.Tensor:
+                       amp: float, start: int = 0,
+                       first_tile: int = 0) -> torch.Tensor:
         """The plain version in PRNG mode: the same bits as the kernel's,
-        through :meth:`simulate_block_reference`."""
+        through :meth:`simulate_block_reference`; ``first_tile``: the
+        counts of tiles ``[first_tile, first_tile + num_tiles)`` of a call
+        of more tiles."""
         return self.simulate_block_reference(
-            *self.prng_bits(reps, num_tiles, seed, start), amp)
+            *self.prng_bits(reps, num_tiles, seed, start, first_tile), amp,
+            first_tile)
 
     # ------------------------------------------------------------------
     # Builders: the kernel on CUDA, the plain version on the CPU
@@ -466,19 +502,54 @@ class MonteCarloOfdmTdl:
     # CUDA launches
     # ------------------------------------------------------------------
 
+    def kernel_plan(self, reps: int, num_tiles: int,
+                    lib=None) -> Dict[str, int]:
+        """How one launch of ``reps`` reps (at most 65,535) and
+        ``num_tiles`` tiles runs, as the built library ``lib`` (the
+        prebuilt one by default) plans it on the current device
+        (``mc_ofdm_tdl_plan``), keyed by ``_PLAN_KEYS``: the fast instance
+        (``general`` 0) while there are at most 32 taps and 1,024 pairs
+        and the (rep, tile) grid fits; else the general form, its ``rows``
+        a block, its slot of ``slot_floats`` in shared memory
+        (``smem_bytes``) or in a scratch buffer (``scratch_bytes``), G_tap
+        ``chunk_taps`` taps and ``group_rows`` rows at a time."""
+        from . import _build
+        lib = _build.load() if lib is None else lib
+        out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+        _build.check(lib.mc_ofdm_tdl_plan(reps, num_tiles, self.tile,
+                                          self.used, self.TL, self.taps,
+                                          out), "mc_ofdm_tdl_plan")
+        return dict(zip(_PLAN_KEYS, out))
+
     def prng_kernel_profile(self, reps: int, num_tiles: int
                             ) -> Dict[str, object]:
         """What ``ops/sass.py`` needs to count one PRNG-mode call's
         instructions: the kernel instance's mangled-name pattern, the
         threads that do work (one per used bin and block: idle lanes are
-        left out) and the trips of its four loops in listing order, per
-        such thread: the (tap, ray) pairs' rays, the rays of a tap, the
-        (row, tap) pairs of the tap sums, the rows of the body."""
-        rows = min(_ROWS, self.tile)
-        ktaps = 16 if self.taps <= 16 else 32
-        chunks = -(-self.used // _MAX_THREADS)
+        left out) and the trips of its loops in listing order, per such
+        thread. The fast instance: the (tap, ray) pairs' rays, the rays of
+        a tap, the (row, tap) pairs of the tap sums, the rows of the body.
+        The general form (its blocks counted as if each were launched, so
+        the walk over them takes one trip): the pairs, the rays of a tap,
+        the (row, tap) pairs, the chunks of taps, the groups of rows, the
+        walk; its trips count the T taps the function has, not the zero
+        taps the form pads to whole chunks, so the bound is the work the
+        function needs. A call of more than 65,535 reps counts all its
+        launches (one instance: that of the first)."""
+        plan = self.kernel_plan(min(reps, _GRID_YZ), num_tiles)
+        rows = plan["rows"]
+        chunks = plan["bin_chunks"]
         active = self.used / chunks                  # bins a block owns
         blocks = reps * num_tiles * (self.tile // rows) * chunks
+        if plan["general"]:
+            return {"pattern": f"mc_ofdm_tdl_general_kernelILb0ELb"
+                               f"{int(self.bf16)}EE",
+                    "threads": round(blocks * active), "loops": 6,
+                    "loop_trips": [self.TL / active, self.rays,
+                                   self.taps * rows / active,
+                                   self.taps / plan["chunk_taps"],
+                                   rows / plan["group_rows"], 1]}
+        ktaps = 16 if self.taps <= 16 else 32
         return {"pattern": f"mc_ofdm_tdl_kernelILi{ktaps}ELb0ELb"
                            f"{int(self.bf16)}EE",
                 "threads": round(blocks * active), "loops": 4,
@@ -491,7 +562,16 @@ class MonteCarloOfdmTdl:
         return (self.g_tap_re.data_ptr(), self.g_tap_im.data_ptr(),
                 out.data_ptr(), reps, num_tiles, self.tile, self.used,
                 self.TL, self.taps, self.M, self.C, amp, self.qam_scale,
-                1.0 / self.qam_scale, int(self.bf16))
+                1.0 / self.qam_scale, int(self.bf16),
+                self.g_tap_pairs.data_ptr())
+
+    def _scratch(self, lib, reps: int, num_tiles: int, device):
+        """The general form's scratch buffer for one launch whose state is
+        past shared memory, or None."""
+        from . import _build
+        nbytes = self.kernel_plan(reps, num_tiles, lib)["scratch_bytes"]
+        return (_build.state_buffer(nbytes, device, "mc_ofdm_tdl")
+                if nbytes else None)
 
     def _launch_prng(self, reps: int, num_tiles: int, seed: int, amp: float,
                      start: int) -> torch.Tensor:
@@ -499,12 +579,16 @@ class MonteCarloOfdmTdl:
         lib = _build.load()
         out = torch.zeros((reps, num_tiles), dtype=torch.int32,
                           device=self.device)
-        g_re, g_im, o, *geom = self._common_args(out, reps, num_tiles, amp)
-        rc = lib.mc_ofdm_tdl_prng(
-            g_re, g_im, o, *geom, seed & 0xFFFFFFFF, start,
-            torch.cuda.current_stream(self.device).cuda_stream)
-        _build.check(rc, "mc_ofdm_tdl_prng")
-        self.launch_count += 1
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        for r0, r1 in launch_slices(reps):
+            scratch = self._scratch(lib, r1 - r0, num_tiles, self.device)
+            g_re, g_im, o, *geom = self._common_args(out[r0:r1], r1 - r0,
+                                                     num_tiles, amp)
+            rc = lib.mc_ofdm_tdl_prng(
+                g_re, g_im, o, *geom, seed & 0xFFFFFFFF, start + r0,
+                None if scratch is None else scratch.data_ptr(), stream)
+            _build.check(rc, "mc_ofdm_tdl_prng")
+            self.launch_count += 1
         return out
 
     def _launch_inject(self, reps: int, num_tiles: int, bits,
@@ -517,14 +601,18 @@ class MonteCarloOfdmTdl:
         lib = _build.load()
         out = torch.zeros((reps, num_tiles), dtype=torch.int32,
                           device=pb.device)
-        g_re, g_im, o, *geom = self._common_args(out, reps, num_tiles, amp)
-        rc = lib.mc_ofdm_tdl_inject(
-            g_re, g_im, pb.data_ptr(), db.data_ptr(), n1.data_ptr(),
-            n2.data_ptr(), o, *geom, pb.stride(0), pb.stride(1),
-            db.stride(0), db.stride(1),
-            torch.cuda.current_stream(pb.device).cuda_stream)
-        _build.check(rc, "mc_ofdm_tdl_inject")
-        self.launch_count += 1
+        stream = torch.cuda.current_stream(pb.device).cuda_stream
+        for r0, r1 in launch_slices(reps):
+            scratch = self._scratch(lib, r1 - r0, num_tiles, pb.device)
+            g_re, g_im, o, *geom = self._common_args(out[r0:r1], r1 - r0,
+                                                     num_tiles, amp)
+            rc = lib.mc_ofdm_tdl_inject(
+                g_re, g_im, pb[r0:r1].data_ptr(), db[r0:r1].data_ptr(),
+                n1[r0:r1].data_ptr(), n2[r0:r1].data_ptr(), o, *geom,
+                pb.stride(0), pb.stride(1), db.stride(0), db.stride(1),
+                None if scratch is None else scratch.data_ptr(), stream)
+            _build.check(rc, "mc_ofdm_tdl_inject")
+            self.launch_count += 1
         return out
 
 

@@ -146,15 +146,17 @@ def phase_stream_bits(seed: int, attempts: torch.Tensor,
 
 
 def symbol_stream_bits(seed: int, attempts: torch.Tensor, num_tiles: int,
-                       tile: int, used: int
+                       tile: int, used: int, first_tile: int = 0
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Data, real-noise and imaginary-noise bits, each (reps,
-    num_tiles * tile, used) int32, for each absolute attempt in the 1-D
-    int64 tensor ``attempts``."""
+    num_tiles * tile, used) int32, of tiles ``[first_tile, first_tile +
+    num_tiles)`` for each absolute attempt in the 1-D int64 tensor
+    ``attempts``."""
     dev = attempts.device
     lo, hi = _attempt_words(attempts[:, None, None])
     su = torch.arange(tile * used, dtype=torch.int64, device=dev)
-    tiles = torch.arange(num_tiles, dtype=torch.int64, device=dev)
+    tiles = torch.arange(first_tile, first_tile + num_tiles,
+                         dtype=torch.int64, device=dev)
     x0, x1, x2, _ = philox4x32_10(su[None, None, :], tiles[None, :, None],
                                   lo, hi, int(seed), 1)
     shape = (attempts.shape[0], num_tiles * tile, used)

@@ -84,6 +84,9 @@ _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _TARGET = re.compile(r"`\((\.L_x_\d+)\)|\b0x([0-9a-f]+)\b")
 _ERFINV_SPLIT = re.compile(r"(P\d), PT, R\d+, -8\.19999980")
 _SLOW_PATH_MAX = 12       # instructions between a range check and its join
+# instructions from erfinvf's range check to its branch (more where the
+# compiler interleaves several symbols' epilogues)
+_ERFINV_BRANCH_WINDOW = 24
 
 
 def pipe(op: str) -> str:
@@ -266,8 +269,10 @@ def pipe_counts(sass: str, loop_trips: Union[float, Sequence[float]] = 1,
                 scale(nxt[i.addr], i.target, 0.0)
         m = _ERFINV_SPLIT.search(i.text) if i.op == "FSETP" else None
         if m:
-            br = next((j for j in body[k + 1:k + 4] if j.op == "BRA"), None)
-            if br is None or br.pred != "@!" + m.group(1):
+            br = next((j for j in body[k + 1:k + _ERFINV_BRANCH_WINDOW]
+                       if j.op == "BRA" and j.pred == "@!" + m.group(1)),
+                      None)
+            if br is None:
                 raise ValueError(f"erfinvf split at {i.addr:#x} without "
                                  f"its branch")
             prev = [a for a in by_addr if a < br.target][-1]

@@ -14,7 +14,8 @@ inputs.
 * On the card (``cuda`` marker): the CUDA kernel against its plain version,
   at the flagship geometry and at rows of 4,520 B and tap counts above 16;
   the kernel's own plan (``kernel_plan``, read from the built library's
-  ``block_fir_plan``: its instance by tap count, row buffers, warps, grid).
+  ``block_fir_plan``: its form, instance by tap count, row buffers, warps,
+  grid), and the forms past the first one's limits.
 """
 
 import jax.numpy as jnp
@@ -129,20 +130,37 @@ def test_kernel_plan_at_the_flagship_geometry():
 
 @pytest.mark.cuda
 def test_kernel_plan_shrinks_to_what_fits_and_raises_beyond():
-    """On the card: a long span takes one buffer a warp and one warp a
-    block once two do not fit in 227 KB; a span whose one buffer does not
-    fit raises, as do more than 64 taps and a block above 6,144."""
+    """On the card: a row whose buffer does not fit four warps of two is
+    cut into segments, with two warps (then one, then one buffer) where
+    the halo leaves no room; a span whose one 32-output segment does not
+    fit 227 KB takes the direct form. Beyond the first form's limits
+    (more than 64 taps, a block above 6,144, a span of 20,001) the
+    kernel plans and runs against its plain version; only arguments that
+    are no FIR raise."""
     _needs_card()
     plan = fir.kernel_plan(10, 6144, (0, 5000))
-    assert (plan["stages"], plan["warps"]) == (1, 1)
+    assert plan["form"] == "segments"
+    assert (plan["stages"], plan["warps"]) == (2, 2)
     assert plan["smem_bytes"] <= 232448
     assert fir.kernel_plan(10, 6144, (0, 300))["stages"] == 2
-    with pytest.raises(ValueError, match="span 20001"):
-        fir.kernel_plan(10, 6144, (0, 20000))
-    with pytest.raises(ValueError, match="65 taps"):
-        fir.kernel_plan(10, 64, tuple(range(65)))
-    with pytest.raises(ValueError, match="block_size 6145"):
-        fir.kernel_plan(10, 6145, (0, 1))
+    long_span = fir.kernel_plan(10, 6144, (0, 20000))
+    assert long_span["form"] == "segments"
+    assert (long_span["stages"], long_span["warps"]) == (1, 1)
+    assert fir.kernel_plan(3, 100, (0, 40000))["form"] == "direct"
+    assert fir.kernel_plan(10, 64, tuple(range(65)))["form"] == "segments"
+    assert fir.kernel_plan(10, 6145, (0, 1))["form"] == "segments"
+    rng = np.random.default_rng(3)
+    for rows, block, offsets in ((10, 6144, [0, 20000]),
+                                 (10, 64, list(range(65))),
+                                 (10, 6145, [0, 1]), (3, 100, [0, 40000])):
+        x = torch.from_numpy(_c(rng, rows, block)).cuda()
+        taps = torch.from_numpy(_c(rng, rows, len(offsets))).cuda()
+        got = fir.block_fir(x, taps, offsets, block)
+        want = fir.block_fir_reference(x, taps, offsets, block)
+        assert float((got - want).abs().max()) <= \
+            1e-5 * float(want.abs().max())
+    with pytest.raises(ValueError, match="no plan"):
+        fir.kernel_plan(10, 0, (0, 1))
 
 
 def _profile(rows, chunks, k_chunks, threads):

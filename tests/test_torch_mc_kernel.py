@@ -25,7 +25,8 @@ from pyphysim_tpu.channels.fading_generators import \
 from pyphysim_tpu.modulators import OFDM as J_OFDM  # noqa: E402
 from pyphysim_tpu.ops.mc_pallas import MonteCarloOfdmTdl as J_MC  # noqa: E402
 from pyphysim_tpu_torch.channels import (COST259_TUx,  # noqa: E402
-                                         JakesSampleGenerator, TdlChannel)
+                                         JakesSampleGenerator, TdlChannel,
+                                         TdlChannelProfile)
 from pyphysim_tpu_torch.modulators import OFDM  # noqa: E402
 from pyphysim_tpu_torch.ops.mc_kernel import (MonteCarloOfdmTdl,  # noqa: E402
                                               from_jax_arrays)
@@ -205,10 +206,27 @@ def test_unknown_matmul_dtype_raises(dtype):
         _port_mc(16, matmul_dtype=dtype)
 
 
-def test_prng_kernel_profile():
+class _FastPlanLib:
+    """A stand-in library whose ``mc_ofdm_tdl_plan`` plans the flagship's
+    fast instance (64 rows a block, or the tile; one block of 320 threads
+    across the 300 bins), and records what it was asked."""
+
+    def __init__(self):
+        self.asked = []
+
+    def mc_ofdm_tdl_plan(self, reps, num_tiles, tile, used, TL, T, out):
+        self.asked.append((reps, num_tiles, tile, used, TL, T))
+        out[1], out[2], out[3] = min(64, tile), 1, 320
+        return 0
+
+
+def test_prng_kernel_profile(monkeypatch):
     """One thread per used bin and block (idle lanes left out) and the
     trips of the kernel's four loops, at the flagship chunk and at a tile
-    smaller than a block's rows."""
+    smaller than a block's rows, from the plan the library makes."""
+    from pyphysim_tpu_torch.ops import _build
+    lib = _FastPlanLib()
+    monkeypatch.setattr(_build, "load", lambda geo=None: lib)
     mc = _port_mc(1024, matmul_dtype="bfloat16")
     assert mc.prng_kernel_profile(32, 4) == {
         "pattern": "mc_ofdm_tdl_kernelILi16ELb0ELb1EE",
@@ -218,6 +236,8 @@ def test_prng_kernel_profile():
     assert small["pattern"] == "mc_ofdm_tdl_kernelILi16ELb0ELb0EE"
     assert small["threads"] == 2 * 2 * 300
     assert small["loop_trips"] == [256 / 300, 16, 16 * 16 / 300, 16]
+    assert lib.asked == [(32, 4, 1024, 300, 256, 16), (2, 2, 16, 300, 256,
+                                                       16)]
 
 
 def test_extreme_noise_bits_stay_finite():
@@ -294,14 +314,29 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _exponential_mc(tile, device, dtype):
+    """51 taps (the IEEE 802.11 exponential profile at Trms = 250 ns, taps
+    every 50 ns) of 32 rays: TL = 1,632, the kernel's general form."""
+    k = np.arange(51)
+    profile = TdlChannelProfile(10 * np.log10(np.exp(-k / 5.0)), k * TS)
+    jakes = JakesSampleGenerator(Fd=30.0, Ts=TS, L=32, device=device)
+    return MonteCarloOfdmTdl(OFDM(512, 52, 300, device=device),
+                             TdlChannel(jakes, profile), M=16, tile=tile,
+                             matmul_dtype=dtype, device=device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tile", [256, 16])
-def test_cuda_kernel_matches_plain_version(cuda_device, tile, dtype):
+@pytest.mark.parametrize("tile,taps", [(256, 16), (16, 16), (256, 51),
+                                       (16, 51)])
+def test_cuda_kernel_matches_plain_version(cuda_device, tile, taps, dtype):
     """Kernel vs plain version on the card, inject and PRNG mode, at
     |diff| <= 2e-4 of a cell's bits (the JAX test's 16 in 76,800), in both
-    channel-product types; tile 16 is smaller than a block's 64 rows."""
-    mc = _port_mc(tile, cuda_device, dtype)
+    channel-product types; tile 16 is smaller than a block's 64 rows; 51
+    taps of 32 rays (TL = 1,632) run the general form."""
+    mc = (_port_mc(tile, cuda_device, dtype) if taps == 16
+          else _exponential_mc(tile, cuda_device, dtype))
+    assert mc.kernel_plan(2, 2)["general"] == (taps > 32)
     cell_bits = mc.tile * mc.used * mc.bits_per_symbol
     bits = [torch.from_numpy(b.view(np.int32)).to(cuda_device)
             for b in _bits(8, mc, 2, 2)]
@@ -313,3 +348,48 @@ def test_cuda_kernel_matches_plain_version(cuda_device, tile, dtype):
     want = mc.prng_reference(2, 2, 5, mc.amp(10 ** 1.5), 0)
     assert (got - want).abs().max().item() <= 2e-4 * cell_bits
     assert mc.launch_count == 2
+
+
+def _synthetic_mc(taps, rays, device, tile=8, seed=0):
+    """A builder of ``taps`` taps of ``rays`` rays each over the flagship's
+    300 bins: G's rows random and repeated over a tap's rays, the
+    flagship's Doppler coefficient, unit noise gain."""
+    rng = np.random.default_rng(seed)
+    scale = np.sqrt(1.0 / (taps * rays))
+    g = rng.standard_normal((2, taps, 1, 300)) * scale
+    g = np.repeat(g, rays, axis=2).reshape(2, taps * rays, 300)
+    mc = MonteCarloOfdmTdl.__new__(MonteCarloOfdmTdl)
+    mc._set_state(g[0].astype(np.float32), g[1].astype(np.float32),
+                  _port_mc(16).C, 1.0, 16, tile, 300, rays, torch.float32,
+                  device)
+    return mc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps,rays,tile,rows,where", [
+    (200, 2, 64, 64, "shared"),    # h of 64 rows: half of shared memory
+    (2000, 1, 8, 4, "shared"),     # rows shrink to 4
+    (16, 4000, 8, 8, "scratch"),   # 64,000 pairs: the slot past 227 KB
+])
+def test_cuda_general_form_at_wide_shapes(cuda_device, taps, rays, tile,
+                                          rows, where):
+    """The general form where its slot opts in past 48 KB of shared
+    memory, where its rows shrink, and where the slot goes to the scratch
+    buffer: inject and PRNG mode against the plain version at 2e-4 of a
+    cell's bits."""
+    mc = _synthetic_mc(taps, rays, cuda_device, tile)
+    plan = mc.kernel_plan(2, 2)
+    assert plan["general"] == 1 and plan["rows"] == rows
+    assert (plan["scratch_bytes"] > 0) == (where == "scratch")
+    assert plan["smem_bytes"] > 48 * 1024 or where == "scratch"
+    cell_bits = mc.tile * mc.used * mc.bits_per_symbol
+    bits = [torch.from_numpy(b.view(np.int32)).to(cuda_device)
+            for b in _bits(9, mc, 2, 2)]
+    amp = mc.amp(10 ** 1.5)
+    got = mc.build_inject(2, 2)(*bits, amp)
+    want = mc.simulate_block_reference(*bits, amp)
+    assert int(want.sum()) > 0
+    assert (got - want).abs().max().item() <= 2e-4 * cell_bits
+    got = mc.build(2, 2)(5, 10 ** 1.5, 0)
+    want = mc.prng_reference(2, 2, 5, amp, 0)
+    assert (got - want).abs().max().item() <= 2e-4 * cell_bits
