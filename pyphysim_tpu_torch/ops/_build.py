@@ -52,16 +52,19 @@ NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _vp, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_float)
 _SIGNATURES = {
-    "mc_ofdm_tdl_plan": [_i, _i, _i, _i, _i, _i, _vp],
+    "mc_ofdm_tdl_plan": [_i, _i, _i, _i, _i, _i, _i, _vp],
+    "mc_ofdm_tdl_launch_info": [_i, _i, _i, _i, _i, _i, _i, _i, _vp],
     "mc_ofdm_tdl_prng": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _f,
-                         _f, _f, _i, _vp, ctypes.c_uint, _ll, _vp, _vp],
+                         _f, _f, _i, _vp, ctypes.c_uint, _ll, _i, _i, _vp,
+                         _vp],
     "mc_ofdm_tdl_inject": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                            _i, _i, _i, _f, _f, _f, _f, _i, _vp, _ll, _ll, _ll,
-                           _ll, _vp, _vp],
+                           _ll, _i, _i, _vp, _vp],
     "philox_fill": [_vp, _vp, _vp, _ll, _vp],
     "philox_stream_fill": [_vp, _ll, _ll, _ll, _i, ctypes.c_uint, _vp, _vp],
     "block_fir": [_vp, _vp, _vp, _i, _i, _i, _vp, _vp, _vp],
-    "block_fir_plan": [_i, _i, _i, _i, _vp],
+    "block_fir_plan": [_i, _i, _i, _i, _i, _vp],
+    "block_fir_launch_info": [_i, _i, _i, _i, _i, _vp],
     "mc_alamouti_prng": [_vp, _i, _i, _i, _i, _f, ctypes.c_uint, _ll, _vp],
     "mc_alamouti_inject": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                            _f, _ll, _ll, _ll, _ll, _vp],

@@ -46,10 +46,11 @@
 //     loads), then the epilogue; one Philox call per symbol;
 //   * a warp-shuffle + shared-memory reduction and one integer atomicAdd per
 //     block.
-// These instances take up to 32 taps, 1,024 (tap, ray) pairs and 65,535
-// tiles a launch; every other shape the TPU kernel takes runs in the
-// general form below (mc_ofdm_tdl_general_kernel), and the host cuts a
-// call of more than 65,535 reps into launches (ops/mc_kernel.py).
+// These instances take up to 32 taps and 1,024 (tap, ray) pairs; every
+// other shape the TPU kernel takes runs in the general form below
+// (mc_ofdm_tdl_general_kernel). The host cuts a call of more than 65,535
+// reps or tiles into launches of at most that many of each
+// (ops/mc_kernel.py launch_slices), each from its first tile (tile0).
 // Phases: the argument t C cos(phi) + psi reaches ~28 rad at t = 4096, so it
 // is reduced by hand (Cody-Waite, 2 pi in two parts) to [-pi, pi], where
 // __sincosf is within 2^-21.4; the phase's own f32 rounding at t = 4096 is
@@ -60,6 +61,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch_info.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -90,9 +92,17 @@ struct Params {
   long long d_rep_stride;
   long long d_row_stride;
   int* out;  // (reps, num_tiles), zeroed by the wrapper
-  int num_tiles, tile, used, TL, T, L;
+  int num_tiles;   // tiles of the call: a rep's row of out
+  int tile, used, TL, T, L;
   int rows_log2;   // log2 of the rows of a block (make_plan's)
   int bin_chunks;  // blocks across the used bins
+  // this launch's first tile. Where it sits moves both forms' code: after
+  // num_tiles the fast instance issues more (17,598 SASS a thread at the
+  // flagship against 17,144 at the end of the struct), at the end the
+  // general form runs 2-5 % slower (bin/tune_mc_kernel.py
+  // LAYOUT_VARIANTS on an H100); here the fast instance runs fastest of
+  // the three places and the general form within 0.5 % of its fastest.
+  int tile0;
   int M, Lq, half_bits;
   float C, amp, qam_scale, inv_scale;
   uint32_t seed;
@@ -218,7 +228,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int chunk = blockIdx.x - row_block * p.bin_chunks;
   const int nrows = 1 << p.rows_log2;
   const int row0 = row_block * nrows;
-  const int tile_idx = blockIdx.y;
+  const int tile_idx = p.tile0 + blockIdx.y;
   const int rep = blockIdx.z;
   const unsigned long long attempt =
       (unsigned long long)(p.start + (long long)rep);
@@ -323,51 +333,104 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// The general form: any number of taps, of (tap, ray) pairs and of reps
-// and tiles. The fast instances above hold G_tap (at most 32 taps) in
-// registers, the pairs in a static 8 KB and index the grid by (rows and
-// bins, tile, rep); this form keeps their arithmetic in the same order (a
-// tap's rays summed l = 0..L-1, the product's four partial sums over the
-// taps in order, the same epilogue), so at 32 taps or fewer it gives their
-// counts bit for bit. What changes:
-//   * the taps go through in chunks of kChunk: a thread holds one chunk of
-//     G_tap in registers and kGroup rows' partial sums, so the product
-//     reloads G_tap (from L1) once a chunk and kGroup rows;
-//   * the pairs' rates and phases and h[row, tap] live in a slot of
-//     dynamic shared memory sized by TL and T (the rows a block holds
-//     shrink as T grows), or, past 227 KB, in a slot of a device scratch
-//     buffer per resident block (General::scratch);
-//   * the grid is one dimension over (rep, tile, rows, bins) with 64-bit
-//     index math, each block walking blocks of that space.
-// What bounds it: instruction issue, as the fast form; at 51 taps of 32
-// rays the product's 256 FFMA a symbol (64 padded taps) and its G_tap
-// reloads set ~645 instructions a symbol against the fast form's ~268 at 16
-// taps (PERF.md).
-constexpr int kChunk = 32;            // taps of G_tap in registers at once
-constexpr int kGroup = 4;             // rows whose partial sums a thread holds
+// The general form: more than 32 taps or more than 1,024 (tap, ray) pairs.
+// The fast instances above hold G_tap (at most 32 taps) in registers and
+// the pairs in a static 8 KB; this form keeps their arithmetic in the same
+// order (a tap's rays summed l = 0..L-1, the product's four partial sums
+// over the taps in order, the same epilogue), so at 32 taps or fewer it
+// gives their counts bit for bit. What bounds it on the card: instruction
+// issue, as the fast form (at 51 taps of 32 rays ~2.2x the fast form's
+// instructions a symbol: the product is 204 FFMA a symbol, not 64). The
+// first general form reached 42 % of that bound: it padded the taps to 32
+// (F1's 51 to 64: a fifth of its product on zeros), read h and the pairs
+// through generic loads (its slot could be global), reloaded 32 taps of
+// G_tap from L1 / L2 every 4 rows with the latency exposed, and ran one
+// block of 10 warps a SM between barriers. This form:
+//   * pads the taps to a multiple of kChunk (8), the taps of G_tap it
+//     holds in registers at once (bin/tune_mc_kernel.py measured 8
+//     fastest: 16 or 32 taps a chunk held more registers for no fewer
+//     stalls);
+//   * holds kGroup rows' partial sums a thread, so one G_tap chunk feeds
+//     4 * kGroup * kChunk FFMA and its reload (from L1: G_tap's 134 KB at
+//     51 taps sit beside two blocks' slots) waits behind other warps';
+//   * has an instance for a slot in shared memory (kScratch false: every
+//     read of h and of the pairs is an LDS) beside the scratch-buffer one
+//     for slots past 227 KB (General::scratch);
+//   * caps a block at kGenThreads bins and its registers by
+//     __launch_bounds__ for kGenMinBlocks blocks a SM (94 registers, no
+//     spill), and shrinks the rows a block until h takes a quarter of a
+//     SM's shared memory, so one block's tap sums (the XU pipe: sincos,
+//     rint) overlap another's product (the FMA pipe); one block a SM ran
+//     34 % slower;
+//   * folds (rep, tile, rows, bins) into a one-dimensional grid with
+//     64-bit index math, each block walking blocks of that space.
+// A call of more than 65,535 reps or tiles is cut into launches on the host
+// (ops/mc_kernel.py launch_slices), each from its first tile (Params::
+// tile0), so tiles past the fast instances' grid y run those instances.
+constexpr int kChunk = 8;            // taps of G_tap in registers at once
+constexpr int kGroup = 8;            // rows whose partial sums a thread holds
+constexpr int kGenThreads = 320;     // bins a block of the general form
+constexpr int kGenMinBlocks = 2;     // resident blocks a SM (registers)
 constexpr long long kMaxSmem = 232448 - 1024;  // a block's dynamic bytes
-                                      // (227 KB less the static reduction)
+                                     // (227 KB less the static reduction)
 constexpr long long kMaxGrid = 1 << 24;       // blocks launched, shared memory
 constexpr int kScratchBlocksPerSm = 4;        // slots a SM, past shared memory
+static_assert(kGroup <= 8 && kChunk % 2 == 0,
+              "a block holds at least 8 rows (a tile's least); a chunk is "
+              "whole float4 pairs of taps");
 
 struct General {
   const float2* g2;        // G_tap as (re, im) pairs, (Tp, used), zero past T
   float* scratch;          // slots of slot_floats each, or null
   long long slot_floats;   // a block's wl, psi (TLe each), then h
-  long long blocks;        // reps * num_tiles * row_blocks * bin_chunks
+  long long blocks;        // reps * tiles * row_blocks * bin_chunks
+  int tiles;               // tiles of this launch, from Params::tile0
   int TLe;                 // TL rounded up to even (h 16-byte aligned)
   int Tp;                  // taps rounded up to kChunk
   int h_stride;            // float2 a row of h: Tp + 2
   int row_blocks;          // tile >> rows_log2
 };
 
-template <bool kInject, bool kBf16>
-__global__ void __launch_bounds__(kMaxThreads)
+// kC taps of G_tap (gp: tap 0 of the chunk at this thread's bin, taps
+// `used` apart) against the rows of h from `h` on (h_stride float2 apart):
+// kGroup rows' four partial sums, two taps a float4 of h, in tap order.
+template <int kC>
+__device__ __forceinline__ void product_chunk(
+    const float2* __restrict__ gp, long long used, const float2* h,
+    int h_stride, float (&ar)[kGroup], float (&br)[kGroup],
+    float (&ai)[kGroup], float (&bi)[kGroup]) {
+  float gr[kC], gi[kC];
+#pragma unroll
+  for (int t = 0; t < kC; ++t) {
+    const float2 gt = __ldg(gp + t * used);
+    gr[t] = gt.x;
+    gi[t] = gt.y;
+  }
+#pragma unroll
+  for (int j = 0; j < kGroup; ++j) {
+    const float4* h4 = reinterpret_cast<const float4*>(h + j * h_stride);
+#pragma unroll
+    for (int q = 0; q < kC / 2; ++q) {
+      const float4 v = h4[q];
+      ar[j] = fmaf(v.x, gr[2 * q], ar[j]);
+      br[j] = fmaf(-v.y, gi[2 * q], br[j]);
+      ai[j] = fmaf(v.x, gi[2 * q], ai[j]);
+      bi[j] = fmaf(v.y, gr[2 * q], bi[j]);
+      ar[j] = fmaf(v.z, gr[2 * q + 1], ar[j]);
+      br[j] = fmaf(-v.w, gi[2 * q + 1], br[j]);
+      ai[j] = fmaf(v.z, gi[2 * q + 1], ai[j]);
+      bi[j] = fmaf(v.w, gr[2 * q + 1], bi[j]);
+    }
+  }
+}
+
+template <bool kInject, bool kBf16, bool kScratch>
+__global__ void __launch_bounds__(kGenThreads, kGenMinBlocks)
     mc_ofdm_tdl_general_kernel(const Params p, const General g) {
   extern __shared__ __align__(16) float smem[];
-  __shared__ int s_warp_sum[kMaxThreads / 32];
-  float* slot = g.scratch ? g.scratch + (long long)blockIdx.x * g.slot_floats
-                          : smem;
+  __shared__ int s_warp_sum[kGenThreads / 32];
+  float* slot =
+      kScratch ? g.scratch + (long long)blockIdx.x * g.slot_floats : smem;
   float* s_wl = slot;
   float* s_psi = slot + g.TLe;
   float2* s_h = reinterpret_cast<float2*>(slot + 2 * g.TLe);
@@ -377,14 +440,14 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 #pragma unroll 1
   for (long long b = blockIdx.x; b < g.blocks; b += gridDim.x) {
-    // b = ((rep * num_tiles + tile) * row_blocks + row_block) * bin_chunks
+    // b = ((rep * tiles + tile) * row_blocks + row_block) * bin_chunks
     //     + chunk
     const int chunk = (int)(b % p.bin_chunks);
     long long q = b / p.bin_chunks;
     const int row_block = (int)(q % g.row_blocks);
     q /= g.row_blocks;
-    const int tile_idx = (int)(q % p.num_tiles);
-    const int rep = (int)(q / p.num_tiles);
+    const int tile_idx = p.tile0 + (int)(q % g.tiles);
+    const int rep = (int)(q / g.tiles);
     const int row0 = row_block * nrows;
     const unsigned long long attempt =
         (unsigned long long)(p.start + (long long)rep);
@@ -436,38 +499,17 @@ __global__ void __launch_bounds__(kMaxThreads)
     int errors = 0;
     const int u = chunk * blockDim.x + threadIdx.x;
     if (u < p.used) {
+      const float2* gu = g.g2 + u;
 #pragma unroll 1
       for (int r0 = 0; r0 < nrows; r0 += kGroup) {
         float ar[kGroup], br[kGroup], ai[kGroup], bi[kGroup];
 #pragma unroll
         for (int j = 0; j < kGroup; ++j) ar[j] = br[j] = ai[j] = bi[j] = 0.f;
+        const float2* h = s_h + r0 * g.h_stride;
 #pragma unroll 1
-        for (int c = 0; c < g.Tp; c += kChunk) {
-          const float2* gp = g.g2 + (size_t)c * p.used + u;
-          float gr[kChunk], gi[kChunk];
-#pragma unroll
-          for (int t = 0; t < kChunk; ++t) {
-            const float2 gt = __ldg(gp + (size_t)t * p.used);
-            gr[t] = gt.x;
-            gi[t] = gt.y;
-          }
-#pragma unroll
-          for (int j = 0; j < kGroup; ++j) {
-            const float4* h4 = reinterpret_cast<const float4*>(
-                s_h + (r0 + j) * g.h_stride + c);
-#pragma unroll
-            for (int q2 = 0; q2 < kChunk / 2; ++q2) {
-              const float4 v = h4[q2];
-              ar[j] = fmaf(v.x, gr[2 * q2], ar[j]);
-              br[j] = fmaf(-v.y, gi[2 * q2], br[j]);
-              ai[j] = fmaf(v.x, gi[2 * q2], ai[j]);
-              bi[j] = fmaf(v.y, gr[2 * q2], bi[j]);
-              ar[j] = fmaf(v.z, gr[2 * q2 + 1], ar[j]);
-              br[j] = fmaf(-v.w, gi[2 * q2 + 1], br[j]);
-              ai[j] = fmaf(v.z, gi[2 * q2 + 1], ai[j]);
-              bi[j] = fmaf(v.w, gr[2 * q2 + 1], bi[j]);
-            }
-          }
+        for (int c = 0; c + kChunk <= g.Tp; c += kChunk) {
+          product_chunk<kChunk>(gu + (long long)c * p.used, p.used, h + c,
+                                g.h_stride, ar, br, ai, bi);
         }
 #pragma unroll
         for (int j = 0; j < kGroup; ++j) {
@@ -537,10 +579,11 @@ Params make_params(const float* g_re, const float* g_im, int* out,
   return p;
 }
 
-// How a call runs (ops/mc_kernel.py kernel_plan reads it): the fast
-// instances (16 or 32 taps) while T <= 32, TL <= kMaxTL and the grid's
-// (rep, tile) fit its y / z dimensions and 32-bit indices; else the
-// general form, its rows a block shrunk until h takes at most half of
+// How a launch runs (ops/mc_kernel.py kernel_plan reads it): the fast
+// instances (16 or 32 taps) while T <= 32 and TL <= kMaxTL (the launch's
+// reps and tiles fit their grid's z / y dimensions and the call's 32-bit
+// indices: the host cuts the call, launch_slices); else the general form,
+// its rows a block shrunk (to kGroup) until h takes at most a quarter of
 // kMaxSmem, its slot in shared memory or, past kMaxSmem, in scratch.
 struct Plan {
   int general, rows_log2, bin_chunks, threads;
@@ -548,39 +591,47 @@ struct Plan {
   General g;
 };
 
-int make_plan(int reps, int num_tiles, int tile, int used, int TL, int T,
-              Plan* pl) {
+int log2_of(int n) {
+  int k = 0;
+  while ((1 << k) < n) ++k;
+  return k;
+}
+
+// reps and tiles: this launch's; num_tiles: the call's (a rep's row of out)
+int make_plan(int reps, int tiles, int tile, int used, int TL, int T,
+              int num_tiles, Plan* pl) {
   // a tile is a power of two >= 8 and T taps hold L rays each (the
   // wrapper checks); anything else is not a call of this kernel
-  if (reps < 1 || num_tiles < 1 || tile < 8 || (tile & (tile - 1)) ||
-      used < 1 || T < 1 || TL < T || TL % T) {
+  if (reps < 1 || tiles < 1 || num_tiles < tiles || tile < 8 ||
+      (tile & (tile - 1)) || used < 1 || T < 1 || TL < T || TL % T ||
+      reps > 65535 || tiles > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   *pl = Plan{};
-  pl->bin_chunks = (used + kMaxThreads - 1) / kMaxThreads;
-  const int per_chunk = (used + pl->bin_chunks - 1) / pl->bin_chunks;
-  pl->threads = ((per_chunk + 31) / 32) * 32;
-  const int rows = tile < kRows ? tile : kRows;
-  while ((1 << pl->rows_log2) < rows) ++pl->rows_log2;
-  pl->general = !(T <= 32 && TL <= kMaxTL && reps <= 65535 &&
-                  num_tiles <= 65535 &&
+  pl->general = !(T <= 32 && TL <= kMaxTL &&
                   (long long)reps * num_tiles <= 0x7fffffffLL &&
                   (long long)num_tiles * tile <= 0x7fffffffLL);
+  const int max_threads = pl->general ? kGenThreads : kMaxThreads;
+  pl->bin_chunks = (used + max_threads - 1) / max_threads;
+  const int per_chunk = (used + pl->bin_chunks - 1) / pl->bin_chunks;
+  pl->threads = ((per_chunk + 31) / 32) * 32;
+  pl->rows_log2 = log2_of(tile < kRows ? tile : kRows);
   if (!pl->general) {
     pl->grid = (long long)(tile >> pl->rows_log2) * pl->bin_chunks;
     return 0;
   }
   General& g = pl->g;
+  g.tiles = tiles;
   g.TLe = (TL + 1) & ~1;
   g.Tp = (T + kChunk - 1) / kChunk * kChunk;
   g.h_stride = g.Tp + 2;
-  while (pl->rows_log2 > 2 &&
-         8LL * g.h_stride << pl->rows_log2 > kMaxSmem / 2) {
+  while (pl->rows_log2 > log2_of(kGroup) &&
+         8LL * g.h_stride << pl->rows_log2 > kMaxSmem / 4) {
     --pl->rows_log2;
   }
   g.row_blocks = tile >> pl->rows_log2;
   g.slot_floats = 2LL * g.TLe + (2LL * g.h_stride << pl->rows_log2);
-  g.blocks = (long long)reps * num_tiles * g.row_blocks * pl->bin_chunks;
+  g.blocks = (long long)reps * tiles * g.row_blocks * pl->bin_chunks;
   const long long slot_bytes = 4 * g.slot_floats;
   if (slot_bytes <= kMaxSmem) {
     pl->smem_bytes = slot_bytes;
@@ -615,31 +666,48 @@ void launch_taps(const Params& p, dim3 grid, int threads, bool inject,
   }
 }
 
-template <bool kInject, bool kBf16>
+// The general form's instance for a launch (the slot in shared memory or
+// in scratch), opted in to kMaxSmem of dynamic shared memory once.
+template <bool kInject, bool kBf16, bool kScratch>
+auto general_instance(bool* opt_rc) {
+  const auto kernel = mc_ofdm_tdl_general_kernel<kInject, kBf16, kScratch>;
+  static cudaError_t opted = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  *opt_rc = opted == cudaSuccess;
+  return kernel;
+}
+
+template <bool kInject, bool kBf16, bool kScratch>
 int launch_general(const Params& p, const Plan& pl, cudaStream_t s) {
-  const auto kernel = mc_ofdm_tdl_general_kernel<kInject, kBf16>;
-  static bool opted = false;      // opted in to kMaxSmem once
-  if (pl.smem_bytes > 48 * 1024 && !opted) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
-    if (rc != cudaSuccess) return (int)rc;
-    opted = true;
-  }
+  bool ok = true;
+  const auto kernel = general_instance<kInject, kBf16, kScratch>(&ok);
+  if (!ok) return (int)cudaErrorInvalidValue;
   kernel<<<(unsigned int)pl.grid, pl.threads, (size_t)pl.smem_bytes, s>>>(
       p, pl.g);
   return 0;
 }
 
-int launch(Params& p, int reps, bool inject, bool bf16, const void* g2,
-           void* scratch, void* stream) {
+template <bool kInject, bool kBf16>
+int launch_general(const Params& p, const Plan& pl, cudaStream_t s) {
+  return pl.scratch_bytes > 0 ? launch_general<kInject, kBf16, true>(p, pl, s)
+                              : launch_general<kInject, kBf16, false>(p, pl,
+                                                                      s);
+}
+
+int launch(Params& p, int reps, int tiles, bool inject, bool bf16,
+           const void* g2, void* scratch, void* stream) {
   Plan pl;
-  int rc = make_plan(reps, p.num_tiles, p.tile, p.used, p.TL, p.T, &pl);
+  int rc = make_plan(reps, tiles, p.tile, p.used, p.TL, p.T, p.num_tiles,
+                     &pl);
   if (rc != 0) return rc;
+  if (p.tile0 < 0 || p.tile0 > p.num_tiles - tiles) {
+    return (int)cudaErrorInvalidValue;
+  }
   p.rows_log2 = pl.rows_log2;
   p.bin_chunks = pl.bin_chunks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!pl.general) {
-    const dim3 grid((unsigned int)pl.grid, p.num_tiles, reps);
+    const dim3 grid((unsigned int)pl.grid, tiles, reps);
     if (p.T <= 16) {
       launch_taps<16>(p, grid, pl.threads, inject, bf16, s);
     } else {
@@ -662,15 +730,17 @@ int launch(Params& p, int reps, bool inject, bool bf16, const void* g2,
 
 }  // namespace
 
-// The plan of a call at these sizes (make_plan) as 12 int64: general form
-// (0 / 1), rows a block, blocks across the bins, threads a block, dynamic
+// The plan of one launch (make_plan: reps and tiles of the launch, at
+// most 65,535 each, num_tiles the call's) as 12 int64: general form (0 /
+// 1), rows a block, blocks across the bins, threads a block, dynamic
 // shared bytes, scratch bytes (0: the slot is in shared memory), blocks
-// launched, blocks of the call, taps rounded to kChunk, floats a slot,
+// launched, blocks of the launch, taps rounded to kChunk, floats a slot,
 // kChunk, kGroup.
-extern "C" int mc_ofdm_tdl_plan(int reps, int num_tiles, int tile, int used,
-                                int TL, int T, long long* out) {
+extern "C" int mc_ofdm_tdl_plan(int reps, int tiles, int tile, int used,
+                                int TL, int T, int num_tiles,
+                                long long* out) {
   Plan pl;
-  const int rc = make_plan(reps, num_tiles, tile, used, TL, T, &pl);
+  const int rc = make_plan(reps, tiles, tile, used, TL, T, num_tiles, &pl);
   if (rc != 0) return rc;
   const long long v[12] = {pl.general,       1LL << pl.rows_log2,
                            pl.bin_chunks,    pl.threads,
@@ -682,38 +752,81 @@ extern "C" int mc_ofdm_tdl_plan(int reps, int num_tiles, int tile, int used,
   return 0;
 }
 
+// The PRNG-mode instance that launch runs (bf16: the product type) as 4
+// ints: registers and local (spill) bytes a thread, static shared bytes,
+// resident blocks a SM at the plan's threads and dynamic shared bytes.
+extern "C" int mc_ofdm_tdl_launch_info(int reps, int tiles, int tile,
+                                       int used, int TL, int T, int num_tiles,
+                                       int bf16, int* out) {
+  Plan pl;
+  const int rc = make_plan(reps, tiles, tile, used, TL, T, num_tiles, &pl);
+  if (rc != 0) return rc;
+  bool ok = true;
+  if (!pl.general) {
+    if (T <= 16) {
+      return bf16 ? instance_info(mc_ofdm_tdl_kernel<16, false, true>,
+                                  pl.threads, 0, out)
+                  : instance_info(mc_ofdm_tdl_kernel<16, false, false>,
+                                  pl.threads, 0, out);
+    }
+    return bf16 ? instance_info(mc_ofdm_tdl_kernel<32, false, true>,
+                                pl.threads, 0, out)
+                : instance_info(mc_ofdm_tdl_kernel<32, false, false>,
+                                pl.threads, 0, out);
+  }
+  const int threads = pl.threads;
+  const long long smem = pl.smem_bytes;
+  int r;
+  if (pl.scratch_bytes > 0) {
+    r = bf16 ? instance_info(general_instance<false, true, true>(&ok),
+                             threads, smem, out)
+             : instance_info(general_instance<false, false, true>(&ok),
+                             threads, smem, out);
+  } else {
+    r = bf16 ? instance_info(general_instance<false, true, false>(&ok),
+                             threads, smem, out)
+             : instance_info(general_instance<false, false, false>(&ok),
+                             threads, smem, out);
+  }
+  return ok ? r : (int)cudaErrorInvalidValue;
+}
+
 // In-kernel Philox bits (the counterpart of _make_prng_call): rep r of this
-// call is the absolute attempt start + r of the stream keyed by seed. G_tap
-// is (T, used); the TL = T * L (tap, ray) pairs draw their rays. g2: G_tap
-// as (re, im) pairs, (T rounded up to 32, used) with zero rows past T, which
-// the general form reads; scratch: a device buffer of mc_ofdm_tdl_plan's
-// scratch bytes where that is not 0.
+// launch is the absolute attempt start + r of the stream keyed by seed, and
+// its tiles [tile0, tile0 + tiles) of the call's num_tiles (out is (reps,
+// num_tiles)). G_tap is (T, used); the TL = T * L (tap, ray) pairs draw
+// their rays. g2: G_tap as (re, im) pairs, (T rounded up to kChunk, used)
+// with zero rows past T, which the general form reads; scratch: a device
+// buffer of mc_ofdm_tdl_plan's scratch bytes where that is not 0.
 extern "C" int mc_ofdm_tdl_prng(const void* g_re, const void* g_im, void* out,
                                 int reps, int num_tiles, int tile, int used,
                                 int TL, int T, int M, float C, float amp,
                                 float qam_scale, float inv_scale, int bf16,
                                 const void* g2, unsigned int seed,
-                                long long start, void* scratch,
-                                void* stream) {
+                                long long start, int tile0, int tiles,
+                                void* scratch, void* stream) {
   Params p = make_params(static_cast<const float*>(g_re),
                          static_cast<const float*>(g_im),
                          static_cast<int*>(out), num_tiles, tile, used, TL,
                          T, M, C, amp, qam_scale, inv_scale);
   p.seed = seed;
   p.start = start;
-  return launch(p, reps, false, bf16 != 0, g2, scratch, stream);
+  p.tile0 = tile0;
+  return launch(p, reps, tiles, false, bf16 != 0, g2, scratch, stream);
 }
 
 // Bits read from int32 device tensors in the JAX layout (the counterpart of
 // _make_inject_call): phase bits (reps, >= 2, >= TL), data / noise bits
-// (reps, num_tiles * tile, >= used); only bins u < used are counted.
+// (reps, num_tiles * tile, >= used), of which this launch reads tiles
+// [tile0, tile0 + tiles); only bins u < used are counted.
 extern "C" int mc_ofdm_tdl_inject(
     const void* g_re, const void* g_im, const void* pb, const void* db,
     const void* n1, const void* n2, void* out, int reps, int num_tiles,
     int tile, int used, int TL, int T, int M, float C, float amp,
     float qam_scale, float inv_scale, int bf16, const void* g2,
     long long pb_rep_stride, long long pb_row_stride, long long d_rep_stride,
-    long long d_row_stride, void* scratch, void* stream) {
+    long long d_row_stride, int tile0, int tiles, void* scratch,
+    void* stream) {
   Params p = make_params(static_cast<const float*>(g_re),
                          static_cast<const float*>(g_im),
                          static_cast<int*>(out), num_tiles, tile, used, TL,
@@ -726,7 +839,8 @@ extern "C" int mc_ofdm_tdl_inject(
   p.pb_row_stride = pb_row_stride;
   p.d_rep_stride = d_rep_stride;
   p.d_row_stride = d_row_stride;
-  return launch(p, reps, true, bf16 != 0, g2, scratch, stream);
+  p.tile0 = tile0;
+  return launch(p, reps, tiles, true, bf16 != 0, g2, scratch, stream);
 }
 
 // Philox4x32-10 of n counters (n x 4 words) under one key (2 words), all

@@ -34,7 +34,7 @@ import torch
 from .sparse_dft import sparse_dft
 
 __all__ = ["block_fir", "block_fir_reference", "block_fir_fft",
-           "kernel_plan", "kernel_profile", "loop_trips"]
+           "kernel_plan", "kernel_profile", "launch_info", "loop_trips"]
 
 # the kernel's forms (block_fir.cu make_plan): a whole row in a buffer with
 # the taps unrolled (up to 64), a row cut into segments, one thread an
@@ -42,7 +42,11 @@ __all__ = ["block_fir", "block_fir_reference", "block_fir_fft",
 _FORMS = ("rows", "segments", "direct")
 _PLAN_KEYS = ("tap_bound", "full", "stages", "warps", "row0",
               "stage_elements", "chunks", "out_len", "smem_bytes", "blocks",
-              "rows_per_warp", "kChunks", "form", "segment", "segments")
+              "rows_per_warp", "kChunks", "form", "segment", "segments",
+              "rows_per_item", "unit", "dense", "items")
+# block_fir_launch_info's values, in order
+_INFO_KEYS = ("registers", "local_bytes", "static_smem_bytes",
+              "blocks_per_sm")
 
 
 def kernel_plan(rows: int, block_size: int, tap_offsets: Sequence[int],
@@ -52,28 +56,49 @@ def kernel_plan(rows: int, block_size: int, tap_offsets: Sequence[int],
     it (the C function ``block_fir_plan`` of the built library, or
     ``plan_fn``, a tuner's variant's): its ``form`` (``"rows"``: the
     whole row in a buffer where T <= 64 and four warps of two such buffers
-    fit 227 KB; else ``"segments"``: the row cut into segments of
-    ``segment`` outputs, its halo staged with each; else, past ~29,000
+    fit 227 KB; else ``"segments"``: block-wide items of
+    ``rows_per_item`` whole rows or of one row's ``segment`` outputs and
+    its halo, ``items`` of them, ``dense`` where the offsets are
+    consecutive, ``unit`` outputs a warp at once; else, past ~28,000
     samples of span, ``"direct"``),
     the rows form's instance (``tap_bound``, the least of 16 / 32 / 64
-    that holds T, and ``full``, T equal to it), the buffers a warp
-    (``stages``), the warps a block, the elements of a buffer, the shared
-    bytes, the grid and the threads launched. Needs the built library, so
-    the card; raises ``ValueError`` for arguments that are no FIR (no
-    taps, an empty block)."""
+    that holds T, and ``full``, T equal to it; ``rows_per_warp`` and
+    ``kChunks``, its rows a warp and chunks a lane, 0 in the other
+    forms), the buffers (stages) a
+    warp or block (``stages``), the warps a block, the elements of a
+    buffer, the shared bytes, the grid and the threads launched. Needs
+    the built library, so the card; raises ``ValueError`` for arguments
+    that are no FIR (no taps, an empty block)."""
     from . import _build
     offsets = _offsets(tuple(tap_offsets))
     out = (ctypes.c_longlong * len(_PLAN_KEYS))()
     fn = plan_fn or _build.load().block_fir_plan
-    if fn(int(rows), int(block_size), len(offsets), offsets[-1], out):
+    if fn(int(rows), int(block_size), len(offsets), offsets[0],
+          offsets[-1], out):
         raise ValueError(f"block_fir: no plan for {len(offsets)} taps, "
                          f"block_size {block_size}, span "
                          f"{offsets[-1] + 1}")
     plan = dict(zip(_PLAN_KEYS, out))
     plan["full"] = bool(plan["full"])
+    plan["dense"] = bool(plan["dense"])
     plan["form"] = _FORMS[plan["form"]]
     plan["threads"] = plan["blocks"] * plan["warps"] * 32
     return plan
+
+
+def launch_info(rows: int, block_size: int,
+                tap_offsets: Sequence[int]) -> Dict[str, int]:
+    """What the instance of :func:`kernel_plan`'s plan runs on this card
+    (``block_fir_launch_info``): registers and local (spill) bytes a
+    thread, static shared bytes and resident blocks a SM at the plan's
+    threads and shared bytes. Needs the card."""
+    from . import _build
+    offsets = _offsets(tuple(tap_offsets))
+    out = (ctypes.c_int * len(_INFO_KEYS))()
+    _build.check(_build.load().block_fir_launch_info(
+        int(rows), int(block_size), len(offsets), offsets[0], offsets[-1],
+        out), "block_fir_launch_info")
+    return dict(zip(_INFO_KEYS, out))
 
 
 @functools.lru_cache(maxsize=64)
@@ -107,7 +132,8 @@ def kernel_profile(rows: int, block_size: int,
     plan = kernel_plan(rows, block_size, tap_offsets)
     pattern = {"rows": (f"block_fir_kernelILi{plan['tap_bound']}"
                         f"ELb{int(plan['full'])}ELi{plan['stages']}EE"),
-               "segments": f"block_fir_seg_kernelILi{plan['stages']}EE",
+               "segments": (f"block_fir_seg_kernelILi{plan['stages']}ELb"
+                            f"{int(plan['dense'])}EE"),
                "direct": "block_fir_direct_kernel"}[plan["form"]]
     return {"pattern": pattern, "threads": plan["threads"], "plan": plan,
             "rows": rows}

@@ -40,10 +40,10 @@ Two bit sources, as in the JAX package:
 The kernel takes every shape the JAX kernel takes
 (:meth:`MonteCarloOfdmTdl.kernel_plan` says how a launch runs): its fast
 instances hold up to 32 taps and 1,024 (tap, ray) pairs, its general
-form any number of either, and a call of more than 65,535 reps is cut
-into launches of at most that many
-(:func:`launch_slices`), each from its own absolute attempt, so bit for
-bit one launch under the Philox contract.
+form any number of either, and a call of more than 65,535 reps or tiles
+is cut into launches of at most that many of each
+(:func:`launch_slices`), each from its own absolute attempt and first
+tile, so bit for bit one launch under the Philox contract.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel, or raises: there is no fallback.
@@ -66,22 +66,26 @@ __all__ = ["MonteCarloOfdmTdl", "from_jax_arrays", "launch_slices"]
 
 _TWO_PI = 6.283185307179586
 _MATMUL_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_CHUNK = 32         # G_tap's taps padded to whole chunks (kChunk there)
-_GRID_YZ = 65535    # reps a launch: the fast form's grid z
+_CHUNK = 8          # G_tap's taps a chunk of the general form, and its
+                    # taps padded to a multiple of this (kChunk)
+_GRID_YZ = 65535    # reps / tiles a launch: the fast form's grid z / y
 # mc_ofdm_tdl_plan's values, in order
 _PLAN_KEYS = ("general", "rows", "bin_chunks", "threads", "smem_bytes",
               "scratch_bytes", "grid", "blocks", "taps_padded",
               "slot_floats", "chunk_taps", "group_rows")
+# mc_ofdm_tdl_launch_info's values, in order
+_INFO_KEYS = ("registers", "local_bytes", "static_smem_bytes",
+              "blocks_per_sm")
 
 
-def launch_slices(reps: int) -> List[Tuple[int, int]]:
-    """The launches one call of ``reps`` reps makes: ``[r0, r1)`` rep ranges
-    of at most 65,535 (the fast form's grid z). Launch ``i`` writes rows
-    ``out[r0:r1]``, reads the inject bits ``[r0:r1]`` and starts at
-    absolute attempt ``start + r0``; every tile of a rep is in its one
-    launch (the general form folds the tiles into its grid)."""
-    return [(r0, min(r0 + _GRID_YZ, reps))
-            for r0 in range(0, reps, _GRID_YZ)]
+def launch_slices(n: int) -> List[Tuple[int, int]]:
+    """The ranges ``[a, b)`` of at most 65,535 (the fast form's grid z and
+    y) that cut ``n`` reps or ``n`` tiles. A call launches once a pair of
+    a rep range and a tile range: launch ``[r0, r1) x [t0, t1)`` writes
+    ``out[r0:r1, t0:t1]``, reads the inject bits of those reps and tiles,
+    starts at absolute attempt ``start + r0`` and at tile ``t0`` (the
+    Philox counters and symbol times of the call's own tiles)."""
+    return [(a, min(a + _GRID_YZ, n)) for a in range(0, n, _GRID_YZ)]
 
 
 def _matmul_dtype(dtype) -> torch.dtype:
@@ -231,8 +235,8 @@ class MonteCarloOfdmTdl:
         self.g_tap_re = self._cast(self.g_re[::rays]).contiguous()
         self.g_tap_im = self._cast(self.g_im[::rays]).contiguous()
         self._g_tap = torch.complex(self.g_tap_re, self.g_tap_im)
-        # the general form's G_tap: (re, im) pairs, zero rows up to a whole
-        # chunk of taps
+        # the general form's G_tap: (re, im) pairs, zero rows up to a
+        # multiple of its chunk
         self.g_tap_pairs = torch.zeros(
             (-(-taps // _CHUNK) * _CHUNK, used, 2), dtype=torch.float32,
             device=self.device)
@@ -504,22 +508,44 @@ class MonteCarloOfdmTdl:
 
     def kernel_plan(self, reps: int, num_tiles: int,
                     lib=None) -> Dict[str, int]:
-        """How one launch of ``reps`` reps (at most 65,535) and
-        ``num_tiles`` tiles runs, as the built library ``lib`` (the
-        prebuilt one by default) plans it on the current device
+        """How the first launch of a call of ``reps`` reps and
+        ``num_tiles`` tiles runs (its slices of at most 65,535 of each,
+        :func:`launch_slices`), as the built library ``lib`` (the prebuilt
+        one by default) plans it on the current device
         (``mc_ofdm_tdl_plan``), keyed by ``_PLAN_KEYS``: the fast instance
-        (``general`` 0) while there are at most 32 taps and 1,024 pairs
-        and the (rep, tile) grid fits; else the general form, its ``rows``
-        a block, its slot of ``slot_floats`` in shared memory
-        (``smem_bytes``) or in a scratch buffer (``scratch_bytes``), G_tap
-        ``chunk_taps`` taps and ``group_rows`` rows at a time."""
+        (``general`` 0) while there are at most 32 taps and 1,024 pairs;
+        else the general form, its ``rows`` a block, its slot of
+        ``slot_floats`` in shared memory (``smem_bytes``) or in a scratch
+        buffer (``scratch_bytes``), the taps padded to ``taps_padded`` (a
+        multiple of ``chunk_taps``), G_tap ``chunk_taps`` taps and
+        ``group_rows`` rows at a time."""
         from . import _build
         lib = _build.load() if lib is None else lib
         out = (ctypes.c_longlong * len(_PLAN_KEYS))()
-        _build.check(lib.mc_ofdm_tdl_plan(reps, num_tiles, self.tile,
-                                          self.used, self.TL, self.taps,
-                                          out), "mc_ofdm_tdl_plan")
+        _build.check(lib.mc_ofdm_tdl_plan(
+            min(reps, _GRID_YZ), min(num_tiles, _GRID_YZ), self.tile,
+            self.used, self.TL, self.taps, num_tiles, out),
+            "mc_ofdm_tdl_plan")
         return dict(zip(_PLAN_KEYS, out))
+
+    def launch_info(self, reps: int, num_tiles: int) -> Dict[str, int]:
+        """What the first PRNG-mode launch of such a call runs on this
+        card (``mc_ofdm_tdl_launch_info``): its instance's registers and
+        local (spill) bytes a thread, static shared bytes and resident
+        blocks a SM, with the plan's threads and dynamic shared bytes.
+        Needs the card."""
+        from . import _build
+        out = (ctypes.c_int * len(_INFO_KEYS))()
+        _build.check(_build.load().mc_ofdm_tdl_launch_info(
+            min(reps, _GRID_YZ), min(num_tiles, _GRID_YZ), self.tile,
+            self.used, self.TL, self.taps, num_tiles, int(self.bf16), out),
+            "mc_ofdm_tdl_launch_info")
+        plan = self.kernel_plan(reps, num_tiles)
+        info = dict(zip(_INFO_KEYS, out))
+        info.update(general=plan["general"], threads=plan["threads"],
+                    smem_bytes=plan["smem_bytes"],
+                    scratch=plan["scratch_bytes"] > 0)
+        return info
 
     def prng_kernel_profile(self, reps: int, num_tiles: int
                             ) -> Dict[str, object]:
@@ -532,18 +558,19 @@ class MonteCarloOfdmTdl:
         The general form (its blocks counted as if each were launched, so
         the walk over them takes one trip): the pairs, the rays of a tap,
         the (row, tap) pairs, the chunks of taps, the groups of rows, the
-        walk; its trips count the T taps the function has, not the zero
-        taps the form pads to whole chunks, so the bound is the work the
-        function needs. A call of more than 65,535 reps counts all its
-        launches (one instance: that of the first)."""
-        plan = self.kernel_plan(min(reps, _GRID_YZ), num_tiles)
+        walk; its trips count the T taps the function
+        has, not the zero taps the form pads them to, so the bound is the
+        work the function needs. Every launch of the call is counted (one
+        instance: that of the first)."""
+        plan = self.kernel_plan(reps, num_tiles)
         rows = plan["rows"]
         chunks = plan["bin_chunks"]
         active = self.used / chunks                  # bins a block owns
         blocks = reps * num_tiles * (self.tile // rows) * chunks
         if plan["general"]:
+            scratch = int(plan["scratch_bytes"] > 0)
             return {"pattern": f"mc_ofdm_tdl_general_kernelILb0ELb"
-                               f"{int(self.bf16)}EE",
+                               f"{int(self.bf16)}ELb{scratch}EE",
                     "threads": round(blocks * active), "loops": 6,
                     "loop_trips": [self.TL / active, self.rays,
                                    self.taps * rows / active,
@@ -573,6 +600,12 @@ class MonteCarloOfdmTdl:
         return (_build.state_buffer(nbytes, device, "mc_ofdm_tdl")
                 if nbytes else None)
 
+    def _launches(self, reps: int, num_tiles: int):
+        """``(r0, r1, t0, t1)`` of every launch of a call
+        (:func:`launch_slices` of both axes)."""
+        return [(r0, r1, t0, t1) for r0, r1 in launch_slices(reps)
+                for t0, t1 in launch_slices(num_tiles)]
+
     def _launch_prng(self, reps: int, num_tiles: int, seed: int, amp: float,
                      start: int) -> torch.Tensor:
         from . import _build
@@ -580,13 +613,14 @@ class MonteCarloOfdmTdl:
         out = torch.zeros((reps, num_tiles), dtype=torch.int32,
                           device=self.device)
         stream = torch.cuda.current_stream(self.device).cuda_stream
-        for r0, r1 in launch_slices(reps):
+        for r0, r1, t0, t1 in self._launches(reps, num_tiles):
             scratch = self._scratch(lib, r1 - r0, num_tiles, self.device)
             g_re, g_im, o, *geom = self._common_args(out[r0:r1], r1 - r0,
                                                      num_tiles, amp)
             rc = lib.mc_ofdm_tdl_prng(
-                g_re, g_im, o, *geom, seed & 0xFFFFFFFF, start + r0,
-                None if scratch is None else scratch.data_ptr(), stream)
+                g_re, g_im, o, *geom, seed & 0xFFFFFFFF, start + r0, t0,
+                t1 - t0, None if scratch is None else scratch.data_ptr(),
+                stream)
             _build.check(rc, "mc_ofdm_tdl_prng")
             self.launch_count += 1
         return out
@@ -602,15 +636,16 @@ class MonteCarloOfdmTdl:
         out = torch.zeros((reps, num_tiles), dtype=torch.int32,
                           device=pb.device)
         stream = torch.cuda.current_stream(pb.device).cuda_stream
-        for r0, r1 in launch_slices(reps):
+        for r0, r1, t0, t1 in self._launches(reps, num_tiles):
             scratch = self._scratch(lib, r1 - r0, num_tiles, pb.device)
             g_re, g_im, o, *geom = self._common_args(out[r0:r1], r1 - r0,
                                                      num_tiles, amp)
             rc = lib.mc_ofdm_tdl_inject(
                 g_re, g_im, pb[r0:r1].data_ptr(), db[r0:r1].data_ptr(),
                 n1[r0:r1].data_ptr(), n2[r0:r1].data_ptr(), o, *geom,
-                pb.stride(0), pb.stride(1), db.stride(0), db.stride(1),
-                None if scratch is None else scratch.data_ptr(), stream)
+                pb.stride(0), pb.stride(1), db.stride(0), db.stride(1), t0,
+                t1 - t0, None if scratch is None else scratch.data_ptr(),
+                stream)
             _build.check(rc, "mc_ofdm_tdl_inject")
             self.launch_count += 1
         return out

@@ -131,21 +131,22 @@ def test_kernel_plan_at_the_flagship_geometry():
 @pytest.mark.cuda
 def test_kernel_plan_shrinks_to_what_fits_and_raises_beyond():
     """On the card: a row whose buffer does not fit four warps of two is
-    cut into segments, with two warps (then one, then one buffer) where
-    the halo leaves no room; a span whose one 32-output segment does not
-    fit 227 KB takes the direct form. Beyond the first form's limits
-    (more than 64 taps, a block above 6,144, a span of 20,001) the
-    kernel plans and runs against its plain version; only arguments that
-    are no FIR raise."""
+    staged by the segments form, a block of eight warps at a time: two
+    stages sized for two blocks a SM, then for one, then one stage where
+    the halo leaves no room; a span whose one unit of outputs does not fit
+    227 KB takes the direct form. Beyond the first form's limits (more
+    than 64 taps, a block above 6,144, a span of 20,001) the kernel plans
+    and runs against its plain version; only arguments that are no FIR
+    raise."""
     _needs_card()
     plan = fir.kernel_plan(10, 6144, (0, 5000))
     assert plan["form"] == "segments"
-    assert (plan["stages"], plan["warps"]) == (2, 2)
-    assert plan["smem_bytes"] <= 232448
+    assert (plan["stages"], plan["warps"]) == (2, 8)
+    assert plan["smem_bytes"] <= 232448 // 2
     assert fir.kernel_plan(10, 6144, (0, 300))["stages"] == 2
     long_span = fir.kernel_plan(10, 6144, (0, 20000))
     assert long_span["form"] == "segments"
-    assert (long_span["stages"], long_span["warps"]) == (1, 1)
+    assert (long_span["stages"], long_span["warps"]) == (1, 8)
     assert fir.kernel_plan(3, 100, (0, 40000))["form"] == "direct"
     assert fir.kernel_plan(10, 64, tuple(range(65)))["form"] == "segments"
     assert fir.kernel_plan(10, 6145, (0, 1))["form"] == "segments"

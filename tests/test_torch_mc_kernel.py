@@ -214,8 +214,9 @@ class _FastPlanLib:
     def __init__(self):
         self.asked = []
 
-    def mc_ofdm_tdl_plan(self, reps, num_tiles, tile, used, TL, T, out):
-        self.asked.append((reps, num_tiles, tile, used, TL, T))
+    def mc_ofdm_tdl_plan(self, reps, tiles, tile, used, TL, T, num_tiles,
+                         out):
+        self.asked.append((reps, tiles, tile, used, TL, T, num_tiles))
         out[1], out[2], out[3] = min(64, tile), 1, 320
         return 0
 
@@ -236,8 +237,8 @@ def test_prng_kernel_profile(monkeypatch):
     assert small["pattern"] == "mc_ofdm_tdl_kernelILi16ELb0ELb0EE"
     assert small["threads"] == 2 * 2 * 300
     assert small["loop_trips"] == [256 / 300, 16, 16 * 16 / 300, 16]
-    assert lib.asked == [(32, 4, 1024, 300, 256, 16), (2, 2, 16, 300, 256,
-                                                       16)]
+    assert lib.asked == [(32, 4, 1024, 300, 256, 16, 4),
+                         (2, 2, 16, 300, 256, 16, 2)]
 
 
 def test_extreme_noise_bits_stay_finite():
@@ -367,8 +368,8 @@ def _synthetic_mc(taps, rays, device, tile=8, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("taps,rays,tile,rows,where", [
-    (200, 2, 64, 64, "shared"),    # h of 64 rows: half of shared memory
-    (2000, 1, 8, 4, "shared"),     # rows shrink to 4
+    (200, 2, 64, 32, "shared"),    # h of 32 rows: a quarter of shared memory
+    (2000, 1, 8, 8, "shared"),     # rows shrink to 8 (a group)
     (16, 4000, 8, 8, "scratch"),   # 64,000 pairs: the slot past 227 KB
 ])
 def test_cuda_general_form_at_wide_shapes(cuda_device, taps, rays, tile,

@@ -91,6 +91,80 @@ def test_every_variant_applies_to_the_committed_source(tuner, source):
         _tune.substitute(name, text, subs)   # raises if a line moved
 
 
+@pytest.mark.parametrize("tuner,table,source", [
+    (tune_mc_kernel, "GENERAL_VARIANTS", "mc_ofdm_tdl.cu"),
+    (tune_fir_kernel, "SEG_VARIANTS", "block_fir.cu")])
+def test_redesigned_forms_variants_set_only_their_constants(tuner, table,
+                                                            source):
+    """The flagship general form's and the segments form's variants each
+    apply to the committed source and change the constants they name, and
+    nothing else: their kernels plan from their own constants."""
+    import re
+    text = (_build.SRC_DIR / source).read_text()
+
+    def constants(t):
+        return {m.group(1): m.group(2) for m in re.finditer(
+            r"constexpr (?:int|long long|bool) (k\w+) = (\w+);", t)}
+    base = constants(text)
+    for name, subs in getattr(tuner, table).items():
+        got = constants(_tune.substitute(name, text, subs))
+        if not any("constexpr" in old for old, _ in subs):
+            assert got == base, name      # a pragma or a bound, no constant
+            continue
+        changed = {k for k in base if got[k] != base[k]}
+        named = {re.search(r"constexpr (?:int|bool) (k\w+)", old).group(1)
+                 for old, _ in subs}
+        assert changed == named, name
+
+
+def test_fir_diagnostic_variants_apply():
+    """The segments form's diagnostic variants (its loads alone, its
+    compute alone) each change one line of the committed source, and
+    are built only with the segments form's shapes."""
+    text = (_build.SRC_DIR / "block_fir.cu").read_text()
+    for name, subs in tune_fir_kernel.DIAGNOSTIC_VARIANTS.items():
+        got = _tune.substitute(name, text, subs)
+        assert len(set(got.splitlines()) - set(text.splitlines())) == 1
+    assert not set(tune_fir_kernel.DIAGNOSTIC_VARIANTS) & set(
+        tune_fir_kernel.sources(None))
+    assert set(tune_fir_kernel.DIAGNOSTIC_VARIANTS) <= set(
+        tune_fir_kernel.sources(None, segments=True))
+
+
+def test_mc_tuner_sources_follow_the_shapes(tmp_path):
+    """``bin/tune_mc_kernel.py`` builds the committed source, the fast
+    instance's variants only for the flagship shape, the general form's
+    only for f1, and the parent's ``mc_ofdm_tdl.cu`` where given (called
+    through its own interface: the committed source has the launch's tile
+    range, the earlier one had not)."""
+    parent = tmp_path / "pyphysim_tpu_torch" / "ops" / "csrc"
+    parent.mkdir(parents=True)
+    (parent / "mc_ofdm_tdl.cu").write_text("// the parent's\n")
+    f2 = tune_mc_kernel.sources(str(tmp_path), ("f2tiles",))
+    assert sorted(f2) == sorted([tune_mc_kernel.COMMITTED, "parent"])
+    assert f2["parent"] == ("// the parent's\n", parent)
+    assert "int tile0" in f2[tune_mc_kernel.COMMITTED][0]
+    f1 = tune_mc_kernel.sources(None, ("f1",))
+    assert sorted(f1) == sorted([tune_mc_kernel.COMMITTED,
+                                 *tune_mc_kernel.GENERAL_VARIANTS,
+                                 *tune_mc_kernel.LAYOUT_VARIANTS])
+    both = tune_mc_kernel.sources(None, ("flagship", "f1"))
+    assert len(both) == len(tune_mc_kernel.VARIANTS) + len(
+        tune_mc_kernel.GENERAL_VARIANTS) + len(
+        tune_mc_kernel.LAYOUT_VARIANTS)
+    # each layout keeps every field once and moves only the first tile
+    for name in tune_mc_kernel.LAYOUT_VARIANTS:
+        text = both[name][0]
+        assert text.count("  int tile0;\n") == 1
+        assert sorted(text.splitlines()) == sorted(
+            both[tune_mc_kernel.COMMITTED][0].splitlines())
+    assert set(tune_mc_kernel.SHAPES) == {"flagship", "f1", "f2tiles"}
+    assert tune_fir_kernel.shape("ht20")[:2] == (1024, 8192)
+    assert tune_fir_kernel.shape("ht100")[2][-1] + 1 > 1800
+    rows, block, offsets = tune_fir_kernel.shape("b1")
+    assert (rows, block, offsets) == (8192, 564, list(range(81)))
+
+
 def test_fir_variants_plan_from_their_own_constants():
     """Each FIR variant's text sets the constant the tuner names, and
     nothing else differs from the committed source: the kernel plans its
