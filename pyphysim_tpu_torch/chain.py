@@ -42,6 +42,7 @@ from ._device import DeviceLike, require_cuda
 from .channels import COST259_TUx, JakesSampleGenerator, TdlChannel
 from .modulators import OFDM, QAM, OfdmOneTapEqualizer
 from .ops.fused_ofdm_tdl import FusedOfdmTdl
+from .tracing import span
 from .utils.misc import (count_bit_errors, randn_c, random_symbols,
                          round_bf16)
 
@@ -144,11 +145,13 @@ class ChainStep:
         """(n,) bit-error counts of the attempts of ``streams`` (an
         ``AttemptStreams``): data, channel state and noise each from its
         own sub-stream, as the JAX step splits its key in three."""
-        s_data, s_channel, s_noise = streams.split(3)
-        data = random_symbols(s_data, self.num_symbols, self.qam.K)
-        state = self.channel.init_state(s_channel)
-        noise = randn_c(s_noise, self.noise_length)
-        return self.forward(data, state, noise, snr_linear).bit_errors
+        with span("chain.draw"):
+            s_data, s_channel, s_noise = streams.split(3)
+            data = random_symbols(s_data, self.num_symbols, self.qam.K)
+            state = self.channel.init_state(s_channel)
+            noise = randn_c(s_noise, self.noise_length)
+        with span("chain.forward"):
+            return self.forward(data, state, noise, snr_linear).bit_errors
 
     @property
     def bits_per_attempt(self) -> int:

@@ -52,6 +52,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..tracing import span
 from .parameters import SimulationParameters
 from .results import Result, SimulationResults
 
@@ -148,10 +149,12 @@ def _to_host(value):
     if isinstance(value, tuple):
         return tuple(_to_host(v) for v in value)
     if isinstance(value, _HostCopy):
-        value.done.synchronize()
+        with span("engine.wait"):
+            value.done.synchronize()
         return value.host.numpy()
     if hasattr(value, "detach"):
-        return value.detach().cpu().numpy()
+        with span("engine.wait"):
+            return value.detach().cpu().numpy()
     return np.asarray(value)
 
 
@@ -550,39 +553,39 @@ class SimulationRunner:
             return
         if param_variation_index is None:
             param_variation_index = self.command_line_args.index
+        with span("engine.sweep"):
+            tic = time.time()
+            self.__partial_files_to_delete.clear()
+            self.params.add("rep_max", self.rep_max)
+            self.results = SimulationResults()
+            self.results.set_parameters(self.params)
+            self._runned_reps = []
+            self._on_simulate_start()
 
-        tic = time.time()
-        self.__partial_files_to_delete.clear()
-        self.params.add("rep_max", self.rep_max)
-        self.results = SimulationResults()
-        self.results.set_parameters(self.params)
-        self._runned_reps = []
-        self._on_simulate_start()
+            unpacked = self.params.get_unpacked_params_list()
+            if param_variation_index is not None:
+                if not 0 <= param_variation_index < len(unpacked):
+                    raise ValueError(
+                        f"Invalid variation index: {param_variation_index}")
+                unpacked = [unpacked[param_variation_index]]
 
-        unpacked = self.params.get_unpacked_params_list()
-        if param_variation_index is not None:
-            if not 0 <= param_variation_index < len(unpacked):
-                raise ValueError(
-                    f"Invalid variation index: {param_variation_index}")
-            unpacked = [unpacked[param_variation_index]]
+            for i, current_params in enumerate(unpacked):
+                if self.update_progress_function_style is not None and \
+                        self.progress_output_type == "screen" and \
+                        len(unpacked) > 1:
+                    print(f"Current Variation: {i + 1}/{len(unpacked)}")
+                current_results, reps = self._simulate_for_current_params(
+                    current_params, i, len(unpacked))
+                self._runned_reps.append(reps)
+                if param_variation_index is None:
+                    self.results.append_all_results(current_results)
 
-        for i, current_params in enumerate(unpacked):
-            if self.update_progress_function_style is not None and \
-                    self.progress_output_type == "screen" and \
-                    len(unpacked) > 1:
-                print(f"Current Variation: {i + 1}/{len(unpacked)}")
-            current_results, reps = self._simulate_for_current_params(
-                current_params, i, len(unpacked))
-            self._runned_reps.append(reps)
+            self._elapsed_time = time.time() - tic
+            self._on_simulate_finish()
+            self.results.runned_reps = list(self._runned_reps)
+
             if param_variation_index is None:
-                self.results.append_all_results(current_results)
-
-        self._elapsed_time = time.time() - tic
-        self._on_simulate_finish()
-        self.results.runned_reps = list(self._runned_reps)
-
-        if param_variation_index is None:
-            self.simulate_common_cleaning()
+                self.simulate_common_cleaning()
 
     def simulate_common_cleaning(self) -> None:
         """Finalize a simulation: save final results and delete partials
@@ -683,42 +686,45 @@ class SimulationRunner:
             self, current_params: SimulationParameters,
             variation_index: int,
             num_variations: int) -> Tuple[SimulationResults, int]:
-        self._on_simulate_current_params_start(current_params)
+        with span("engine.point", base_seed=self.base_seed,
+                  unpack_index=current_params.unpack_index):
+            self._on_simulate_current_params_start(current_params)
 
-        partial = self._load_partial_results(current_params)
-        if partial is not None:
-            current_results = partial
-            current_rep = partial.current_rep
-        else:
-            current_results = SimulationResults()
-            current_rep = 0
-        self.__last_checkpoint_rep = current_rep
+            partial = self._load_partial_results(current_params)
+            if partial is not None:
+                current_results = partial
+                current_rep = partial.current_rep
+            else:
+                current_results = SimulationResults()
+                current_rep = 0
+            self.__last_checkpoint_rep = current_rep
 
-        pbar = self._get_progress_bar(variation_index, num_variations,
-                                      self.rep_max, current_params)
+            pbar = self._get_progress_bar(variation_index, num_variations,
+                                          self.rep_max, current_params)
 
-        bulk = self._gen_bulk_kernel(current_params)
-        kernel = (self._gen_simulation_kernel(current_params)
-                  if bulk is None else None)
-        if bulk is not None:
-            current_rep = self._bulk_loop(bulk, current_params,
-                                          current_results, current_rep,
-                                          pbar)
-        elif kernel is not None:
-            current_rep = self._batch_loop(kernel, current_params,
-                                           current_results, current_rep,
-                                           pbar)
-        else:
-            current_rep = self._serial_loop(current_params, current_results,
-                                            current_rep, pbar)
-        pbar.progress(self.rep_max)
+            bulk = self._gen_bulk_kernel(current_params)
+            kernel = (self._gen_simulation_kernel(current_params)
+                      if bulk is None else None)
+            if bulk is not None:
+                current_rep = self._bulk_loop(bulk, current_params,
+                                              current_results, current_rep,
+                                              pbar)
+            elif kernel is not None:
+                current_rep = self._batch_loop(kernel, current_params,
+                                               current_results, current_rep,
+                                               pbar)
+            else:
+                current_rep = self._serial_loop(current_params,
+                                                current_results,
+                                                current_rep, pbar)
+            pbar.progress(self.rep_max)
 
-        self._on_simulate_current_params_finish(current_params,
-                                                current_results)
-        if current_rep > 0:
-            self._save_partial_results(current_rep, current_params,
-                                       current_results)
-        return current_results, current_rep
+            self._on_simulate_current_params_finish(current_params,
+                                                    current_results)
+            if current_rep > 0:
+                self._save_partial_results(current_rep, current_params,
+                                           current_results)
+            return current_results, current_rep
 
     @staticmethod
     def _skipped_before(current_results) -> int:
@@ -891,12 +897,15 @@ class SimulationRunner:
 
         def run(start: int, n: int):
             if mesh is None:
-                return kernel(AttemptStreams.from_range(seed, start, n,
-                                                        device))
+                streams = AttemptStreams.from_range(seed, start, n, device)
+                with span("wrapper.call", attempts=n):
+                    return kernel(streams)
             from ..parallel.mesh import shard_rows
             index, n_local = shard_rows(mesh, axis, n)
-            out = kernel(AttemptStreams.from_range(
-                seed, start + index * n_local, n_local, device))
+            streams = AttemptStreams.from_range(
+                seed, start + index * n_local, n_local, device)
+            with span("wrapper.call", attempts=n_local):
+                out = kernel(streams)
             return _gather_outputs(mesh, axis, out, n_local, device)
 
         if self.batch_stop_criterion is None:
@@ -978,8 +987,9 @@ class SimulationRunner:
                            dispatch(cursor + nk, nk_next))
             out = _host_outputs(out, nk)
             elapsed = time.time() - tic
-            n_accept, consumed, n_skip = self._consume_chunk(
-                out, nk, needed, elapsed, current_results, active)
+            with span("engine.account", attempts=nk):
+                n_accept, consumed, n_skip = self._consume_chunk(
+                    out, nk, needed, elapsed, current_results, active)
             current_rep += n_accept
             cursor += consumed
             if consumed != nk:
@@ -1041,8 +1051,9 @@ class SimulationRunner:
         # accounting. A mispredicted cursor (skips landed in chunk k)
         # discards the speculative chunk and stops speculating.
         def dispatch(start: int, n: int):
-            return {name: _start_fetch(v)
-                    for name, v in bulk(start, n).items()}
+            with span("wrapper.call", attempts=n):
+                out = bulk(start, n)
+            return {name: _start_fetch(v) for name, v in out.items()}
 
         speculate = self.batch_stop_criterion is None
         pending: Optional[Tuple[int, int, Any]] = None
@@ -1062,8 +1073,9 @@ class SimulationRunner:
                 pending = (cursor + nk, bsize, dispatch(cursor + nk, bsize))
             out = {name: _to_host(v) for name, v in out.items()}
             elapsed = time.time() - tic
-            n_accept, consumed, n_skip = self._consume_chunk(
-                out, nk, needed, elapsed, current_results)
+            with span("engine.account", attempts=nk):
+                n_accept, consumed, n_skip = self._consume_chunk(
+                    out, nk, needed, elapsed, current_results)
             current_rep += n_accept
             cursor += consumed
             if consumed != nk:
