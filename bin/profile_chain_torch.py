@@ -19,6 +19,10 @@ iterations, noise 0.1, ``ia_step``):
     and traces of 3 draws alone and 3 forwards alone: the device kernels
     each issues a step, the draws' Philox fills (``philox_stream_fill``)
     among them, and ``block_fir``'s share of the forward's device time;
+  * on the two OFDM routes, ``ChainStep.step`` whole (CUDA events over
+    one step, and the host's time to issue it): the route the checkout's
+    step takes, one CUDA graph replay where it has one, and beside it the
+    step launched op by op (``step_eager``) where the checkout has both;
   * the per-key engine over 1,024 attempts in chunks of 256, without a
     stop criterion (double-buffered) and with one that never trips
     (8 synchronous sub-chunks of 32 per chunk): the cost of the
@@ -168,6 +172,14 @@ def profile_route(name, batch, num_symbols, fused, dev):
 
     out = profile_step(name, batch, batch * num_symbols, "sym", draw,
                        lambda *x: chain.forward(*x, SNR))
+    routes = {"step": chain.step}
+    if hasattr(chain, "step_eager"):
+        routes["step_eager"] = chain.step_eager
+    for label, fn in routes.items():
+        out[f"{label}_whole_ms"] = best_ms(lambda: fn(streams, SNR))
+        out[f"{label}_whole_host_ms"] = host_ms(lambda: fn(streams, SNR))
+    print(json.dumps({"route": name, **{k: v for k, v in out.items()
+                                        if "_whole_" in k}}), flush=True)
     if not fused:
         from chip_smoke import fir_inputs
         from pyphysim_tpu_torch.ops import fir

@@ -15,7 +15,8 @@ against its plain PyTorch version on the card:
     convolution is the ``block_fir`` CUDA kernel, and its fused diag route,
     each in both signal types (complex64 and the reference's bf16), and
     the per-sample app ``apps/ofdm/ofdm_tdlchannel_torch.py``, each through
-    the runner's per-key path (phases 8-12);
+    the runner's per-key path (phases 8-12), and the chain step replayed
+    as one CUDA graph against the step launched op by op (phase 12b);
   * the Alamouti 2x1 family through its CUDA kernel on the bulk path and
     through its library chain on the per-key path, and the BD CoMP capacity
     family the same way, at ``bench.py``'s widths (phases 13-19);
@@ -186,6 +187,8 @@ FILL_ULP_LIMIT = 2                  # normals: kernel vs plain, in ulps
 FILL_GRID_COUNTERS = 132 * 16 * 256  # counters one fill grid covers a stride
 TD_BATCH, TD_SYMBOLS = 256, 300 * 32    # bench.py's time-domain step
 FUSED_BATCH, FUSED_SYMBOLS = 512, 300 * 16  # bench.py's fused step
+REPLAY_BATCHES = (32, 256)          # the benchmark's sub-chunk; bench.py's
+REPLAY_INNER = 8                    # steps a timing of the replay phase
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12              # f32 outside the tensor cores
 MC_DTYPES = ("float32", "bfloat16")  # the flagship kernel's product types
@@ -683,13 +686,74 @@ def fill_main_path_parity(dev, name, chain, batch):
     from pyphysim_tpu_torch.ops.streams import AttemptStreams
     a = torch.arange(2 ** 32 - batch // 2, 2 ** 32 + batch - batch // 2,
                      dtype=torch.int64, device=dev)
-    draws = recorded_draws(lambda: chain.step(AttemptStreams(99, a), 10.0))
+    # the eager route: a replayed step draws inside its graph, where no
+    # draw is recorded
+    draws = recorded_draws(lambda: chain.step_eager(AttemptStreams(99, a),
+                                                    10.0))
     kinds = sorted(k for k, *_ in draws)
     if kinds != ["bits", "normal", "uniform"]:
         raise AssertionError(f"fill_main_path {name}: a step drew {kinds}, "
                              f"expected symbol bits, channel uniforms and "
                              f"noise normals")
     return fill_draws_parity(name, draws)
+
+
+def replay_phase(dev, smi):
+    """Phase 12b: the block-static time-domain step at the benchmark's
+    sub-chunk (32 x 9,600 symbols) and at bench.py's 256 x 9,600, replayed
+    (``ChainStep.step``: one CUDA graph) against eager (``step_eager``) in
+    this process and in turns (eager, replay, replay, eager): the host's
+    time to issue a step (the device idle at its start), a step's time
+    back to back (CUDA events over ``REPLAY_INNER`` steps, each on fresh
+    attempts), and the counts of both routes on the same streams, equal
+    bit for bit at two SNRs, in both signal types."""
+    import torch
+    from pyphysim_tpu_torch.chain import ChainStep
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "bin"))
+    from profile_chain_torch import host_ms
+
+    out = {}
+    for batch in REPLAY_BATCHES:
+        for dtype in SIGNAL_DTYPES:
+            tag = f"{batch}x{TD_SYMBOLS}_{dtype or 'complex64'}"
+            chain = ChainStep(TD_SYMBOLS, 512, 52, 300, block_static=True,
+                              signal_dtype=dtype, device=dev)
+            streams = [AttemptStreams.from_range(2 ** 31 + 5 + k, k * batch,
+                                                 batch, dev)
+                       for k in range(REPLAY_INNER)]
+            chain.step(streams[0], 10.0)          # eager, then the capture
+            differ = 0
+            for snr in (10 ** 0.5, 10 ** 2.5):
+                for s in streams[:4]:
+                    differ += int((chain.step(s, snr) !=
+                                   chain.step_eager(s, snr)).sum())
+            routes = {"eager": chain.step_eager, "replay": chain.step}
+            host = {k: [] for k in routes}
+            back = {k: [] for k in routes}
+            for name in ("eager", "replay", "replay", "eager"):
+                fn = routes[name]
+                host[name].append(host_ms(lambda: fn(streams[0], 10.0)))
+                back[name].append(best_ms(
+                    lambda: [fn(s, 10.0) for s in streams]) / REPLAY_INNER)
+            row = {"differing_counts": differ,
+                   "eager_host_ms": min(host["eager"]),
+                   "replay_host_ms": min(host["replay"]),
+                   "eager_step_ms": min(back["eager"]),
+                   "replay_step_ms": min(back["replay"]),
+                   "graphs": len(chain._graphs)}
+            row["speedup"] = row["eager_step_ms"] / row["replay_step_ms"]
+            row["replay_sym_per_s"] = batch * TD_SYMBOLS / \
+                row["replay_step_ms"] * 1e3
+            phase("replay", shape=tag, card=repr(smi), **row)
+            if differ or row["graphs"] != int(torch.device(dev).type ==
+                                              "cuda"):
+                raise AssertionError(f"replay {tag}: {differ} counts differ "
+                                     f"from the eager step's, "
+                                     f"{row['graphs']} graphs")
+            out[tag] = row
+    return out
 
 
 def fill_draws_parity(name, draws):
@@ -1358,6 +1422,7 @@ def chain_phases(dev, smi, fill_err):
           fused_bf16_step_ms=fused_bf16_ms,
           per_key_engine_ms=engine_ms,
           per_key_engine_sym_per_s=4 * TD_BATCH * TD_SYMBOLS / engine_ms * 1e3)
+    replay_phase(dev, smi)
     return [{
         "name": "block_fir",
         "route": "cuda",

@@ -18,6 +18,18 @@ inputs:
     (``ops/streams.py``) and returns the bit-error counts: the
     ``kernel(streams)`` of the runner's per-key path.
 
+On a CUDA device ``step`` replays one captured CUDA graph of the whole
+step (the three draws and ``forward``: ~100 launches, each of which the
+host would otherwise issue in turn while the card waits): one graph for
+each number of attempts, captured after the first call at that number
+runs op by op (:meth:`ChainStep.step_eager`, which fills the caches the
+capture needs: FFT plans, DFT matrices, the kernels' tables). The call's
+attempts, its seed and salts (device words the fill kernel reads) and the
+noise amplitude are written into the graph's buffers before each replay;
+the counts come back as a fresh tensor. The graph holds the same
+hand-written kernels and ops as the eager step, so the counts are the
+same bit for bit. On the CPU ``step`` is ``step_eager``.
+
 ``signal_dtype=torch.bfloat16`` is the reference's bf16 signal path, which
 ``bench.py`` times. Torch has no complex bf16 and ``torch.fft`` no bf16, so
 the signal stays complex64 holding bf16 values: it is rounded to bf16
@@ -32,8 +44,10 @@ moment correction of its bf16 sampler has no counterpart here.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import NamedTuple, Optional
+from collections import OrderedDict
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +55,9 @@ import torch
 from ._device import DeviceLike, require_cuda
 from .channels import COST259_TUx, JakesSampleGenerator, TdlChannel
 from .modulators import OFDM, QAM, OfdmOneTapEqualizer
+from .ops.fir import block_fir
 from .ops.fused_ofdm_tdl import FusedOfdmTdl
+from .ops.streams import AttemptStreams, philox_draw
 from .tracing import span
 from .utils.misc import (count_bit_errors, randn_c, random_symbols,
                          round_bf16)
@@ -51,6 +67,9 @@ __all__ = ["ChainOutput", "ChainStep"]
 BANDWIDTH = 20e6       # Ts = 50 ns
 DOPPLER_HZ = 30.0
 JAKES_RAYS = 16
+# captured steps a ChainStep keeps (one an attempt count and device), the
+# least recently replayed dropped first
+GRAPHS_KEPT = 8
 
 
 def _signal_dtype(dtype) -> Optional[torch.dtype]:
@@ -98,6 +117,7 @@ class ChainStep:
             self.ofdm.samples_per_symbol if block_static else None)
         self.equalizer = OfdmOneTapEqualizer(self.ofdm)
         self.fop = FusedOfdmTdl(self.ofdm, self.channel) if fused else None
+        self._graphs: "OrderedDict[tuple, _StepGraph]" = OrderedDict()
 
     @property
     def noise_length(self) -> int:
@@ -109,50 +129,152 @@ class ChainStep:
         return n_ofdm * self.ofdm.samples_per_symbol + \
             self.channel.num_taps_with_padding - 1
 
+    def noise_amplitude(self, snr_linear: float) -> float:
+        """What ``forward`` scales the unit noise by: ``sqrt(1 / snr)``,
+        times ``noise_gain`` on the fused path; on the bf16 path the JAX
+        step's amplitude, ``sqrt(1 / snr)`` in float32 times the gain,
+        cast to bf16 (a python float holds it exactly)."""
+        gain = self.fop.noise_gain if self.fop is not None else 1.0
+        if self.signal_dtype is not None:
+            return float(round_bf16(torch.tensor(np.sqrt(
+                np.float32(1.0) / np.float32(snr_linear)) *
+                np.float32(gain))))
+        return math.sqrt(1.0 / float(snr_linear)) * gain
+
     def forward(self, data: torch.Tensor, channel_state, noise: torch.Tensor,
                 snr_linear: float) -> ChainOutput:
         """``data`` (n, num_symbols) ints in [0, 16), ``channel_state`` a
         Jakes state with batch (n,), ``noise`` (n, noise_length) CN(0, 1)
-        complex64 (scaled here: by ``sqrt(1 / snr)`` in the time domain,
-        times ``noise_gain`` on the fused path)."""
+        complex64 (scaled here by :meth:`noise_amplitude`)."""
+        amp = torch.full((), self.noise_amplitude(snr_linear),
+                         dtype=torch.float32, device=noise.device)
+        return self.forward_scaled(data, channel_state, noise, amp)
+
+    def forward_scaled(self, data: torch.Tensor, channel_state,
+                       noise: torch.Tensor, amp: torch.Tensor) -> ChainOutput:
+        """:meth:`forward` with the noise amplitude as a float32 0-dim
+        tensor on the noise's device (:meth:`noise_amplitude`'s value),
+        which a captured step reads from its buffer."""
         bf16 = self.signal_dtype is not None
         # identity on the complex64 path
         rnd = round_bf16 if bf16 else (lambda x: x)
         tx = rnd(self.qam.modulate(data))
         if self.fop is not None:
             rx, ir, _ = self.fop.corrupt_and_demodulate(channel_state, tx)
-            gain = self.fop.noise_gain
         else:
             sig = rnd(self.ofdm.modulate(tx))
             rx, ir, _ = self.channel.corrupt_data(
                 channel_state, sig, block_size=self.block_size)
-            gain = 1.0
         if bf16:
-            # the JAX step's amplitude: sqrt(1 / snr) in float32, times
-            # the gain, cast to bf16 (a python float holds it exactly)
-            amp = float(round_bf16(torch.tensor(np.sqrt(
-                np.float32(1.0) / np.float32(snr_linear)) * np.float32(gain))))
             rx = rnd(rnd(rx) + rnd(rnd(noise) * amp))
         else:
-            rx = rx + noise * (math.sqrt(1.0 / float(snr_linear)) * gain)
+            rx = rx + noise * amp
         if self.fop is None:
             rx = rnd(self.ofdm.demodulate(rx[..., :sig.shape[-1]]))
         eq = self.equalizer.equalize_data(rx, ir)
         decided = self.qam.demodulate_hard(eq)
         return ChainOutput(count_bit_errors(data, decided, axis=-1), eq, rx)
 
+    def draw(self, s_data, s_channel, s_noise):
+        """The inputs of ``forward`` from the step's three sub-streams:
+        the data symbols, the channel state and the unit noise."""
+        return (random_symbols(s_data, self.num_symbols, self.qam.K),
+                self.channel.init_state(s_channel),
+                randn_c(s_noise, self.noise_length))
+
     def step(self, streams, snr_linear: float) -> torch.Tensor:
         """(n,) bit-error counts of the attempts of ``streams`` (an
         ``AttemptStreams``): data, channel state and noise each from its
-        own sub-stream, as the JAX step splits its key in three."""
+        own sub-stream, as the JAX step splits its key in three. On a
+        CUDA device one replay of the step's graph at ``n`` attempts (the
+        module docstring); a fresh tensor, which later calls leave
+        alone."""
+        dev = streams.attempts.device
+        if dev.type != "cuda" or streams.n == 0:
+            return self.step_eager(streams, snr_linear)
+        key = (streams.n, dev)
+        graph = self._graphs.get(key)
+        if graph is None:
+            out = self.step_eager(streams, snr_linear)
+            self._graphs[key] = _StepGraph(self, streams.n, dev)
+            if len(self._graphs) > GRAPHS_KEPT:
+                # its last replay may still run: let it end before the
+                # graph and its memory go
+                torch.cuda.current_stream(dev).synchronize()
+                self._graphs.popitem(last=False)
+            return out
+        self._graphs.move_to_end(key)
         with span("chain.draw"):
-            s_data, s_channel, s_noise = streams.split(3)
-            data = random_symbols(s_data, self.num_symbols, self.qam.K)
-            state = self.channel.init_state(s_channel)
-            noise = randn_c(s_noise, self.noise_length)
+            graph.load(self, streams, snr_linear)
+        with span("chain.forward"):
+            with span("chain.replay"):
+                graph.replay()
+            return graph.bit_errors.clone()
+
+    def step_eager(self, streams, snr_linear: float) -> torch.Tensor:
+        """:meth:`step` launched op by op: the CPU's route, and the first
+        call at each attempt count on a CUDA device."""
+        with span("chain.draw"):
+            data, state, noise = self.draw(*streams.split(3))
         with span("chain.forward"):
             return self.forward(data, state, noise, snr_linear).bit_errors
 
     @property
     def bits_per_attempt(self) -> int:
         return self.num_symbols * self.qam.K
+
+
+class _StepGraph:
+    """One captured step of a :class:`ChainStep` at ``n`` attempts on one
+    CUDA device. What changes between calls lives in static device
+    buffers, written before each replay and never baked into the capture:
+    the attempts, the key words (the seed, then the data, channel and
+    noise salts: each draw reads its seed and salt there, stride 0 over
+    the rows) and the noise amplitude. Raises if the capture fails."""
+
+    def __init__(self, chain: ChainStep, n: int, device: torch.device):
+        self.attempts = torch.zeros(n, dtype=torch.int64, device=device)
+        self.words = torch.zeros(4, dtype=torch.int64, device=device)
+        self.amp = torch.zeros((), dtype=torch.float32, device=device)
+        self.written: Optional[Tuple] = None   # (seed, salt, snr)
+        streams = [AttemptStreams(self.words[0], self.attempts,
+                                  self.words[i]) for i in (1, 2, 3)]
+        self.graph = torch.cuda.CUDAGraph()
+        counted = (philox_draw.launch_count, block_fir.launch_count)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        try:
+            with torch.cuda.stream(side):
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.bit_errors = chain.forward_scaled(
+                        *chain.draw(*streams), self.amp).bit_errors
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        self.graph.capture_end()
+                    raise
+                self.graph.capture_end()
+            torch.cuda.current_stream(device).wait_stream(side)
+            # the capture launched nothing: what it counted, each replay
+            # launches
+            self.fills = philox_draw.launch_count - counted[0]
+            self.firs = block_fir.launch_count - counted[1]
+        finally:
+            philox_draw.launch_count, block_fir.launch_count = counted
+
+    def load(self, chain: ChainStep, streams, snr_linear: float) -> None:
+        """Write the call's attempts, and its key words and amplitude
+        where they differ from the last call's."""
+        self.attempts.copy_(streams.attempts)
+        written = (streams.seed, streams.salt, snr_linear)
+        if written != self.written:
+            words = [streams.seed] + [s.salt for s in streams.split(3)]
+            for i, w in enumerate(words):
+                self.words[i].fill_(w)
+            self.amp.fill_(chain.noise_amplitude(snr_linear))
+            self.written = written
+
+    def replay(self) -> None:
+        self.graph.replay()
+        philox_draw.launch_count += self.fills
+        block_fir.launch_count += self.firs

@@ -10,7 +10,10 @@ and a resumed run draws exactly what an uninterrupted one would.
 
 The words are Philox4x32-10 (``ops/philox.py``) under the key
 ``(seed, salt)`` with the counter ``(j, 0, a_lo, a_hi)`` for the j-th group
-of four words of a row. Like a JAX key, a stream gives the same numbers
+of four words of a row. The seed and the salt are host ints, or each a
+one-element int64 tensor on the attempts' device that the draw reads
+there (so a captured CUDA graph of draws takes a new key by a write to
+that tensor). Like a JAX key, a stream gives the same numbers
 each time it is drawn from with the same shape: :meth:`AttemptStreams.split`
 makes independent sub-streams, as ``jax.random.split`` does. These are not
 ``jax.random``'s numbers; tests that compare the two packages inject numpy
@@ -28,6 +31,7 @@ fallback from one to the other.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import List, Optional, Sequence, Tuple, Union
 
@@ -38,7 +42,7 @@ from .philox import philox4x32_10, philox4x32_10_int
 __all__ = ["AttemptStreams", "philox_words", "philox_draw",
            "philox_draw_reference", "pack_words", "packed_values",
            "words_to_uniform", "words_to_normal", "uniform", "normal",
-           "bits"]
+           "bits", "child_salts"]
 
 _MASK = 0xFFFFFFFF
 _TWO_PI = 6.283185307179586
@@ -48,6 +52,8 @@ Shape = Union[int, Sequence[int]]
 # in [0, 2**32), or (tensor, shift): the low 32 bits of ``tensor >> shift``
 WordArg = Union[int, torch.Tensor, Tuple[torch.Tensor, int]]
 Packed = Tuple[Optional[torch.Tensor], int, int, int]
+# a stream's seed or salt: an int, or a one-element int64 device tensor
+KeyWord = Union[int, torch.Tensor]
 
 
 def _shape(shape: Shape) -> Tuple[int, ...]:
@@ -211,13 +217,13 @@ class AttemptStreams:
     docstring). ``attempts`` is a 1-D int64 tensor; draws land on its
     device and have the leading dimension ``n = len(attempts)``."""
 
-    def __init__(self, seed: int, attempts: torch.Tensor,
-                 salt: int = 0) -> None:
+    def __init__(self, seed: KeyWord, attempts: torch.Tensor,
+                 salt: KeyWord = 0) -> None:
         if attempts.dim() != 1:
             raise ValueError("attempts must be a 1-D tensor")
-        self.seed = int(seed) & _MASK
-        self.salt = int(salt) & _MASK
         self.attempts = attempts.to(torch.int64)
+        self.seed = _key_word(seed, self.attempts.device)
+        self.salt = _key_word(salt, self.attempts.device)
 
     @classmethod
     def from_range(cls, seed: int, start: int, n: int,
@@ -237,12 +243,12 @@ class AttemptStreams:
     def split(self, num: int) -> List["AttemptStreams"]:
         """``num`` independent sub-streams (the counterpart of
         ``jax.random.split``); the child salts are Philox words of the
-        parent's salt, so a tree of splits never repeats a salt."""
-        base = philox4x32_10_int(self.salt, 0x5EED, 0, 0, self.seed,
-                                 0x57A17)[0]
-        return [AttemptStreams(self.seed, self.attempts,
-                               (base + 0x9E3779B9 * (i + 1)) & _MASK)
-                for i in range(num)]
+        parent's salt, so a tree of splits never repeats a salt. Needs
+        host key words."""
+        if not isinstance(self.seed, int) or not isinstance(self.salt, int):
+            raise TypeError("split needs the seed and the salt as host ints")
+        return [AttemptStreams(self.seed, self.attempts, salt)
+                for salt in child_salts(self.seed, self.salt, num)]
 
     def bits(self, shape: Shape) -> torch.Tensor:
         """(n, *shape) int64 words in [0, 2**32)."""
@@ -269,9 +275,33 @@ class AttemptStreams:
         the counter words are the attempt's low and high 32 bits."""
         shape = _shape(shape)
         a = self.attempts
-        out = philox_draw(kind, self.seed, self.salt, (a, 0), (a, 32),
-                          math.prod(shape), mask)
-        return out.reshape((self.n,) + shape)
+        n = a.shape[0]
+        k0, k1 = (w if isinstance(w, int) else (w.expand(n), 0)
+                  for w in (self.seed, self.salt))
+        out = philox_draw(kind, k0, k1, (a, 0), (a, 32), math.prod(shape),
+                          mask)
+        return out.reshape((n,) + shape)
+
+
+def _key_word(word: KeyWord, device: torch.device) -> KeyWord:
+    """A seed or salt as :class:`AttemptStreams` keeps it: an int masked to
+    32 bits, or a one-element int64 tensor on ``device`` (as a 1-D view,
+    which a draw expands to its rows with stride 0)."""
+    if not isinstance(word, torch.Tensor):
+        return int(word) & _MASK
+    if word.numel() != 1 or word.dtype != torch.int64 or \
+            word.device != device:
+        raise ValueError("a key word tensor holds one int64 on the "
+                         "attempts' device")
+    return word.reshape(1)
+
+
+@functools.lru_cache(maxsize=256)
+def child_salts(seed: int, salt: int, num: int) -> Tuple[int, ...]:
+    """The salts of :meth:`AttemptStreams.split`'s ``num`` sub-streams of
+    the stream ``(seed, salt)``: host Philox words, computed once a key."""
+    base = philox4x32_10_int(salt, 0x5EED, 0, 0, seed, 0x57A17)[0]
+    return tuple((base + 0x9E3779B9 * (i + 1)) & _MASK for i in range(num))
 
 
 def _draw(source, shape: Shape, device, kind: str) -> torch.Tensor:

@@ -47,8 +47,14 @@ The spans, each at a layer boundary:
 ``engine.account`` ``_consume_chunk``: a chunk's accounting (attribute
                    ``attempts``)
 ``chain.draw``     ``ChainStep.step``'s draws: the stream split, the data,
-                   the channel state, the noise
-``chain.forward``  ``ChainStep.step``'s ``forward``
+                   the channel state, the noise; where the step replays a
+                   CUDA graph, the split and the writes of the graph's
+                   input buffers
+``chain.forward``  ``ChainStep.step``'s ``forward``; where the step replays
+                   a CUDA graph, the replay's enqueue and the copy of its
+                   counts
+``chain.replay``   inside ``chain.forward``: one replay of the step's CUDA
+                   graph (its ``cudaGraphLaunch``)
 =================  =========================================================
 """
 
