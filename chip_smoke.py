@@ -17,6 +17,13 @@ against its plain PyTorch version on the card:
     the per-sample app ``apps/ofdm/ofdm_tdlchannel_torch.py``, each through
     the runner's per-key path (phases 8-12), and the chain step replayed
     as one CUDA graph against the step launched op by op (phase 12b);
+  * the 4x4 MIMO-OFDM step at the benchmark's LTE 20 MHz / EVA70
+    configuration (phase 12c): the per-RE MMSE detector kernel
+    (``mimo_mmse``) bit for bit its plain version on the step's own
+    inputs, a replayed step's launches (3 fills, 1 ``block_fir``, 1
+    ``mimo_mmse``) and counts against its eager step, and the kernel's
+    time beside its byte bound, its plain version and the batched
+    ``torch.linalg.solve`` route;
   * the Alamouti 2x1 family through its CUDA kernel on the bulk path and
     through its library chain on the per-key path, and the BD CoMP capacity
     family the same way, at ``bench.py``'s widths (phases 13-19);
@@ -115,6 +122,7 @@ import contextlib
 import functools
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -551,6 +559,7 @@ def main() -> int:
     mc_entries = [flagship_phases(dev, smi, dtype) for dtype in MC_DTYPES]
 
     phases_8_to_12 = chain_phases(dev, smi, fill_err)
+    mimo_entry, mimo_fills, mimo_firs = mimo_ofdm_phase(dev, smi)
     phases_13_to_19 = mimo_bd_phases(dev, smi)
     phases_20_to_26 = ia_phases(dev, smi)
     wide_entries = geometry_phases(dev, smi)
@@ -560,7 +569,8 @@ def main() -> int:
     fir_entry, fill_entry = phases_8_to_12
     fill_entry["max_abs_err"] = max(fill_entry["max_abs_err"],
                                     comp_bd_fill_err)
-    fill_entry["launches"] += mimo.pop("fill_launches")
+    fill_entry["launches"] += mimo.pop("fill_launches") + mimo_fills
+    fir_entry["launches"] += mimo_firs
     # block_fir: the MIMO route's launches, parity and geometry
     fir_entry["launches"] += mimo.pop("launches")
     fir_entry["max_abs_err"] = max(fir_entry["max_abs_err"],
@@ -570,7 +580,7 @@ def main() -> int:
     parallel = parallel_phases(dev, smi)
     fill_entry["launches"] += app_phases(dev, smi)
     notebooks = notebook_phases(dev, smi)
-    entries = [*mc_entries, *phases_8_to_12, *phases_13_to_19,
+    entries = [*mc_entries, *phases_8_to_12, mimo_entry, *phases_13_to_19,
                phases_20_to_26, *wide_entries, *shape_entries]
     for entry in entries:
         more = parallel.get(entry["name"], {})
@@ -754,6 +764,133 @@ def replay_phase(dev, smi):
                                      f"{row['graphs']} graphs")
             out[tag] = row
     return out
+
+
+def mimo_ofdm_phase(dev, smi):
+    """Phase 12c: the 4x4 MIMO-OFDM step at the benchmark's configuration
+    (LTE 20 MHz, EVA70, 16-QAM, 14 x 1,200 REs a layer) and sub-chunk of
+    32 attempts. The detector kernel (``mimo_mmse``) held to its plain
+    version on the step's own H, y and sent indices at five SNRs and two
+    seeds: the same counts bit for bit (the two round the same float32
+    operations in the same order), and the step's counts equal them. A
+    replayed step launches the fill 3 times, ``block_fir`` once and the
+    detector once, and counts what its eager step counts. The kernel's
+    time (a CUDA graph of wrapper calls) beside its byte bound (H, y and
+    the indices read once: 192 B an RE), its plain version's and
+    Blast's library route's (batched ``torch.linalg.solve``). Returns the
+    detector's ``kernels`` entry and the fill's and block_fir's launches."""
+    import torch
+    from apps.mimo.mimo_ofdm_tdl_torch import eva_channel
+    from pyphysim_tpu_torch.mimo_chain import MimoChainStep
+    from pyphysim_tpu_torch.modulators import QAM
+    from pyphysim_tpu_torch.ops import fir
+    from pyphysim_tpu_torch.ops.mimo_detect import (mimo_mmse,
+                                                    mimo_mmse_reference)
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams, philox_draw
+    from pyphysim_tpu_torch.utils.misc import count_bits
+
+    nt = nr = 4
+    fft, cp, used, batch = 2048, 144, 1200, 32
+    res = used * 14
+    step = MimoChainStep(nt, nr, 16, res, fft, cp, used,
+                         eva_channel(nr, nt, device=dev), device=dev)
+    counters = (philox_draw, fir.block_fir, mimo_mmse)
+    for c in counters:
+        c.launch_count = 0
+    gap = step_gap = errors = 0
+    for seed in (2 ** 31 + 21, 5):
+        streams = AttemptStreams.from_range(seed, 3 * batch, batch, dev)
+        draws = step.draw(*streams.split(3))
+        for snr_db in (0.0, 10.0, 20.0, 30.0, 40.0):
+            snr = 10 ** (snr_db / 10)
+            out = step.forward(*draws, snr)
+            amp = torch.full((), step.noise_amplitude(snr),
+                             dtype=torch.float32, device=dev)
+            s2 = amp * amp * ((used + cp) / fft)
+            got = mimo_mmse(out.response, out.received, draws[0], s2)
+            want = mimo_mmse_reference(out.response, out.received,
+                                       draws[0], s2)
+            gap += int((got - want).abs().sum())
+            step_gap += int((out.bit_errors - got).abs().sum())
+            errors += int(want.sum())
+    fills, firs, detects = (c.launch_count for c in counters)
+    phase("mimo_detect_parity", shape=f"{batch}x{nr}x{nt}x{res}", calls=10,
+          bits=10 * batch * res * nt * 4, bit_errors=errors,
+          kernel_vs_plain_gap=gap, step_vs_kernel_gap=step_gap)
+    if gap or step_gap:
+        raise AssertionError(f"mimo_detect: the kernel's counts differ from "
+                             f"its plain version's by {gap} bits, the "
+                             f"step's from the kernel's by {step_gap}")
+
+    # one replay: its launches, and its counts against the eager step's
+    streams = AttemptStreams.from_range(2 ** 31 + 22, 0, batch, dev)
+    step.step(streams, 10.0)                     # eager, then the capture
+    launches = {}
+    for route in ("replay", "eager"):
+        fn = step.step if route == "replay" else step.step_eager
+        for c in counters:
+            c.launch_count = 0
+        counts = fn(streams, 10.0)
+        launches[route] = tuple(c.launch_count for c in counters)
+        fills += launches[route][0]
+        firs += launches[route][1]
+        detects += launches[route][2]
+        if route == "replay":
+            replayed = counts.clone()
+    same = bool(torch.equal(replayed, counts))
+    phase("mimo_replay", launches_per_replay=compact(launches["replay"]),
+          launches_eager=compact(launches["eager"]), replay_eq_eager=same,
+          graphs=len(step._graphs))
+    if launches["replay"] != (3, 1, 1) or launches["eager"] != (3, 1, 1) \
+            or not same:
+        raise AssertionError(f"mimo_replay: launches {launches} (fill, "
+                             f"block_fir, mimo_mmse), replay equal to the "
+                             f"eager step: {same}")
+
+    # times (CUDA events, best of 3 after a warm-up)
+    draws = step.draw(*streams.split(3))
+    out = step.forward(*draws, 100.0)
+    h, y, sent = out.response, out.received, draws[0]
+    s2 = torch.full((), (used + cp) / (fft * 100.0), dtype=torch.float32,
+                    device=dev)
+    kernel_ms = graph_ms(lambda: mimo_mmse(h, y, sent, s2))
+    wrapper_ms = best_ms(lambda: mimo_mmse(h, y, sent, s2), inner=10)
+    plain_ms = best_ms(lambda: mimo_mmse_reference(h, y, sent, s2))
+    qam = QAM(16, device=dev)
+    eye = torch.eye(nt, dtype=torch.complex64, device=dev)
+
+    def library():
+        hm = h.permute(0, 3, 1, 2)                   # (n, S, Nr, Nt)
+        hh = hm.mH
+        est = torch.linalg.solve(hh @ hm + s2 * eye,
+                                 hh @ y.permute(0, 2, 1)[..., None]
+                                 )[..., 0] * math.sqrt(nt)
+        bits = qam.demodulate_hard(est) ^ sent.permute(0, 2, 1)
+        return count_bits(bits).sum(dim=(1, 2))
+    library_gap = int((library() - mimo_mmse(h, y, sent, s2)).abs().sum())
+    library_ms = best_ms(library)
+    nbytes = batch * (res * (8 * nr * nt + 8 * nr + 8 * nt) + 8)
+    bound, bound_by = bound_ms(nbytes=nbytes, flops=batch * res * 594)
+    phase("mimo_times", card=repr(smi), shape=f"{batch}x{nr}x{nt}x{res}",
+          mimo_mmse_ms=kernel_ms, bound_ms=bound, bound_by=bound_by,
+          share_of_bound=bound / kernel_ms, wrapper_ms=wrapper_ms,
+          plain_ms=plain_ms, library_ms=library_ms,
+          library_vs_kernel_gap=library_gap)
+    return {
+        "name": "mimo_mmse",
+        "route": "cuda",
+        "source": "pyphysim_tpu_torch/ops/csrc/mimo_mmse.cu",
+        "replaces": None,
+        "launches": detects,
+        "max_abs_err": gap,
+        "ms": kernel_ms,
+        "timed_by": "graph_replay",
+        "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }, fills, firs
 
 
 def fill_draws_parity(name, draws):

@@ -9,7 +9,10 @@ whole repetition in one hand-written CUDA kernel through the
 ``ops/csrc/mc_ofdm_tdl.cu``), and the time-domain and fused chains
 (``chain.py``) through its per-key path, whose block-static channel
 convolves with the ``block_fir`` CUDA kernel (``ops/fir.py``,
-``ops/csrc/block_fir.cu``).
+``ops/csrc/block_fir.cu``); the MIMO-OFDM step (``mimo_chain.py``: Nt x Nr
+spatial multiplexing over a MIMO TDL channel, detected per resource element
+by the ``mimo_mmse`` CUDA kernel, ``ops/mimo_detect.py``) runs the same
+per-key path.
 
 Importing this package imports nothing heavy: ``torch`` is pulled in by the
 submodules that need it, and the CUDA library is built and loaded on the

@@ -28,7 +28,10 @@ attempts, its seed and salts (device words the fill kernel reads) and the
 noise amplitude are written into the graph's buffers before each replay;
 the counts come back as a fresh tensor. The graph holds the same
 hand-written kernels and ops as the eager step, so the counts are the
-same bit for bit. On the CPU ``step`` is ``step_eager``.
+same bit for bit. On the CPU ``step`` is ``step_eager``. The capture and
+the replay serve any per-key step that has ``draw``, ``forward_scaled``
+and ``noise_amplitude`` (:class:`ReplayedStep`): the MIMO-OFDM step of
+``mimo_chain.py`` replays the same way.
 
 ``signal_dtype=torch.bfloat16`` is the reference's bf16 signal path, which
 ``bench.py`` times. Torch has no complex bf16 and ``torch.fft`` no bf16, so
@@ -57,19 +60,22 @@ from .channels import COST259_TUx, JakesSampleGenerator, TdlChannel
 from .modulators import OFDM, QAM, OfdmOneTapEqualizer
 from .ops.fir import block_fir
 from .ops.fused_ofdm_tdl import FusedOfdmTdl
+from .ops.mimo_detect import mimo_mmse
 from .ops.streams import AttemptStreams, philox_draw
 from .tracing import span
 from .utils.misc import (count_bit_errors, randn_c, random_symbols,
                          round_bf16)
 
-__all__ = ["ChainOutput", "ChainStep"]
+__all__ = ["ChainOutput", "ChainStep", "ReplayedStep"]
 
 BANDWIDTH = 20e6       # Ts = 50 ns
 DOPPLER_HZ = 30.0
 JAKES_RAYS = 16
-# captured steps a ChainStep keeps (one an attempt count and device), the
-# least recently replayed dropped first
+# captured steps a ReplayedStep keeps (one an attempt count and device),
+# the least recently replayed dropped first
 GRAPHS_KEPT = 8
+# the launch counters a capture records and each replay advances
+_COUNTED = (philox_draw, block_fir, mimo_mmse)
 
 
 def _signal_dtype(dtype) -> Optional[torch.dtype]:
@@ -90,7 +96,57 @@ class ChainOutput(NamedTuple):
     received: torch.Tensor     # (n, num_symbols) complex64, demodulated
 
 
-class ChainStep:
+class ReplayedStep:
+    """:meth:`step` and :meth:`step_eager` of a per-key step: one call of
+    ``n`` attempts draws its inputs from three sub-streams (``draw``) and
+    runs ``forward_scaled`` on them, the noise scaled by
+    ``noise_amplitude(snr_linear)``; on a CUDA device one replay of the
+    step's graph at ``n`` attempts (the module docstring). A subclass
+    calls ``ReplayedStep.__init__`` and defines ``draw``,
+    ``forward_scaled``, ``noise_amplitude`` and ``forward``."""
+
+    def __init__(self) -> None:
+        self._graphs: "OrderedDict[tuple, _StepGraph]" = OrderedDict()
+
+    def step(self, streams, snr_linear: float) -> torch.Tensor:
+        """(n,) bit-error counts of the attempts of ``streams`` (an
+        ``AttemptStreams``): data, channel state and noise each from its
+        own sub-stream, as the JAX step splits its key in three. On a
+        CUDA device one replay of the step's graph at ``n`` attempts (the
+        module docstring); a fresh tensor, which later calls leave
+        alone."""
+        dev = streams.attempts.device
+        if dev.type != "cuda" or streams.n == 0:
+            return self.step_eager(streams, snr_linear)
+        key = (streams.n, dev)
+        graph = self._graphs.get(key)
+        if graph is None:
+            out = self.step_eager(streams, snr_linear)
+            self._graphs[key] = _StepGraph(self, streams.n, dev)
+            if len(self._graphs) > GRAPHS_KEPT:
+                # its last replay may still run: let it end before the
+                # graph and its memory go
+                torch.cuda.current_stream(dev).synchronize()
+                self._graphs.popitem(last=False)
+            return out
+        self._graphs.move_to_end(key)
+        with span("chain.draw"):
+            graph.load(self, streams, snr_linear)
+        with span("chain.forward"):
+            with span("chain.replay"):
+                graph.replay()
+            return graph.bit_errors.clone()
+
+    def step_eager(self, streams, snr_linear: float) -> torch.Tensor:
+        """:meth:`step` launched op by op: the CPU's route, and the first
+        call at each attempt count on a CUDA device."""
+        with span("chain.draw"):
+            data, state, noise = self.draw(*streams.split(3))
+        with span("chain.forward"):
+            return self.forward(data, state, noise, snr_linear).bit_errors
+
+
+class ChainStep(ReplayedStep):
     """The flagship chain at one geometry. Arguments as
     ``_make_chain_step`` (``precision`` has no counterpart: the port's
     transforms are ``torch.fft`` in float32); ``signal_dtype`` is None
@@ -117,7 +173,7 @@ class ChainStep:
             self.ofdm.samples_per_symbol if block_static else None)
         self.equalizer = OfdmOneTapEqualizer(self.ofdm)
         self.fop = FusedOfdmTdl(self.ofdm, self.channel) if fused else None
-        self._graphs: "OrderedDict[tuple, _StepGraph]" = OrderedDict()
+        ReplayedStep.__init__(self)
 
     @property
     def noise_length(self) -> int:
@@ -182,57 +238,23 @@ class ChainStep:
                 self.channel.init_state(s_channel),
                 randn_c(s_noise, self.noise_length))
 
-    def step(self, streams, snr_linear: float) -> torch.Tensor:
-        """(n,) bit-error counts of the attempts of ``streams`` (an
-        ``AttemptStreams``): data, channel state and noise each from its
-        own sub-stream, as the JAX step splits its key in three. On a
-        CUDA device one replay of the step's graph at ``n`` attempts (the
-        module docstring); a fresh tensor, which later calls leave
-        alone."""
-        dev = streams.attempts.device
-        if dev.type != "cuda" or streams.n == 0:
-            return self.step_eager(streams, snr_linear)
-        key = (streams.n, dev)
-        graph = self._graphs.get(key)
-        if graph is None:
-            out = self.step_eager(streams, snr_linear)
-            self._graphs[key] = _StepGraph(self, streams.n, dev)
-            if len(self._graphs) > GRAPHS_KEPT:
-                # its last replay may still run: let it end before the
-                # graph and its memory go
-                torch.cuda.current_stream(dev).synchronize()
-                self._graphs.popitem(last=False)
-            return out
-        self._graphs.move_to_end(key)
-        with span("chain.draw"):
-            graph.load(self, streams, snr_linear)
-        with span("chain.forward"):
-            with span("chain.replay"):
-                graph.replay()
-            return graph.bit_errors.clone()
-
-    def step_eager(self, streams, snr_linear: float) -> torch.Tensor:
-        """:meth:`step` launched op by op: the CPU's route, and the first
-        call at each attempt count on a CUDA device."""
-        with span("chain.draw"):
-            data, state, noise = self.draw(*streams.split(3))
-        with span("chain.forward"):
-            return self.forward(data, state, noise, snr_linear).bit_errors
-
     @property
     def bits_per_attempt(self) -> int:
         return self.num_symbols * self.qam.K
 
 
 class _StepGraph:
-    """One captured step of a :class:`ChainStep` at ``n`` attempts on one
-    CUDA device. What changes between calls lives in static device
-    buffers, written before each replay and never baked into the capture:
-    the attempts, the key words (the seed, then the data, channel and
-    noise salts: each draw reads its seed and salt there, stride 0 over
-    the rows) and the noise amplitude. Raises if the capture fails."""
+    """One captured step of a :class:`ReplayedStep` at ``n`` attempts on
+    one CUDA device: its ``draw`` and ``forward_scaled``, whatever they
+    launch. What changes between calls lives in static device buffers,
+    written before each replay and never baked into the capture: the
+    attempts, the key words (the seed, then the data, channel and noise
+    salts: each draw reads its seed and salt there, stride 0 over the
+    rows) and the noise amplitude. The launch counters of ``_COUNTED``
+    advance by what the capture counted at each replay. Raises if the
+    capture fails."""
 
-    def __init__(self, chain: ChainStep, n: int, device: torch.device):
+    def __init__(self, chain: ReplayedStep, n: int, device: torch.device):
         self.attempts = torch.zeros(n, dtype=torch.int64, device=device)
         self.words = torch.zeros(4, dtype=torch.int64, device=device)
         self.amp = torch.zeros((), dtype=torch.float32, device=device)
@@ -240,7 +262,7 @@ class _StepGraph:
         streams = [AttemptStreams(self.words[0], self.attempts,
                                   self.words[i]) for i in (1, 2, 3)]
         self.graph = torch.cuda.CUDAGraph()
-        counted = (philox_draw.launch_count, block_fir.launch_count)
+        counted = [fn.launch_count for fn in _COUNTED]
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         try:
@@ -257,12 +279,13 @@ class _StepGraph:
             torch.cuda.current_stream(device).wait_stream(side)
             # the capture launched nothing: what it counted, each replay
             # launches
-            self.fills = philox_draw.launch_count - counted[0]
-            self.firs = block_fir.launch_count - counted[1]
+            self.launches = [fn.launch_count - c
+                             for fn, c in zip(_COUNTED, counted)]
         finally:
-            philox_draw.launch_count, block_fir.launch_count = counted
+            for fn, c in zip(_COUNTED, counted):
+                fn.launch_count = c
 
-    def load(self, chain: ChainStep, streams, snr_linear: float) -> None:
+    def load(self, chain: ReplayedStep, streams, snr_linear: float) -> None:
         """Write the call's attempts, and its key words and amplitude
         where they differ from the last call's."""
         self.attempts.copy_(streams.attempts)
@@ -276,5 +299,5 @@ class _StepGraph:
 
     def replay(self) -> None:
         self.graph.replay()
-        philox_draw.launch_count += self.fills
-        block_fir.launch_count += self.firs
+        for fn, k in zip(_COUNTED, self.launches):
+            fn.launch_count += k

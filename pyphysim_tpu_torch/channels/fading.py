@@ -38,7 +38,7 @@ response; :func:`tdl_filter` refuses the uplink, which
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -253,12 +253,16 @@ class TdlImpulseResponse:
         dense[self.tap_indexes_sparse] = sparse
         return dense.movedim(0, self.tap_axis)
 
-    def get_freq_response(self, fft_size: int) -> torch.Tensor:
+    def get_freq_response(self, fft_size: int,
+                          bins: Optional[Sequence[int]] = None
+                          ) -> torch.Tensor:
         """``batch + [(Nr, Nt)] + (num_samples, fft_size)``: the frequency
         axis last, as in the JAX package. Taps at delays >= fft_size are
-        dropped (numpy FFT truncation)."""
+        dropped (numpy FFT truncation). ``bins``: only those FFT bins, in
+        that order (an OFDM symbol's used subcarriers), as the last axis."""
         taps = self._tap_values_sparse.movedim(self.tap_axis, -1)
-        w = sparse_dft(self.tap_indexes_sparse, range(fft_size), fft_size,
+        w = sparse_dft(self.tap_indexes_sparse,
+                       range(fft_size) if bins is None else bins, fft_size,
                        taps.device)
         return full_precision(torch.matmul)(taps, w)
 

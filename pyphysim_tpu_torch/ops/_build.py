@@ -82,6 +82,7 @@ _SIGNATURES = {
                    ctypes.c_uint, _ll, _vp, _vp],
     "mc_ia_inject": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f,
                      _f, _ll, _ll, _vp, _vp],
+    "mimo_mmse": [_vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _f, _vp],
 }
 _RESTYPES = {"mc_bd_scratch_bytes": _ll, "mc_ia_scratch_bytes": _ll}
 

@@ -55,7 +55,24 @@ The spans, each at a layer boundary:
                    counts
 ``chain.replay``   inside ``chain.forward``: one replay of the step's CUDA
                    graph (its ``cudaGraphLaunch``)
+``chain.channel``  inside the MIMO step's eager ``chain.forward``
+                   (``MimoChainStep.forward_scaled``): the Nr x Nt
+                   block-static channel (the Jakes taps, ``block_fir``'s
+                   MIMO route) and its per-RE response
+``chain.detect``   inside the same ``chain.forward``: the MMSE detector's
+                   launch (``ops/mimo_detect.py`` ``mimo_mmse``)
 =================  =========================================================
+
+``chain.draw``, ``chain.forward`` and ``chain.replay`` serve every step
+with :class:`~pyphysim_tpu_torch.chain.ReplayedStep`'s ``step``
+(``ChainStep``, ``MimoChainStep``). A replay opens neither
+``chain.channel`` nor ``chain.detect``: its work is inside the graph.
+
+Beside the spans, the program counts its kernels' launches, recorded
+always: ``ops.fir.block_fir.launch_count``,
+``ops.streams.philox_draw.launch_count`` and
+``ops.mimo_detect.mimo_mmse.launch_count``, each advanced by a replay as
+many times as the captured step launched the kernel.
 """
 
 from __future__ import annotations
