@@ -47,6 +47,7 @@ import argparse
 import os
 import sys
 import time
+from contextlib import nullcontext
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -156,6 +157,47 @@ def _to_host(value):
         with span("engine.wait"):
             return value.detach().cpu().numpy()
     return np.asarray(value)
+
+
+def _queue_copies(value, copies: Dict[int, _HostCopy]):
+    """``value`` with each CUDA tensor replaced by its pinned host copy,
+    queued on its stream, one a distinct tensor (``copies``, by identity);
+    any other value through ``_to_host`` at once."""
+    if isinstance(value, tuple):
+        return tuple(_queue_copies(v, copies) for v in value)
+    if not getattr(value, "is_cuda", False):
+        return _to_host(value)
+    if id(value) not in copies:
+        copies[id(value)] = _HostCopy(value)
+    return copies[id(value)]
+
+
+def _copied(value):
+    """``value`` with each host copy replaced by its numpy array."""
+    if isinstance(value, tuple):
+        return tuple(_copied(v) for v in value)
+    return value.host.numpy() if isinstance(value, _HostCopy) else value
+
+
+def _fetch_each_once(values):
+    """Start the fetch of ``values`` (a list of outputs: tensors, arrays,
+    scalars or ``(values, totals)`` pairs) to the host: one pinned copy of
+    each distinct CUDA tensor among them, queued now behind its work
+    (``_queue_copies``). Returns a function that waits for the copies, in
+    one ``engine.wait``, and returns ``values`` on the host. No reference
+    cycle holds a copy: its pinned memory is freed with its last
+    reference, never by the garbage collector inside a graph capture."""
+    copies: Dict[int, _HostCopy] = {}
+    queued = [_queue_copies(v, copies) for v in values]
+
+    def wait():
+        if copies:
+            with span("engine.wait"):
+                for copy in copies.values():
+                    copy.done.synchronize()
+        return [_copied(v) for v in queued]
+
+    return wait
 
 
 class _OffsetProgressProxy:
@@ -884,8 +926,12 @@ class SimulationRunner:
         stop metric (``prior_metric`` plus the valid attempts' metric so
         far, summed in float32) is below the limit: the rule of the JAX
         package's device ``scan``. Here the sum is read on the host after
-        each sub-chunk, one device synchronisation per sub-chunk; the rows
-        of sub-chunks that did not run are zeros and inactive.
+        each sub-chunk, one device synchronisation per sub-chunk (one
+        fetch of each distinct output tensor, ``_fetch_each_once``); the
+        next sub-chunk is dispatched before the host builds this one's
+        outputs, so that the device runs it meanwhile. The calls are those
+        of the rule, in its order. The rows of sub-chunks that did not run
+        are zeros and inactive.
 
         Under a mesh every (sub-)chunk is split over ``mesh_axis``: rank
         ``r`` runs the kernel on the streams of attempts ``[start + r *
@@ -895,18 +941,23 @@ class SimulationRunner:
         from ..ops.streams import AttemptStreams
         mesh, axis = self.mesh, self.mesh_axis
 
-        def run(start: int, n: int):
+        def streams_for(start: int, n: int):
             if mesh is None:
-                streams = AttemptStreams.from_range(seed, start, n, device)
-                with span("wrapper.call", attempts=n):
-                    return kernel(streams)
+                return AttemptStreams.from_range(seed, start, n, device)
             from ..parallel.mesh import shard_rows
             index, n_local = shard_rows(mesh, axis, n)
-            streams = AttemptStreams.from_range(
+            return AttemptStreams.from_range(
                 seed, start + index * n_local, n_local, device)
-            with span("wrapper.call", attempts=n_local):
+
+        def call(streams):
+            with span("wrapper.call", attempts=streams.n):
                 out = kernel(streams)
-            return _gather_outputs(mesh, axis, out, n_local, device)
+            if mesh is None:
+                return out
+            return _gather_outputs(mesh, axis, out, streams.n, device)
+
+        def run(start: int, n: int):
+            return call(streams_for(start, n))
 
         if self.batch_stop_criterion is None:
             def executor(cursor, nk, prior_metric):
@@ -924,16 +975,31 @@ class SimulationRunner:
             sub = nk // n_sub   # nk is a _round_chunk multiple of n_sub
             acc = np.float32(prior_metric)
             parts = []
-            while len(parts) < n_sub and acc < limit:
-                out = run(cursor + len(parts) * sub, sub)
+            out = call(streams_for(cursor, sub)) if acc < limit else None
+            while out is not None:
                 metric = out[stop_name]
                 if isinstance(metric, tuple):
                     metric = metric[0]
-                metric = np.asarray(_to_host(metric), np.float64)
-                if "__valid__" in out:
-                    metric = np.where(_to_host(out["__valid__"]), metric, 0)
+                valid = out.get("__valid__")
+                gate = [metric] if valid is None else [metric, valid]
+                wait = _fetch_each_once(gate + list(out.values()))
+                k = len(parts) + 1
+                # built while the copies are on their way; dropped if the
+                # gate closes
+                streams = streams_for(cursor + k * sub, sub) \
+                    if k < n_sub else None
+                host = wait()
+                metric = np.asarray(host[0], np.float64)
+                if valid is not None:
+                    metric = np.where(host[1], metric, 0)
                 acc = np.float32(acc + np.float32(metric.sum()))
-                parts.append(_host_outputs(out, sub))
+                following = call(streams) \
+                    if streams is not None and acc < limit else None
+                outputs = dict(zip(out, host[len(gate):]))
+                with (span("engine.overlap") if following is not None
+                      else nullcontext()):
+                    parts.append(_host_outputs(outputs, sub))
+                out = following
             active = np.arange(nk) < len(parts) * sub
             merged = {name: _stack_rows([p[name] for p in parts], nk)
                       for name in parts[0]}

@@ -43,9 +43,13 @@ The spans, each at a layer boundary:
                    (attribute ``attempts``)
 ``engine.wait``    each statement of ``_to_host`` that waits for the
                    device: an event's ``synchronize`` or a tensor's
-                   ``.cpu()``
+                   ``.cpu()``; and a per-key sub-chunk's one wait for the
+                   host copies of its outputs (``_fetch_each_once``)
 ``engine.account`` ``_consume_chunk``: a chunk's accounting (attribute
                    ``attempts``)
+``engine.overlap`` the per-key executor's host outputs of a sub-chunk,
+                   built after the next sub-chunk was dispatched (so
+                   while the device runs it)
 ``chain.draw``     ``ChainStep.step``'s draws: the stream split, the data,
                    the channel state, the noise; where the step replays a
                    CUDA graph, the split and the writes of the graph's

@@ -9,8 +9,16 @@ per-attempt random streams (``ops/streams.py``).
 * ``__valid__`` skip-and-retry keeps the first ``rep_max`` valid attempts.
 * A sweep resumed from its partial-results files equals an uninterrupted
   one.
+* Under a stop rule the executor fetches each distinct device tensor of a
+  sub-chunk once and dispatches the next sub-chunk before it builds this
+  one's host outputs, with the calls, accepted attempts and Results of the
+  sequential order (``torch_runner_checks.py``) and of the benchmark's
+  replay of the rules.
 * ``randn_c`` and ``random_symbols`` draw from an explicit source.
 """
+
+import gc
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -228,6 +236,196 @@ def test_speculative_chunk_is_dispatched_ahead():
     r.simulate()
     assert events == [("dispatch", 0), ("dispatch", 4), ("consume", 4),
                       ("dispatch", 8), ("consume", 4), ("consume", 4)]
+
+
+class _OnCard:
+    """A CPU tensor that the executor takes for a CUDA one: it fetches it
+    through ``_HostCopy`` (stubbed by the tests), and ``.detach()`` hands
+    the tensor to the sequential order's ``.cpu()``."""
+
+    is_cuda = True
+
+    def __init__(self, tensor):
+        self.tensor = tensor
+
+    def detach(self):
+        return self.tensor
+
+
+def _gate_runner(limit, n_sub, p_skip, on_card):
+    """A per-key runner under a stop rule whose kernel returns one tensor
+    of errors under three names (``bit_errors``, ``ber``'s values,
+    ``errors``), a tensor total and a ``__valid__`` mask; ``calls`` logs
+    each call's point, attempts and counts, ``events`` each chunk and each
+    dispatch, ``accounts`` each chunk's accepted, consumed and skipped
+    attempts."""
+
+    class Gate(T.SimulationRunner):
+        def __init__(self):
+            super().__init__(read_command_line_args=False)
+            self.params.add("SNR", SNRS)
+            self.params.set_unpack_parameter("SNR")
+            self.rep_max, self.batch_size = 64, 16
+            self.batch_stop_criterion = ("bit_errors", limit)
+            self.num_stop_subchunks = n_sub
+            self.update_progress_function_style = None
+            self.device = "cpu"
+            self.batch_result_types = {"bit_errors": T.Result.SUMTYPE,
+                                       "ber": T.Result.RATIOTYPE,
+                                       "errors": T.Result.SUMTYPE}
+            self.calls, self.events, self.accounts = [], [], []
+
+        def _gen_simulation_kernel(self, current_parameters):
+            point = current_parameters.unpack_index
+            wrap = _OnCard if on_card else (lambda t: t)
+
+            def kernel(streams):
+                start = int(streams.attempts[0])
+                self.events.append(("dispatch", start))
+                e = streams.integers(64, ())
+                self.calls.append((point, start, streams.n, e.numpy()))
+                errors = wrap(e)
+                return {"bit_errors": errors,
+                        "ber": (errors, wrap(torch.tensor(6.0))),
+                        "errors": errors,
+                        "__valid__": wrap(_valid(streams, p_skip))}
+            return kernel
+
+        def _make_chunk_executor(self, kernel, seed, device):
+            executor = super()._make_chunk_executor(kernel, seed, device)
+
+            def logged(cursor, nk, prior_metric):
+                self.events.append(("chunk", nk))
+                return executor(cursor, nk, prior_metric)
+            return logged
+
+        def _consume_chunk(self, out, nk, *args, **kwargs):
+            counts = super()._consume_chunk(out, nk, *args, **kwargs)
+            self.accounts.append(counts)
+            return counts
+
+    return Gate()
+
+
+def _gate_summary(runner):
+    res = runner.results
+    return {name: [float(v) for v in res.get_result_values_list(name)]
+            for name in ("bit_errors", "ber", "errors",
+                         "num_skipped_reps")} | {
+        "runned_reps": list(runner.runned_reps),
+        "accounts": runner.accounts,
+        "calls": [c[:3] for c in runner.calls]}
+
+
+class _Done:
+    @staticmethod
+    def synchronize():
+        pass
+
+
+def _stub_fetches(monkeypatch, runner):
+    """Log each host copy the executor queues (``("fetch",)``) and each
+    host-output build (``("book", rows)``) into ``runner.events``, and a
+    weak reference to each copy into ``runner.copies``."""
+    import pyphysim_tpu_torch.simulations.runner as R
+    runner.copies = []
+
+    class Copy:
+        def __init__(self, value):
+            runner.events.append(("fetch",))
+            runner.copies.append(weakref.ref(self))
+            self.host = value.tensor
+            self.done = _Done
+
+    book = R._host_outputs
+
+    def logged_book(out, n):
+        runner.events.append(("book", n))
+        return book(out, n)
+
+    monkeypatch.setattr(R, "_HostCopy", Copy)
+    monkeypatch.setattr(R, "_host_outputs", logged_book)
+
+
+GATES = [(limit, n_sub) for limit in (300.0, 1200.0, 1e9)
+         for n_sub in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("on_card", [True, False])
+@pytest.mark.parametrize("p_skip", [0.0, 0.3])
+@pytest.mark.parametrize("limit,n_sub", GATES)
+def test_gated_subchunks_make_the_sequential_calls(monkeypatch, limit, n_sub,
+                                                   p_skip, on_card):
+    """The executor that gates each sub-chunk on one fetch and dispatches
+    the next before its bookkeeping makes the calls, accepts the attempts
+    and keeps the Results of the sequential order; with no skipped
+    attempt, the calls and counts the benchmark's replay of the rules
+    gives."""
+    from perfbench.reference import engine
+    from torch_runner_checks import use_sequential_executor
+
+    want = use_sequential_executor(_gate_runner(limit, n_sub, p_skip,
+                                                on_card))
+    want.simulate()
+    got = _gate_runner(limit, n_sub, p_skip, on_card)
+    _stub_fetches(monkeypatch, got)
+    got.simulate()
+    assert _gate_summary(got) == _gate_summary(want)
+    for g, w in zip(got.calls, want.calls):
+        np.testing.assert_array_equal(g[3], w[3])
+    if limit < 1e9:
+        assert min(got.runned_reps) < got.rep_max     # the rule stopped
+    if p_skip == 0.0:
+        for point, reps in enumerate(got.runned_reps):
+            calls = [c[1:] for c in got.calls if c[0] == point]
+            replay = engine.replay_perkey(calls, got.rep_max,
+                                          got.batch_size, limit, n_sub)
+            assert replay["ok"], replay["why"]
+            assert replay["calls"] == [c[:2] for c in calls]
+            assert replay["reps"] == reps
+            assert replay["bit_errors"] == \
+                got.results.get_result_values_list("bit_errors")[point]
+
+
+@pytest.mark.parametrize("on_card", [True, False])
+@pytest.mark.parametrize("limit,n_sub", GATES)
+def test_next_subchunk_is_dispatched_before_the_bookkeeping(
+        monkeypatch, limit, n_sub, on_card):
+    """Each sub-chunk queues one host copy a distinct device tensor (the
+    errors, the total, the mask: 3 for 5 outputs; none for CPU tensors),
+    and sub-chunk k + 1 is dispatched before sub-chunk k's host outputs
+    are built; a chunk's last sub-chunk is built after its wait."""
+    r = _gate_runner(limit, n_sub, 0.3, on_card)
+    _stub_fetches(monkeypatch, r)
+    r.simulate()
+    fetches = [("fetch",)] * (3 if on_card else 0)
+    starts = [i for i, e in enumerate(r.events) if e[0] == "chunk"]
+    want = []
+    for a, b in zip(starts, starts[1:] + [len(r.events)]):
+        nk = r.events[a][1]
+        dispatches = [e for e in r.events[a:b] if e[0] == "dispatch"]
+        want += [r.events[a], dispatches[0]] + fetches
+        for d in dispatches[1:]:
+            want += [d, ("book", nk // n_sub)] + fetches
+        want += [("book", nk // n_sub), ("book", nk)]
+    assert r.events == want
+    assert len(r.calls) >= len(starts) >= len(SNRS)
+
+
+def test_host_copies_are_freed_without_the_garbage_collector(monkeypatch):
+    """No reference cycle holds a sub-chunk's host copies (pinned memory
+    on a card): each is freed with its last reference, so the collector
+    never frees one inside a CUDA graph capture."""
+    r = _gate_runner(1200.0, 4, 0.3, True)
+    _stub_fetches(monkeypatch, r)
+    gc.disable()
+    try:
+        r.simulate()
+        alive = sum(ref() is not None for ref in r.copies)
+    finally:
+        gc.enable()
+    assert len(r.copies) == 3 * len(r.calls)
+    assert alive == 0
 
 
 def test_randn_c_and_random_symbols():

@@ -1,6 +1,6 @@
 """The port's spans (``pyphysim_tpu_torch/tracing.py``): nothing recorded
-without a profiler; under ``torch.profiler`` the seven spans of the
-runner's and the chain step's layer boundaries, with their parents, their
+without a profiler; under ``torch.profiler`` the spans of the runner's
+and the chain step's layer boundaries, with their parents, their
 request ids and their counts, on the CPU routes of the bulk and per-key
 OFDM apps."""
 
@@ -23,8 +23,8 @@ from pyphysim_tpu_torch import tracing  # noqa: E402
 SNRS = np.array([0.0, 10.0])
 PARENT = {"engine.sweep": None, "engine.point": "engine.sweep",
           "wrapper.call": "engine.point", "engine.wait": "engine.point",
-          "engine.account": "engine.point", "chain.draw": "wrapper.call",
-          "chain.forward": "wrapper.call"}
+          "engine.account": "engine.point", "engine.overlap": "engine.point",
+          "chain.draw": "wrapper.call", "chain.forward": "wrapper.call"}
 
 
 def _bulk_runner():
@@ -89,7 +89,7 @@ def test_without_a_profiler_a_span_is_one_shared_object_that_records():
 def test_the_spans_and_their_parents(route, request):
     recs = request.getfixturevalue(route)[1]
     names = {s.name for s in recs}
-    want = set(PARENT) - ({"chain.draw", "chain.forward"}
+    want = set(PARENT) - ({"chain.draw", "chain.forward", "engine.overlap"}
                           if route == "bulk" else set())
     assert names == want
     for s in recs:
@@ -133,6 +133,9 @@ def test_three_waits_a_perkey_subchunk_under_a_stop_rule(perkey):
     subchunks = len(SNRS) * runner.num_stop_subchunks
     assert n["wrapper.call"] == runner.chunks_dispatched == subchunks
     assert n["engine.wait"] == 3 * subchunks
+    # every sub-chunk but a chunk's last is accounted after the next one
+    # was dispatched
+    assert n["engine.overlap"] == subchunks - len(SNRS)
     assert n["chain.draw"] == n["chain.forward"] == subchunks
     assert n["engine.account"] == len(SNRS)        # one chunk a point
 
