@@ -62,7 +62,6 @@ from .channels import TdlChannel
 from .channels.fading import tdl_filter_block_fft_mimo
 from .modulators import OFDM, QAM
 from .ops.mimo_detect import mimo_mmse
-from .tracing import span
 from .utils.misc import randn_c, random_symbols, round_bf16
 
 __all__ = ["MimoChainOutput", "MimoChainStep"]
@@ -150,20 +149,18 @@ class MimoChainStep(ReplayedStep):
         tx = rnd(self.qam.modulate(data) * self._split)     # (n, Nt, S)
         sig = rnd(self.ofdm.modulate(tx))                   # (n, Nt, N)
         length = sig.shape[-1]
-        with span("chain.channel"):
-            ir, _ = self.channel._block_response(channel_state, length,
-                                                 self.block_size)
-            rx = tdl_filter_block_fft_mimo(ir, sig, self.block_size)
-            h = ir.get_freq_response(self.ofdm.fft_size, bins=self._bins)
+        ir, _ = self.channel._block_response(channel_state, length,
+                                             self.block_size)
+        rx = tdl_filter_block_fft_mimo(ir, sig, self.block_size)
+        h = ir.get_freq_response(self.ofdm.fft_size, bins=self._bins)
         if bf16:
             rx = rnd(rnd(rx) + rnd(rnd(noise) * amp))
         else:
             rx = rx + noise * amp
         rx = rnd(self.ofdm.demodulate(rx[..., :length]))    # (n, Nr, S)
         h = h.reshape(n, nr, nt, self.num_symbols)
-        with span("chain.detect"):
-            errors = mimo_mmse(h, rx, data, amp * amp * self._var_scale,
-                               self.qam.M)
+        errors = mimo_mmse(h, rx, data, amp * amp * self._var_scale,
+                           self.qam.M)
         return MimoChainOutput(errors, rx, h)
 
     def draw(self, s_data, s_channel, s_noise):

@@ -21,17 +21,16 @@ checkpoint/resume and progress tracking, with three execution paths:
   * **Bulk path** — subclasses implement ``_gen_bulk_kernel`` returning
     ``fn(start, n)``, a function that simulates attempts
     ``[start, start + n)`` in one call (``apps/ofdm/ofdm_mc_kernel_torch.py``
-    runs a whole chunk of repetitions in one CUDA kernel launch). The
-    runner keeps an absolute attempt cursor, accepts the first ``rep_max``
-    valid attempts (the reserved ``"__valid__"`` mask skips and retries),
-    sizes chunks from a 4-rung ladder when a stop criterion is set, and
-    double-buffers: chunk k+1 is enqueued on the device before chunk k's
-    tensors are fetched to the host.
+    runs a whole chunk of repetitions in one CUDA kernel launch); with a
+    stop criterion the chunk sizes come from a 4-rung ladder.
 
-The per-key and bulk paths share the attempt cursor (accepted plus
-skipped attempts, so a resume continues the stream sequence), the
-``__valid__`` skip-and-retry and the Result accounting
-(``_consume_chunk``).
+The per-key and bulk paths run through one chunk loop (``_chunk_loop``):
+an absolute attempt cursor (accepted plus skipped attempts, so a resume
+continues the stream sequence), the first ``rep_max`` valid attempts
+accepted (the reserved ``"__valid__"`` mask skips and retries,
+``_consume_chunk``), and double buffering: chunk k+1 is dispatched before
+chunk k's outputs are fetched. Each distinct device tensor of a chunk is
+copied to the host once, and the host waits once (``_fetch_each_once``).
 
 ``simulate_in_parallel`` runs the same sweep with each chunk's attempts
 split over a ``torch.distributed`` device mesh (``parallel/mesh.py``): every
@@ -131,42 +130,17 @@ class _HostCopy:
         self.done.record(torch.cuda.current_stream(tensor.device))
 
 
-def _start_fetch(value):
-    """Queue the host copy of one bulk-kernel output as soon as its chunk
-    is dispatched. On one CUDA stream, a copy queued after the NEXT chunk's
-    kernel would wait for that kernel too, and the host's accounting of
-    chunk k would never overlap the device's run of chunk k+1. A
-    ``(values, totals)`` pair is handled element-wise."""
-    if isinstance(value, tuple):
-        return tuple(_start_fetch(v) for v in value)
-    if getattr(value, "is_cuda", False):
-        return _HostCopy(value)
-    return value
-
-
-def _to_host(value):
-    """Fetch one bulk-kernel output to numpy; this is where the host waits
-    for that chunk (and only for it)."""
-    if isinstance(value, tuple):
-        return tuple(_to_host(v) for v in value)
-    if isinstance(value, _HostCopy):
-        with span("engine.wait"):
-            value.done.synchronize()
-        return value.host.numpy()
-    if hasattr(value, "detach"):
-        with span("engine.wait"):
-            return value.detach().cpu().numpy()
-    return np.asarray(value)
-
-
 def _queue_copies(value, copies: Dict[int, _HostCopy]):
     """``value`` with each CUDA tensor replaced by its pinned host copy,
     queued on its stream, one a distinct tensor (``copies``, by identity);
-    any other value through ``_to_host`` at once."""
+    any other value on the host at once, as numpy."""
     if isinstance(value, tuple):
         return tuple(_queue_copies(v, copies) for v in value)
     if not getattr(value, "is_cuda", False):
-        return _to_host(value)
+        if hasattr(value, "detach"):
+            with span("engine.wait"):
+                return value.detach().cpu().numpy()
+        return np.asarray(value)
     if id(value) not in copies:
         copies[id(value)] = _HostCopy(value)
     return copies[id(value)]
@@ -183,8 +157,10 @@ def _fetch_each_once(values):
     """Start the fetch of ``values`` (a list of outputs: tensors, arrays,
     scalars or ``(values, totals)`` pairs) to the host: one pinned copy of
     each distinct CUDA tensor among them, queued now behind its work
-    (``_queue_copies``). Returns a function that waits for the copies, in
-    one ``engine.wait``, and returns ``values`` on the host. No reference
+    (``_queue_copies``). Every chunked output reaches the host this way.
+    Returns a function that waits for the copies, in one ``engine.wait``,
+    and returns ``values`` on the host. Queued right after a dispatch, the
+    copies do not wait for the work dispatched after it. No reference
     cycle holds a copy: its pinned memory is freed with its last
     reference, never by the garbage collector inside a graph capture."""
     copies: Dict[int, _HostCopy] = {}
@@ -250,18 +226,16 @@ def _gather_outputs(mesh, axis: str, out: Dict[str, Any], n_local: int,
 
 
 def _host_outputs(out, n: int):
-    """A chunk's outputs as host numpy arrays, each ``(n, ...)``: waits
-    for queued copies and broadcasts a scalar RATIOTYPE total."""
-    host = {}
+    """A per-key chunk's host outputs with each RATIOTYPE total as ``(n,)``
+    float64 rows (a scalar total broadcast); the bulk path keeps its
+    kernel's totals as they are."""
+    host = dict(out)
     for name, v in out.items():
         if isinstance(v, tuple):
-            values, totals = _to_host(v)
-            totals = np.asarray(totals, np.float64)
+            totals = np.asarray(v[1], np.float64)
             if totals.ndim == 0:
                 totals = np.full(n, float(totals))
-            host[name] = (values, totals)
-        else:
-            host[name] = _to_host(v)
+            host[name] = (v[0], totals)
     return host
 
 
@@ -747,18 +721,23 @@ class SimulationRunner:
             bulk = self._gen_bulk_kernel(current_params)
             kernel = (self._gen_simulation_kernel(current_params)
                       if bulk is None else None)
-            if bulk is not None:
-                current_rep = self._bulk_loop(bulk, current_params,
-                                              current_results, current_rep,
-                                              pbar)
-            elif kernel is not None:
-                current_rep = self._batch_loop(kernel, current_params,
-                                               current_results, current_rep,
-                                               pbar)
-            else:
+            if bulk is None and kernel is None:
                 current_rep = self._serial_loop(current_params,
                                                 current_results,
                                                 current_rep, pbar)
+            else:
+                if not self.batch_result_types:
+                    raise RuntimeError(
+                        f"The {'per-key' if bulk is None else 'bulk'} path "
+                        "requires self.batch_result_types to declare the "
+                        "Result type of every kernel output")
+                chunks = (self._bulk_chunks(bulk, current_results)
+                          if bulk is not None else
+                          self._perkey_chunks(kernel, current_params,
+                                              current_results))
+                current_rep = self._chunk_loop(*chunks, current_params,
+                                               current_results, current_rep,
+                                               pbar)
             pbar.progress(self.rep_max)
 
             self._on_simulate_current_params_finish(current_params,
@@ -912,14 +891,80 @@ class SimulationRunner:
         current_results.merge_all_results(chunk_results)
         return n_accept, consumed, n_skip
 
+    def _chunk_loop(self, dispatch, chunk_size, current_params,
+                    current_results, current_rep, pbar) -> int:
+        """Chunk loop of the per-key and bulk paths: ``chunk_size(needed)``
+        sizes the next chunk when ``needed`` attempts are still to accept;
+        ``dispatch(cursor, nk)`` issues attempts ``[cursor, cursor + nk)``
+        and returns ``fetch()``, which waits for them and returns ``(host
+        outputs, active)``."""
+        cursor = current_rep + self._skipped_before(current_results)
+        # Without a stop criterion chunk k+1 is dispatched before chunk k is
+        # fetched, so the device runs it while the host accounts chunk k; a
+        # mispredicted cursor or size discards it and stops speculating.
+        speculate = self.batch_stop_criterion is None
+        pending: Optional[Tuple[int, int, Any]] = None
+        while current_rep < self.rep_max and \
+                self._stop_criterion_ok(current_results) and \
+                self._keep_going(current_params, current_results,
+                                 current_rep):
+            tic = time.time()
+            needed = self.rep_max - current_rep
+            nk = chunk_size(needed)
+            if pending is not None and pending[:2] == (cursor, nk):
+                fetch = pending[2]
+            else:
+                fetch = dispatch(cursor, nk)
+            pending = None
+            if speculate and needed > nk:
+                nk_next = chunk_size(needed - nk)
+                pending = (cursor + nk, nk_next,
+                           dispatch(cursor + nk, nk_next))
+            out, active = fetch()
+            elapsed = time.time() - tic
+            with span("engine.account", attempts=nk):
+                n_accept, consumed, n_skip = self._consume_chunk(
+                    out, nk, needed, elapsed, current_results, active)
+            current_rep += n_accept
+            cursor += consumed
+            if consumed != nk:
+                speculate = False
+            pbar.progress(current_rep)
+            self._save_partial_results_maybe(current_rep, current_params,
+                                             current_results)
+            if n_accept == 0 and n_skip == 0:
+                break    # the stop criterion gated the whole chunk off
+        self._merge_skip_count(current_results, 0)
+        return current_rep
+
     # -- per-key path ------------------------------------------------------
 
+    def _perkey_chunks(self, kernel, current_params, current_results):
+        """The per-key path's ``(dispatch, chunk_size)``: chunks of
+        ``min(batch, needed)`` attempts, rounded. Attempt ``a``'s streams
+        depend only on ``(base_seed, unpack_index, a)``, so any chunking
+        and any resume give the same accepted attempts."""
+        from .._device import require_cuda
+        seed = kernel_stream_seed(self.base_seed, current_params.unpack_index)
+        executor = self._make_chunk_executor(kernel, seed,
+                                             require_cuda(self.device))
+        bsize = self._default_batch_size()
+
+        def dispatch(cursor: int, nk: int):
+            prior = (self._stop_metric_value(current_results)
+                     if self.batch_stop_criterion is not None else 0.0)
+            return executor(cursor, nk, prior)
+
+        return dispatch, lambda needed: min(bsize, self._round_chunk(needed))
+
     def _make_chunk_executor(self, kernel, seed: int, device):
-        """Build ``executor(cursor, nk, prior_metric) -> (outputs,
-        active)`` for the per-key path. ``outputs`` maps each result name
-        to the kernel's per-attempt values, their host copies already
-        queued (``_to_host`` waits for them); ``active`` is None (every
-        attempt ran) or a bool mask over the chunk.
+        """Build ``executor(cursor, nk, prior_metric) -> fetch`` for the
+        per-key path: ``fetch()`` returns ``(outputs, active)``, where
+        ``outputs`` maps each result name to the kernel's per-attempt
+        values on the host (``_host_outputs``) and ``active`` is None
+        (every attempt ran) or a bool mask over the chunk. Without a stop
+        criterion the host copies are queued at once and ``fetch`` waits
+        for them.
 
         With ``batch_stop_criterion`` the chunk runs as
         ``num_stop_subchunks`` sub-chunks, each only while the accumulated
@@ -956,14 +1001,13 @@ class SimulationRunner:
                 return out
             return _gather_outputs(mesh, axis, out, streams.n, device)
 
-        def run(start: int, n: int):
-            return call(streams_for(start, n))
-
         if self.batch_stop_criterion is None:
             def executor(cursor, nk, prior_metric):
                 del prior_metric
-                return ({name: _start_fetch(v)
-                         for name, v in run(cursor, nk).items()}, None)
+                out = call(streams_for(cursor, nk))
+                names, wait = list(out), _fetch_each_once(list(out.values()))
+                return lambda: (_host_outputs(dict(zip(names, wait())), nk),
+                                None)
 
             return executor
 
@@ -1003,85 +1047,16 @@ class SimulationRunner:
             active = np.arange(nk) < len(parts) * sub
             merged = {name: _stack_rows([p[name] for p in parts], nk)
                       for name in parts[0]}
-            return merged, active
+            return lambda: (merged, active)
 
         return executor
 
-    def _batch_loop(self, kernel, current_params, current_results,
-                    current_rep, pbar) -> int:
-        """Chunk loop of the per-key path: attempt ``a``'s streams depend
-        only on ``(base_seed, unpack_index, a)``, so any chunking and any
-        resume give the same accepted attempts (the first ``rep_max``
-        valid ones)."""
-        from .._device import require_cuda
-        if not self.batch_result_types:
-            raise RuntimeError(
-                "The per-key path requires self.batch_result_types to "
-                "declare the Result type of every kernel output")
-        seed = kernel_stream_seed(self.base_seed, current_params.unpack_index)
-        executor = self._make_chunk_executor(kernel, seed,
-                                             require_cuda(self.device))
-        bsize = self._default_batch_size()
-        cursor = current_rep + self._skipped_before(current_results)
-
-        def dispatch(cur: int, nk: int):
-            prior = (self._stop_metric_value(current_results)
-                     if self.batch_stop_criterion is not None else 0.0)
-            return executor(cur, nk, prior)
-
-        # Double-buffered dispatch, as in _bulk_loop: without a stop
-        # criterion chunk k+1 is enqueued before chunk k is fetched; a
-        # mispredicted cursor (skips in chunk k) discards it and stops
-        # speculating.
-        speculate = self.batch_stop_criterion is None
-        pending: Optional[Tuple[int, int, Any]] = None
-        while current_rep < self.rep_max and \
-                self._stop_criterion_ok(current_results) and \
-                self._keep_going(current_params, current_results,
-                                 current_rep):
-            tic = time.time()
-            needed = self.rep_max - current_rep
-            nk = min(bsize, self._round_chunk(needed))
-            if pending is not None and pending[:2] == (cursor, nk):
-                out, active = pending[2]
-            else:
-                out, active = dispatch(cursor, nk)
-            pending = None
-            if speculate and needed > nk:
-                nk_next = min(bsize, self._round_chunk(needed - nk))
-                pending = (cursor + nk, nk_next,
-                           dispatch(cursor + nk, nk_next))
-            out = _host_outputs(out, nk)
-            elapsed = time.time() - tic
-            with span("engine.account", attempts=nk):
-                n_accept, consumed, n_skip = self._consume_chunk(
-                    out, nk, needed, elapsed, current_results, active)
-            current_rep += n_accept
-            cursor += consumed
-            if consumed != nk:
-                speculate = False
-            pbar.progress(current_rep)
-            self._save_partial_results_maybe(current_rep, current_params,
-                                             current_results)
-            if n_accept == 0 and n_skip == 0:
-                break    # the stop criterion gated the whole chunk off
-        self._merge_skip_count(current_results, 0)
-        return current_rep
-
     # -- bulk path ---------------------------------------------------------
 
-    def _bulk_loop(self, bulk, current_params, current_results,
-                   current_rep, pbar) -> int:
-        """Chunk loop for self-batched kernels (``_gen_bulk_kernel``): the
-        kernel owns its rep axis — the runner only hands it an absolute
-        attempt cursor and the chunk size."""
-        if not self.batch_result_types:
-            raise RuntimeError(
-                "The bulk path requires self.batch_result_types to "
-                "declare the Result type of every kernel output")
-
+    def _bulk_chunks(self, bulk, current_results):
+        """The bulk path's ``(dispatch, chunk_size)``: the kernel owns its
+        rep axis; the runner only hands it an attempt cursor and a size."""
         bsize = self._default_batch_size()
-        cursor = current_rep + self._skipped_before(current_results)
 
         # Early stop at sub-chunk granularity: the kernel always receives a
         # size from a FIXED 4-entry ladder (bsize, bsize/2, bsize/4,
@@ -1093,14 +1068,15 @@ class SimulationRunner:
         ladder = sorted({self._round_chunk(max(bsize // d, 1))
                          for d in (8, 4, 2, 1)})
 
-        def pick_chunk(needed: int) -> int:
+        def chunk_size(needed: int) -> int:
             if self.batch_stop_criterion is None:
                 return bsize
             nk = next((n for n in ladder if n >= needed), ladder[-1])
             limit = float(self.batch_stop_criterion[1])
             metric = self._stop_metric_value(current_results)
-            if current_rep > 0 and metric > 0:
-                rate = metric / current_rep
+            done = self.rep_max - needed
+            if done > 0 and metric > 0:
+                rate = metric / done
                 expected = (limit - metric) / rate
                 rung = ladder[0]
                 for n in ladder:
@@ -1109,50 +1085,13 @@ class SimulationRunner:
                 nk = min(nk, rung)
             return nk
 
-        # Double-buffered dispatch: when no stop criterion gates the work,
-        # chunk k+1 is enqueued before chunk k's outputs are fetched — the
-        # kernel returns device tensors without synchronising, and each
-        # chunk's host copy is queued right behind it (_start_fetch), so
-        # the device runs chunk k+1 while the host does chunk k's
-        # accounting. A mispredicted cursor (skips landed in chunk k)
-        # discards the speculative chunk and stops speculating.
         def dispatch(start: int, n: int):
             with span("wrapper.call", attempts=n):
                 out = bulk(start, n)
-            return {name: _start_fetch(v) for name, v in out.items()}
+            names, wait = list(out), _fetch_each_once(list(out.values()))
+            return lambda: (dict(zip(names, wait())), None)
 
-        speculate = self.batch_stop_criterion is None
-        pending: Optional[Tuple[int, int, Any]] = None
-        while current_rep < self.rep_max and \
-                self._stop_criterion_ok(current_results) and \
-                self._keep_going(current_params, current_results,
-                                 current_rep):
-            tic = time.time()
-            needed = self.rep_max - current_rep
-            nk = pick_chunk(needed)
-            if pending is not None and pending[:2] == (cursor, nk):
-                out = pending[2]
-            else:
-                out = dispatch(cursor, nk)
-            pending = None
-            if speculate and needed > nk:
-                pending = (cursor + nk, bsize, dispatch(cursor + nk, bsize))
-            out = {name: _to_host(v) for name, v in out.items()}
-            elapsed = time.time() - tic
-            with span("engine.account", attempts=nk):
-                n_accept, consumed, n_skip = self._consume_chunk(
-                    out, nk, needed, elapsed, current_results)
-            current_rep += n_accept
-            cursor += consumed
-            if consumed != nk:
-                speculate = False
-            pbar.progress(current_rep)
-            self._save_partial_results_maybe(current_rep, current_params,
-                                             current_results)
-            if n_accept == 0 and n_skip == 0:
-                break
-        self._merge_skip_count(current_results, 0)
-        return current_rep
+        return dispatch, chunk_size
 
     @staticmethod
     def _parse_type_spec(spec) -> Tuple[int, Optional[int]]:

@@ -41,10 +41,11 @@ The spans, each at a layer boundary:
 ``wrapper.call``   one call of the kernel callable: the bulk kernel's
                    ``fn(start, n)``, or the per-key ``kernel(streams)``
                    (attribute ``attempts``)
-``engine.wait``    each statement of ``_to_host`` that waits for the
-                   device: an event's ``synchronize`` or a tensor's
-                   ``.cpu()``; and a per-key sub-chunk's one wait for the
-                   host copies of its outputs (``_fetch_each_once``)
+``engine.wait``    one wait a call on every chunked path (a bulk call, a
+                   per-key chunk or sub-chunk) for the host copies of its
+                   outputs, one a distinct device tensor
+                   (``_fetch_each_once``); and each ``.cpu()`` of a CPU
+                   tensor output
 ``engine.account`` ``_consume_chunk``: a chunk's accounting (attribute
                    ``attempts``)
 ``engine.overlap`` the per-key executor's host outputs of a sub-chunk,
@@ -59,18 +60,11 @@ The spans, each at a layer boundary:
                    counts
 ``chain.replay``   inside ``chain.forward``: one replay of the step's CUDA
                    graph (its ``cudaGraphLaunch``)
-``chain.channel``  inside the MIMO step's eager ``chain.forward``
-                   (``MimoChainStep.forward_scaled``): the Nr x Nt
-                   block-static channel (the Jakes taps, ``block_fir``'s
-                   MIMO route) and its per-RE response
-``chain.detect``   inside the same ``chain.forward``: the MMSE detector's
-                   launch (``ops/mimo_detect.py`` ``mimo_mmse``)
 =================  =========================================================
 
 ``chain.draw``, ``chain.forward`` and ``chain.replay`` serve every step
 with :class:`~pyphysim_tpu_torch.chain.ReplayedStep`'s ``step``
-(``ChainStep``, ``MimoChainStep``). A replay opens neither
-``chain.channel`` nor ``chain.detect``: its work is inside the graph.
+(``ChainStep``, ``MimoChainStep``).
 
 Beside the spans, the program counts its kernels' launches, recorded
 always: ``ops.fir.block_fir.launch_count``,
