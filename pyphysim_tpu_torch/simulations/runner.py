@@ -28,9 +28,14 @@ The per-key and bulk paths run through one chunk loop (``_chunk_loop``):
 an absolute attempt cursor (accepted plus skipped attempts, so a resume
 continues the stream sequence), the first ``rep_max`` valid attempts
 accepted (the reserved ``"__valid__"`` mask skips and retries,
-``_consume_chunk``), and double buffering: chunk k+1 is dispatched before
-chunk k's outputs are fetched. Each distinct device tensor of a chunk is
-copied to the host once, and the host waits once (``_fetch_each_once``).
+``_consume_chunk``), and the next chunk queued ahead of the host's work.
+Without a stop criterion chunk k+1 is dispatched before chunk k's outputs
+are fetched. With one, the loop gates on its own running counts (accepted
+attempts, cursor, stop metric): chunk k+1 is dispatched as soon as chunk
+k's outputs are fetched, and chunk k's bookkeeping (its Results, progress
+and checkpoint, the ``engine.deferred`` span) runs while the device runs
+chunk k+1. Each distinct device tensor of a chunk is copied to the host
+once, and the host waits once (``_fetch_each_once``).
 
 ``simulate_in_parallel`` runs the same sweep with each chunk's attempts
 split over a ``torch.distributed`` device mesh (``parallel/mesh.py``): every
@@ -731,10 +736,8 @@ class SimulationRunner:
                         f"The {'per-key' if bulk is None else 'bulk'} path "
                         "requires self.batch_result_types to declare the "
                         "Result type of every kernel output")
-                chunks = (self._bulk_chunks(bulk, current_results)
-                          if bulk is not None else
-                          self._perkey_chunks(kernel, current_params,
-                                              current_results))
+                chunks = (self._bulk_chunks(bulk) if bulk is not None
+                          else self._perkey_chunks(kernel, current_params))
                 current_rep = self._chunk_loop(*chunks, current_params,
                                                current_results, current_rep,
                                                pbar)
@@ -838,11 +841,24 @@ class SimulationRunner:
                 return float(r._value)
         return 0.0
 
-    def _stop_criterion_ok(self, current_results) -> bool:
-        if self.batch_stop_criterion is None:
-            return True
-        return self._stop_metric_value(current_results) < \
-            float(self.batch_stop_criterion[1])
+    @staticmethod
+    def _accept_prefix(valid, active, nk: int,
+                       needed: int) -> Tuple[np.ndarray, int]:
+        """The accept prefix of one chunk: of its attempts that are valid
+        (``valid``, the ``"__valid__"`` mask; None: all) and ran
+        (``active``; None: all), the first ``needed``. Returns (accept
+        mask, consumed): the attempts after the last accepted one consume
+        no stream index."""
+        valid = np.ones(nk, dtype=bool) if valid is None else \
+            np.asarray(valid).astype(bool)
+        if active is None:
+            active = np.ones(nk, dtype=bool)
+        candidates = valid & active
+        cand_pos = np.flatnonzero(candidates)
+        if len(cand_pos) >= needed:
+            last = int(cand_pos[needed - 1])
+            return candidates & (np.arange(nk) <= last), last + 1
+        return candidates, int(np.count_nonzero(active))
 
     def _consume_chunk(self, out, nk, needed, elapsed, current_results,
                        active=None) -> Tuple[int, int, int]:
@@ -852,22 +868,8 @@ class SimulationRunner:
         chunk that ran (the per-key path's sub-chunk early stop); attempts
         after it never ran and consume no stream indices. Returns
         (n_accept, consumed, n_skip)."""
-        valid = out.pop("__valid__", None)
-        if valid is None:
-            valid = np.ones(nk, dtype=bool)
-        else:
-            valid = np.asarray(valid).astype(bool)
-        if active is None:
-            active = np.ones(nk, dtype=bool)
-        candidates = valid & active
-        cand_pos = np.flatnonzero(candidates)
-        if len(cand_pos) >= needed:
-            last = int(cand_pos[needed - 1])
-            accept = candidates & (np.arange(nk) <= last)
-            consumed = last + 1
-        else:
-            accept = candidates
-            consumed = int(np.count_nonzero(active))
+        accept, consumed = self._accept_prefix(out.pop("__valid__", None),
+                                               active, nk, needed)
         n_accept = int(np.count_nonzero(accept))
         n_skip = consumed - n_accept
 
@@ -893,53 +895,96 @@ class SimulationRunner:
 
     def _chunk_loop(self, dispatch, chunk_size, current_params,
                     current_results, current_rep, pbar) -> int:
-        """Chunk loop of the per-key and bulk paths: ``chunk_size(needed)``
-        sizes the next chunk when ``needed`` attempts are still to accept;
-        ``dispatch(cursor, nk)`` issues attempts ``[cursor, cursor + nk)``
-        and returns ``fetch()``, which waits for them and returns ``(host
-        outputs, active)``."""
+        """Chunk loop of the per-key and bulk paths: ``chunk_size(needed,
+        metric)`` sizes the next chunk when ``needed`` attempts are still
+        to accept and the stop metric reads ``metric``; ``dispatch(cursor,
+        nk, metric)`` queues attempts ``[cursor, cursor + nk)`` and returns
+        ``fetch()``, which waits for them and returns ``(host outputs,
+        active)``.
+
+        The loop gates on counts of its own: the accepted attempts, the
+        cursor (``_accept_prefix``) and the stop metric's raw value, summed
+        over the same rows in the same dtype as its Result sums it, so that
+        it reads ``_stop_metric_value(current_results)`` once a chunk is
+        booked. Under a stop criterion chunk k+1 is sized and dispatched as
+        soon as chunk k's outputs are fetched, and chunk k is booked
+        (``_consume_chunk``, progress, checkpoint) after that, inside an
+        ``engine.deferred`` span, while the device runs chunk k+1; a
+        point's last chunk is booked before the loop ends. A runner that
+        overrides ``_keep_going`` gates on its Results, so there each chunk
+        is booked before the gate."""
         cursor = current_rep + self._skipped_before(current_results)
+        stop = self.batch_stop_criterion
+        raw = 0
+        if stop is not None and stop[0] in current_results and \
+                current_results[stop[0]]:
+            raw = current_results[stop[0]][-1]._value
+        metric = float(raw)
         # Without a stop criterion chunk k+1 is dispatched before chunk k is
         # fetched, so the device runs it while the host accounts chunk k; a
         # mispredicted cursor or size discards it and stops speculating.
-        speculate = self.batch_stop_criterion is None
+        speculate = stop is None
+        defer = stop is not None and getattr(
+            self._keep_going, "__func__", None) is SimulationRunner._keep_going
         pending: Optional[Tuple[int, int, Any]] = None
+        deferred: Optional[Tuple] = None
+
+        def book(out, nk, needed, elapsed, active, rep):
+            with span("engine.account", attempts=nk):
+                self._consume_chunk(out, nk, needed, elapsed,
+                                    current_results, active)
+            pbar.progress(rep)
+            self._save_partial_results_maybe(rep, current_params,
+                                             current_results)
+
         while current_rep < self.rep_max and \
-                self._stop_criterion_ok(current_results) and \
+                (stop is None or metric < float(stop[1])) and \
                 self._keep_going(current_params, current_results,
                                  current_rep):
             tic = time.time()
             needed = self.rep_max - current_rep
-            nk = chunk_size(needed)
+            nk = chunk_size(needed, metric)
             if pending is not None and pending[:2] == (cursor, nk):
                 fetch = pending[2]
             else:
-                fetch = dispatch(cursor, nk)
+                fetch = dispatch(cursor, nk, metric)
             pending = None
             if speculate and needed > nk:
-                nk_next = chunk_size(needed - nk)
+                nk_next = chunk_size(needed - nk, metric)
                 pending = (cursor + nk, nk_next,
-                           dispatch(cursor + nk, nk_next))
+                           dispatch(cursor + nk, nk_next, metric))
+            if deferred is not None:
+                with span("engine.deferred"):
+                    book(*deferred)
+                deferred = None
             out, active = fetch()
             elapsed = time.time() - tic
-            with span("engine.account", attempts=nk):
-                n_accept, consumed, n_skip = self._consume_chunk(
-                    out, nk, needed, elapsed, current_results, active)
-            current_rep += n_accept
+            accept, consumed = self._accept_prefix(out.get("__valid__"),
+                                                   active, nk, needed)
+            if stop is not None:
+                values = out[stop[0]]
+                values = values[0] if isinstance(values, tuple) else values
+                raw = raw + np.asarray(values)[accept].sum()
+                metric = float(raw)
+            current_rep += int(np.count_nonzero(accept))
             cursor += consumed
             if consumed != nk:
                 speculate = False
-            pbar.progress(current_rep)
-            self._save_partial_results_maybe(current_rep, current_params,
-                                             current_results)
-            if n_accept == 0 and n_skip == 0:
+            chunk = (out, nk, needed, elapsed, active, current_rep)
+            if defer and consumed:
+                deferred = chunk
+                continue
+            book(*chunk)
+            if not consumed:
                 break    # the stop criterion gated the whole chunk off
+        if deferred is not None:
+            book(*deferred)
         self._merge_skip_count(current_results, 0)
         return current_rep
 
     # -- per-key path ------------------------------------------------------
 
-    def _perkey_chunks(self, kernel, current_params, current_results):
+    def _perkey_chunks(self, kernel, current_params):
         """The per-key path's ``(dispatch, chunk_size)``: chunks of
         ``min(batch, needed)`` attempts, rounded. Attempt ``a``'s streams
         depend only on ``(base_seed, unpack_index, a)``, so any chunking
@@ -949,13 +994,8 @@ class SimulationRunner:
         executor = self._make_chunk_executor(kernel, seed,
                                              require_cuda(self.device))
         bsize = self._default_batch_size()
-
-        def dispatch(cursor: int, nk: int):
-            prior = (self._stop_metric_value(current_results)
-                     if self.batch_stop_criterion is not None else 0.0)
-            return executor(cursor, nk, prior)
-
-        return dispatch, lambda needed: min(bsize, self._round_chunk(needed))
+        return executor, \
+            lambda needed, metric: min(bsize, self._round_chunk(needed))
 
     def _make_chunk_executor(self, kernel, seed: int, device):
         """Build ``executor(cursor, nk, prior_metric) -> fetch`` for the
@@ -970,10 +1010,11 @@ class SimulationRunner:
         ``num_stop_subchunks`` sub-chunks, each only while the accumulated
         stop metric (``prior_metric`` plus the valid attempts' metric so
         far, summed in float32) is below the limit: the rule of the JAX
-        package's device ``scan``. Here the sum is read on the host after
-        each sub-chunk, one device synchronisation per sub-chunk (one
-        fetch of each distinct output tensor, ``_fetch_each_once``); the
-        next sub-chunk is dispatched before the host builds this one's
+        package's device ``scan``. The executor queues the first
+        sub-chunk and returns; ``fetch`` then reads the sum on the host
+        after each sub-chunk, one device synchronisation per sub-chunk (one
+        fetch of each distinct output tensor, ``_fetch_each_once``), and
+        dispatches the next sub-chunk before the host builds this one's
         outputs, so that the device runs it meanwhile. The calls are those
         of the rule, in its order. The rows of sub-chunks that did not run
         are zeros and inactive.
@@ -1017,43 +1058,49 @@ class SimulationRunner:
 
         def executor(cursor, nk, prior_metric):
             sub = nk // n_sub   # nk is a _round_chunk multiple of n_sub
-            acc = np.float32(prior_metric)
-            parts = []
-            out = call(streams_for(cursor, sub)) if acc < limit else None
-            while out is not None:
-                metric = out[stop_name]
-                if isinstance(metric, tuple):
-                    metric = metric[0]
-                valid = out.get("__valid__")
-                gate = [metric] if valid is None else [metric, valid]
-                wait = _fetch_each_once(gate + list(out.values()))
-                k = len(parts) + 1
-                # built while the copies are on their way; dropped if the
-                # gate closes
-                streams = streams_for(cursor + k * sub, sub) \
-                    if k < n_sub else None
-                host = wait()
-                metric = np.asarray(host[0], np.float64)
-                if valid is not None:
-                    metric = np.where(host[1], metric, 0)
-                acc = np.float32(acc + np.float32(metric.sum()))
-                following = call(streams) \
-                    if streams is not None and acc < limit else None
-                outputs = dict(zip(out, host[len(gate):]))
-                with (span("engine.overlap") if following is not None
-                      else nullcontext()):
-                    parts.append(_host_outputs(outputs, sub))
-                out = following
-            active = np.arange(nk) < len(parts) * sub
-            merged = {name: _stack_rows([p[name] for p in parts], nk)
-                      for name in parts[0]}
-            return lambda: (merged, active)
+            first = call(streams_for(cursor, sub)) \
+                if np.float32(prior_metric) < limit else None
+
+            def fetch():
+                acc = np.float32(prior_metric)
+                parts = []
+                out = first
+                while out is not None:
+                    metric = out[stop_name]
+                    if isinstance(metric, tuple):
+                        metric = metric[0]
+                    valid = out.get("__valid__")
+                    gate = [metric] if valid is None else [metric, valid]
+                    wait = _fetch_each_once(gate + list(out.values()))
+                    k = len(parts) + 1
+                    # built while the copies are on their way; dropped if
+                    # the gate closes
+                    streams = streams_for(cursor + k * sub, sub) \
+                        if k < n_sub else None
+                    host = wait()
+                    metric = np.asarray(host[0], np.float64)
+                    if valid is not None:
+                        metric = np.where(host[1], metric, 0)
+                    acc = np.float32(acc + np.float32(metric.sum()))
+                    following = call(streams) \
+                        if streams is not None and acc < limit else None
+                    outputs = dict(zip(out, host[len(gate):]))
+                    with (span("engine.overlap") if following is not None
+                          else nullcontext()):
+                        parts.append(_host_outputs(outputs, sub))
+                    out = following
+                active = np.arange(nk) < len(parts) * sub
+                merged = {name: _stack_rows([p[name] for p in parts], nk)
+                          for name in parts[0]}
+                return merged, active
+
+            return fetch
 
         return executor
 
     # -- bulk path ---------------------------------------------------------
 
-    def _bulk_chunks(self, bulk, current_results):
+    def _bulk_chunks(self, bulk):
         """The bulk path's ``(dispatch, chunk_size)``: the kernel owns its
         rep axis; the runner only hands it an attempt cursor and a size."""
         bsize = self._default_batch_size()
@@ -1068,12 +1115,11 @@ class SimulationRunner:
         ladder = sorted({self._round_chunk(max(bsize // d, 1))
                          for d in (8, 4, 2, 1)})
 
-        def chunk_size(needed: int) -> int:
+        def chunk_size(needed: int, metric: float) -> int:
             if self.batch_stop_criterion is None:
                 return bsize
             nk = next((n for n in ladder if n >= needed), ladder[-1])
             limit = float(self.batch_stop_criterion[1])
-            metric = self._stop_metric_value(current_results)
             done = self.rep_max - needed
             if done > 0 and metric > 0:
                 rate = metric / done
@@ -1085,7 +1131,8 @@ class SimulationRunner:
                 nk = min(nk, rung)
             return nk
 
-        def dispatch(start: int, n: int):
+        def dispatch(start: int, n: int, metric: float):
+            del metric
             with span("wrapper.call", attempts=n):
                 out = bulk(start, n)
             names, wait = list(out), _fetch_each_once(list(out.values()))

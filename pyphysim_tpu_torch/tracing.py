@@ -33,34 +33,38 @@ every record.
 
 The spans, each at a layer boundary:
 
-=================  =========================================================
-``engine.sweep``   ``SimulationRunner.simulate``: one sweep
-``engine.point``   ``_simulate_for_current_params``: one point, from before
-                   its start hook (attributes ``base_seed``,
-                   ``unpack_index``)
-``wrapper.call``   one call of the kernel callable: the bulk kernel's
-                   ``fn(start, n)``, or the per-key ``kernel(streams)``
-                   (attribute ``attempts``)
-``engine.wait``    one wait a call on every chunked path (a bulk call, a
-                   per-key chunk or sub-chunk) for the host copies of its
-                   outputs, one a distinct device tensor
-                   (``_fetch_each_once``); and each ``.cpu()`` of a CPU
-                   tensor output
-``engine.account`` ``_consume_chunk``: a chunk's accounting (attribute
-                   ``attempts``)
-``engine.overlap`` the per-key executor's host outputs of a sub-chunk,
-                   built after the next sub-chunk was dispatched (so
-                   while the device runs it)
-``chain.draw``     ``ChainStep.step``'s draws: the stream split, the data,
-                   the channel state, the noise; where the step replays a
-                   CUDA graph, the split and the writes of the graph's
-                   input buffers
-``chain.forward``  ``ChainStep.step``'s ``forward``; where the step replays
-                   a CUDA graph, the replay's enqueue and the copy of its
-                   counts
-``chain.replay``   inside ``chain.forward``: one replay of the step's CUDA
-                   graph (its ``cudaGraphLaunch``)
-=================  =========================================================
+===================  =========================================================
+``engine.sweep``     ``SimulationRunner.simulate``: one sweep
+``engine.point``     ``_simulate_for_current_params``: one point, from before
+                     its start hook (attributes ``base_seed``,
+                     ``unpack_index``)
+``wrapper.call``     one call of the kernel callable: the bulk kernel's
+                     ``fn(start, n)``, or the per-key ``kernel(streams)``
+                     (attribute ``attempts``)
+``engine.wait``      one wait a call on every chunked path (a bulk call, a
+                     per-key chunk or sub-chunk) for the host copies of its
+                     outputs, one a distinct device tensor
+                     (``_fetch_each_once``); and each ``.cpu()`` of a CPU
+                     tensor output
+``engine.account``   ``_consume_chunk``: a chunk's accounting (attribute
+                     ``attempts``)
+``engine.deferred``  under a stop criterion, a chunk's bookkeeping (its
+                     ``engine.account``, progress and checkpoint) run after
+                     the next chunk was dispatched, so while the device runs
+                     it
+``engine.overlap``   the per-key executor's host outputs of a sub-chunk,
+                     built after the next sub-chunk was dispatched (so
+                     while the device runs it)
+``chain.draw``       ``ChainStep.step``'s draws: the stream split, the data,
+                     the channel state, the noise; where the step replays a
+                     CUDA graph, the split and the writes of the graph's
+                     input buffers
+``chain.forward``    ``ChainStep.step``'s ``forward``; where the step replays
+                     a CUDA graph, the replay's enqueue and the copy of its
+                     counts
+``chain.replay``     inside ``chain.forward``: one replay of the step's CUDA
+                     graph (its ``cudaGraphLaunch``)
+===================  =========================================================
 
 ``chain.draw``, ``chain.forward`` and ``chain.replay`` serve every step
 with :class:`~pyphysim_tpu_torch.chain.ReplayedStep`'s ``step``

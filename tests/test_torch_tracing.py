@@ -21,10 +21,14 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from pyphysim_tpu_torch import tracing  # noqa: E402
 
 SNRS = np.array([0.0, 10.0])
-PARENT = {"engine.sweep": None, "engine.point": "engine.sweep",
-          "wrapper.call": "engine.point", "engine.wait": "engine.point",
-          "engine.account": "engine.point", "engine.overlap": "engine.point",
-          "chain.draw": "wrapper.call", "chain.forward": "wrapper.call"}
+# each span's parents: a chunk's accounting runs in the point, or under a
+# stop rule inside the engine.deferred span of its next chunk's dispatch
+PARENT = {"engine.sweep": (None,), "engine.point": ("engine.sweep",),
+          "wrapper.call": ("engine.point",), "engine.wait": ("engine.point",),
+          "engine.account": ("engine.point", "engine.deferred"),
+          "engine.deferred": ("engine.point",),
+          "engine.overlap": ("engine.point",),
+          "chain.draw": ("wrapper.call",), "chain.forward": ("wrapper.call",)}
 
 
 def _bulk_runner():
@@ -89,13 +93,14 @@ def test_without_a_profiler_a_span_is_one_shared_object_that_records():
 def test_the_spans_and_their_parents(route, request):
     recs = request.getfixturevalue(route)[1]
     names = {s.name for s in recs}
+    # the per-key fixture runs one chunk a point: no chunk is deferred
     want = set(PARENT) - ({"chain.draw", "chain.forward", "engine.overlap"}
-                          if route == "bulk" else set())
+                          if route == "bulk" else {"engine.deferred"})
     assert names == want
     for s in recs:
         assert s.end_ns >= s.start_ns > 0
         parent = recs[s.parent].name if s.parent >= 0 else None
-        assert parent == PARENT[s.name], s
+        assert parent in PARENT[s.name], s
         if parent is not None:
             up = recs[s.parent]
             assert up.start_ns <= s.start_ns and s.end_ns <= up.end_ns
@@ -125,6 +130,29 @@ def test_two_waits_a_bulk_call(bulk):
     assert n["engine.account"] == n["wrapper.call"]
     assert [s.attrs for s in recs if s.name == "wrapper.call"] == \
         [{"attempts": 8}] * 4
+
+
+def test_a_bulk_chunk_is_booked_after_the_next_dispatch(bulk):
+    """Under a stop rule every bulk chunk but a point's last is booked in
+    one engine.deferred span, which opens after the next chunk's call and
+    holds that chunk's one engine.account."""
+    runner, recs = bulk
+    n = collections.Counter(s.name for s in recs)
+    assert n["engine.deferred"] == n["wrapper.call"] - len(SNRS) == 2
+    for i, s in enumerate(recs):
+        if s.name != "engine.deferred":
+            continue
+        inner = [r for r in recs if r.parent == i]
+        assert [r.name for r in inner] == ["engine.account"]
+        # the next chunk's call came after the last chunk booked
+        before = [r for r in recs[:i]
+                  if r.name in ("wrapper.call", "engine.account")]
+        assert before[-1].name == "wrapper.call"
+        assert before[-1].end_ns <= s.start_ns
+        assert recs[s.parent].name == "engine.point"
+    accounts = [s for s in recs if s.name == "engine.account"]
+    assert sum(recs[s.parent].name == "engine.point"
+               for s in accounts) == len(SNRS)      # each point's last
 
 
 def test_three_waits_a_perkey_subchunk_under_a_stop_rule(perkey):

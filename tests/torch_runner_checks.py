@@ -39,6 +39,13 @@ def _outputs(out, n):
     return host
 
 
+def _stop_ok(runner, current_results):
+    if runner.batch_stop_criterion is None:
+        return True
+    return runner._stop_metric_value(current_results) < \
+        float(runner.batch_stop_criterion[1])
+
+
 def _stack_rows(parts, n):
     if isinstance(parts[0], tuple):
         return tuple(_stack_rows(list(p), n) for p in zip(*parts))
@@ -125,7 +132,7 @@ def batch_loop(runner, kernel, current_params, current_results,
     speculate = runner.batch_stop_criterion is None
     pending = None
     while current_rep < runner.rep_max and \
-            runner._stop_criterion_ok(current_results) and \
+            _stop_ok(runner, current_results) and \
             runner._keep_going(current_params, current_results,
                                current_rep):
         tic = time.time()
@@ -184,7 +191,7 @@ def bulk_loop(runner, bulk, current_params, current_results, current_rep,
     speculate = runner.batch_stop_criterion is None
     pending = None
     while current_rep < runner.rep_max and \
-            runner._stop_criterion_ok(current_results) and \
+            _stop_ok(runner, current_results) and \
             runner._keep_going(current_params, current_results,
                                current_rep):
         tic = time.time()
@@ -217,8 +224,7 @@ def bulk_loop(runner, bulk, current_params, current_results, current_rep,
 def use_parent_loops(runner):
     """Make ``runner`` run its chunked paths through :func:`batch_loop` and
     :func:`bulk_loop` in place of its one chunk loop."""
-    runner._perkey_chunks = lambda kernel, params, results: (batch_loop,
-                                                             kernel)
-    runner._bulk_chunks = lambda bulk, results: (bulk_loop, bulk)
+    runner._perkey_chunks = lambda kernel, params: (batch_loop, kernel)
+    runner._bulk_chunks = lambda bulk: (bulk_loop, bulk)
     runner._chunk_loop = lambda loop, fn, *args: loop(runner, fn, *args)
     return runner
