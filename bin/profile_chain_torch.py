@@ -19,6 +19,14 @@ iterations, noise 0.1, ``ia_step``):
     and traces of 3 draws alone and 3 forwards alone: the device kernels
     each issues a step, the draws' Philox fills (``philox_stream_fill``)
     among them, and ``block_fir``'s share of the forward's device time;
+  * the 4-layer PUSCH step at its benchmark sub-chunk (32 subframes of
+    4 x 12 x 1,200 data symbols, ``apps/mimo/pusch_etu70_torch.py``): the
+    same split and trace, and its two stages by their spans: the host
+    time of the eager step's ``chain.estimate`` and ``chain.equalize``
+    spans under the profiler, and each stage's device time (a CUDA graph
+    of the calls the span holds: the DMRS estimate; the equalizer, the
+    de-spreading IDFT and the decision kernel), beside the step whole,
+    replayed and eager;
   * on the two OFDM routes, ``ChainStep.step`` whole (CUDA events over
     one step, and the host's time to issue it): the route the checkout's
     step takes, one CUDA graph replay where it has one, and beside it the
@@ -220,6 +228,60 @@ def profile_families(dev):
     return out
 
 
+def profile_pusch(dev):
+    """The PUSCH step's split and trace, its spans' host time and its two
+    stages' device time (the module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from apps.mimo.pusch_etu70_torch import pusch_step
+    from chip_smoke import graph_ms
+    from pyphysim_tpu_torch import tracing
+    from pyphysim_tpu_torch.ops.mimo_detect import sc_decide, sc_mmse_eq
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+
+    batch = 32
+    step = pusch_step(dev)
+    streams = AttemptStreams.from_range(7, 0, batch, dev)
+    out = profile_step("pusch", batch, batch * step.num_tx *
+                       step.num_symbols, "sym",
+                       lambda: step.draw(*streams.split(3)),
+                       lambda *x: step.forward(*x, SNR))
+    tracing.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        for _ in range(3):
+            step.step_eager(streams, SNR)
+        torch.cuda.synchronize()
+    spans = {}
+    for r in tracing.spans():
+        spans.setdefault(r.name, []).append((r.end_ns - r.start_ns) * 1e-6)
+    data, state, noise = step.draw(*streams.split(3))
+    fwd = step.forward(data, state, noise, SNR)
+    K = step.ofdm.num_used_subcarriers
+    frames = fwd.received.reshape(batch, step.num_rx,
+                                  step.symbols_per_subframe, K)
+    pilots = frames.index_select(2, step._pilot_index)
+    s2 = torch.full((), step.noise_amplitude(SNR) ** 2 * step._var_scale,
+                    dtype=torch.float32, device=dev)
+
+    def equalize():
+        x, gain = sc_mmse_eq(fwd.estimate, frames, s2, step.data_symbols)
+        return sc_decide(torch.fft.ifft(x, norm="ortho"), gain.mean(dim=-1),
+                         data, step.qam.M)
+    stages = {
+        "span_host_ms": {k: min(v) for k, v in spans.items()
+                         if k in ("chain.estimate", "chain.equalize")},
+        "estimate_device_ms": graph_ms(
+            lambda: step.estimator.estimate_channel_freq_domain(
+                pilots, step.taps_to_keep)),
+        "equalize_device_ms": graph_ms(equalize),
+        "step_replayed_ms": best_ms(lambda: step.step(streams, SNR)),
+        "step_eager_ms": best_ms(lambda: step.step_eager(streams, SNR))}
+    print(json.dumps({"route": "pusch", **stages}, indent=1), flush=True)
+    out.update(stages)
+    return out
+
+
 def engine_stop_cost(dev):
     import numpy as np
     from apps.ofdm.ofdm_tdlchannel_torch import OfdmTdlSimulationRunner
@@ -266,7 +328,7 @@ def main() -> int:
     result = {"card": card,
               "routes": [profile_route(name, *shape, dev)
                          for name, shape in ROUTES.items()] +
-              profile_families(dev),
+              profile_families(dev) + [profile_pusch(dev)],
               "per_key_engine": engine_stop_cost(dev)}
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)

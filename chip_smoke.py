@@ -24,6 +24,14 @@ against its plain PyTorch version on the card:
     ``mimo_mmse``) and counts against its eager step, and the kernel's
     time beside its byte bound, its plain version and the batched
     ``torch.linalg.solve`` route;
+  * the 4-layer PUSCH step at the benchmark's LTE-A uplink / ETU70
+    configuration (phase 12d): the SC-FDMA equalizer kernel
+    (``sc_mmse_eq``) and the decision kernel after the de-spreading IDFT
+    (``sc_decide``) bit for bit their plain versions on the step's own
+    values, a replayed step's launches (3 fills, 1 ``block_fir``, 1
+    ``sc_mmse_eq``, 1 ``sc_decide``) and counts against its eager step,
+    and the kernels' times beside their byte bounds, registers and
+    spills;
   * the Alamouti 2x1 family through its CUDA kernel on the bulk path and
     through its library chain on the per-key path, and the BD CoMP capacity
     family the same way, at ``bench.py``'s widths (phases 13-19);
@@ -560,6 +568,7 @@ def main() -> int:
 
     phases_8_to_12 = chain_phases(dev, smi, fill_err)
     mimo_entry, mimo_fills, mimo_firs = mimo_ofdm_phase(dev, smi)
+    pusch_entry, pusch_fills, pusch_firs = pusch_phase(dev, smi)
     phases_13_to_19 = mimo_bd_phases(dev, smi)
     phases_20_to_26 = ia_phases(dev, smi)
     wide_entries = geometry_phases(dev, smi)
@@ -569,8 +578,9 @@ def main() -> int:
     fir_entry, fill_entry = phases_8_to_12
     fill_entry["max_abs_err"] = max(fill_entry["max_abs_err"],
                                     comp_bd_fill_err)
-    fill_entry["launches"] += mimo.pop("fill_launches") + mimo_fills
-    fir_entry["launches"] += mimo_firs
+    fill_entry["launches"] += mimo.pop("fill_launches") + mimo_fills + \
+        pusch_fills
+    fir_entry["launches"] += mimo_firs + pusch_firs
     # block_fir: the MIMO route's launches, parity and geometry
     fir_entry["launches"] += mimo.pop("launches")
     fir_entry["max_abs_err"] = max(fir_entry["max_abs_err"],
@@ -580,7 +590,8 @@ def main() -> int:
     parallel = parallel_phases(dev, smi)
     fill_entry["launches"] += app_phases(dev, smi)
     notebooks = notebook_phases(dev, smi)
-    entries = [*mc_entries, *phases_8_to_12, mimo_entry, *phases_13_to_19,
+    entries = [*mc_entries, *phases_8_to_12, mimo_entry, pusch_entry,
+               *phases_13_to_19,
                phases_20_to_26, *wide_entries, *shape_entries]
     for entry in entries:
         more = parallel.get(entry["name"], {})
@@ -890,6 +901,153 @@ def mimo_ofdm_phase(dev, smi):
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": library_ms,
+    }, fills, firs
+
+
+def pusch_phase(dev, smi, seeds=(2 ** 31 + 25, 6)):
+    """Phase 12d: the 4-layer PUSCH step at the benchmark's configuration
+    (LTE-A uplink, 20 MHz, ETU70, 16-QAM, 12 x 1,200 data REs a layer)
+    and sub-chunk of 32 subframes. The SC-FDMA equalizer kernel
+    (``sc_mmse_eq``) held to its plain version on the step's own DMRS
+    estimate and received symbols at five SNRs and each of ``seeds``: x
+    and the gains equal bit for bit (the two round the same float32
+    operations in the same order), and the step's own x equal to them. A
+    replayed step launches the fill 3 times, ``block_fir`` once and the
+    equalizer and the decision once each, and counts what its eager step
+    counts. The equalizer's time (a CUDA graph of wrapper calls) beside
+    its bound (H and the data symbols' y read once, x and the gain sums
+    written once; the fewest
+    float32 operations: the Gram and its LDL^H factors a subcarrier, W's
+    columns by the solves, the gains, W y an RE), its registers and
+    spills, its plain version's time; the decision kernel (``sc_decide``:
+    the unbiasing, the slicer and the count after the IDFT) against its
+    plain version bit for bit and its time beside its byte bound; and the
+    time of what follows the equalizer in the step (the IDFT, the mean
+    gains and ``sc_decide``). Returns the equalizer's ``kernels`` entry
+    and the fill's and block_fir's launches."""
+    import torch
+    from apps.mimo.pusch_etu70_torch import pusch_step
+    from pyphysim_tpu_torch.ops import fir
+    from pyphysim_tpu_torch.ops.mimo_detect import (sc_decide,
+                                                    sc_decide_reference,
+                                                    sc_mmse_eq,
+                                                    sc_mmse_eq_reference)
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams, philox_draw
+
+    nt = nr = 4
+    fft, cp, used, batch = 2048, 144, 1200, 32
+    step = pusch_step(dev)
+    ns, data = step.symbols_per_subframe, step.data_symbols
+    nd = len(data)
+    counters = (philox_draw, fir.block_fir, sc_mmse_eq, sc_decide)
+    for c in counters:
+        c.launch_count = 0
+    gap = step_gap = count_gap = errors = 0
+    for seed in seeds:
+        streams = AttemptStreams.from_range(seed, 3 * batch, batch, dev)
+        draws = step.draw(*streams.split(3))
+        for snr_db in (0.0, 10.0, 20.0, 30.0, 40.0):
+            snr = 10 ** (snr_db / 10)
+            out = step.forward(*draws, snr)
+            amp = torch.full((), step.noise_amplitude(snr),
+                             dtype=torch.float32, device=dev)
+            s2 = amp * amp * ((used + cp) / fft)
+            y = out.received.reshape(batch, nr, ns, used)
+            x, g = sc_mmse_eq(out.estimate, y, s2, data)
+            xr, gr = sc_mmse_eq_reference(out.estimate, y, s2, data)
+            gap += int((x != xr).sum()) + int((g != gr).sum())
+            step_gap += int((out.equalized != x).sum())
+            mu = g.mean(dim=-1)
+            count_gap += int((sc_decide(out.symbols, mu, draws[0]) -
+                              sc_decide_reference(out.symbols, mu, draws[0])
+                              ).abs().sum())
+            errors += int(out.bit_errors.sum())
+    fills, firs, eqs, decides = (c.launch_count for c in counters)
+    phase("pusch_equalize_parity", shape=f"{batch}x{nr}x{nt}x{nd}x{used}",
+          calls=5 * len(seeds), bit_errors=errors,
+          bits=5 * len(seeds) * batch * step.bits_per_attempt,
+          kernel_vs_plain_differing=gap, step_vs_kernel_differing=step_gap,
+          decide_vs_plain_gap=count_gap)
+    if gap or step_gap or count_gap:
+        raise AssertionError(f"sc_mmse_eq: {gap} values differ from its "
+                             f"plain version's, {step_gap} of the step's "
+                             f"from the kernel's; sc_decide's counts from "
+                             f"its plain version's by {count_gap}")
+
+    # one replay: its launches, and its counts against the eager step's
+    streams = AttemptStreams.from_range(2 ** 31 + 26, 0, batch, dev)
+    step.step(streams, 10.0)                     # eager, then the capture
+    launches = {}
+    for route in ("replay", "eager"):
+        fn = step.step if route == "replay" else step.step_eager
+        for c in counters:
+            c.launch_count = 0
+        counts = fn(streams, 10.0)
+        launches[route] = tuple(c.launch_count for c in counters)
+        fills += launches[route][0]
+        firs += launches[route][1]
+        eqs += launches[route][2]
+        decides += launches[route][3]
+        if route == "replay":
+            replayed = counts.clone()
+    same = bool(torch.equal(replayed, counts))
+    phase("pusch_replay", launches_per_replay=compact(launches["replay"]),
+          launches_eager=compact(launches["eager"]), replay_eq_eager=same,
+          graphs=len(step._graphs))
+    if launches["replay"] != (3, 1, 1, 1) or \
+            launches["eager"] != (3, 1, 1, 1) or not same:
+        raise AssertionError(f"pusch_replay: launches {launches} (fill, "
+                             f"block_fir, sc_mmse_eq, sc_decide), replay "
+                             f"equal to the eager step: {same}")
+
+    # times (CUDA events, best of 3 after a warm-up)
+    draws = step.draw(*streams.split(3))
+    out = step.forward(*draws, 100.0)
+    h, y = out.estimate, out.received.reshape(batch, nr, ns, used)
+    s2 = torch.full((), (used + cp) / (fft * 100.0), dtype=torch.float32,
+                    device=dev)
+    kernel_ms = graph_ms(lambda: sc_mmse_eq(h, y, s2, data))
+    wrapper_ms = best_ms(lambda: sc_mmse_eq(h, y, s2, data), inner=10)
+    plain_ms = best_ms(lambda: sc_mmse_eq_reference(h, y, s2, data))
+    x, g = sc_mmse_eq(h, y, s2, data)
+    sent, symbols, mu = draws[0], torch.fft.ifft(x, norm="ortho"), \
+        g.mean(dim=-1)
+    decide_ms = graph_ms(lambda: sc_decide(symbols, mu, sent))
+    decide_plain_ms = best_ms(lambda: sc_decide_reference(symbols, mu, sent))
+    after_ms = graph_ms(lambda: sc_decide(torch.fft.ifft(x, norm="ortho"),
+                                          g.mean(dim=-1), sent))
+    step_ms = best_ms(lambda: step.step(streams, 100.0), inner=10)
+    res = nd * used
+    nbytes = batch * (used * 8 * nr * nt + res * 8 * (nr + nt) + 4 * nt)
+    flops_sc = nr * (4 * nt + 4 * nt * (nt - 1)) + nt + \
+        sum(5 * j + 1 + (nt - 1 - j) * (10 * j + 2) for j in range(nt)) + \
+        nr * (8 * nt * (nt - 1) + 2 * nt) + 4 * nr * nt
+    flops = batch * (used * flops_sc + res * 8 * nr * nt)
+    bound, bound_by = bound_ms(nbytes=nbytes, flops=flops)
+    ptxas = kernel_ptxas("sc_mmse_eq_kernel")
+    ptxas.update(kernel_ptxas("sc_decide_kernel"))
+    phase("pusch_times", card=repr(smi),
+          shape=f"{batch}x{nr}x{nt}x{nd}x{used}", sc_mmse_eq_ms=kernel_ms,
+          bound_ms=bound, bound_by=bound_by,
+          share_of_bound=bound / kernel_ms,
+          wrapper_ms=wrapper_ms, plain_ms=plain_ms, sc_decide_ms=decide_ms,
+          sc_decide_bound_ms=bound_ms(nbytes=batch * nt * res * 16)[0],
+          sc_decide_plain_ms=decide_plain_ms,
+          despread_decide_count_ms=after_ms, replayed_step_ms=step_ms,
+          ptxas=compact(ptxas))
+    return {
+        "name": "sc_mmse_eq",
+        "route": "cuda",
+        "source": "pyphysim_tpu_torch/ops/csrc/sc_mmse_eq.cu",
+        "replaces": None,
+        "launches": eqs,
+        "max_abs_err": gap,
+        "ms": kernel_ms,
+        "timed_by": "graph_replay",
+        "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": bound_by,
     }, fills, firs
 
 

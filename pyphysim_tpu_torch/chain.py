@@ -31,7 +31,8 @@ hand-written kernels and ops as the eager step, so the counts are the
 same bit for bit. On the CPU ``step`` is ``step_eager``. The capture and
 the replay serve any per-key step that has ``draw``, ``forward_scaled``
 and ``noise_amplitude`` (:class:`ReplayedStep`): the MIMO-OFDM step of
-``mimo_chain.py`` replays the same way.
+``mimo_chain.py`` and the PUSCH step of ``pusch_chain.py`` replay the same
+way.
 
 ``signal_dtype=torch.bfloat16`` is the reference's bf16 signal path, which
 ``bench.py`` times. Torch has no complex bf16 and ``torch.fft`` no bf16, so
@@ -60,7 +61,6 @@ from .channels import COST259_TUx, JakesSampleGenerator, TdlChannel
 from .modulators import OFDM, QAM, OfdmOneTapEqualizer
 from .ops.fir import block_fir
 from .ops.fused_ofdm_tdl import FusedOfdmTdl
-from .ops.mimo_detect import mimo_mmse
 from .ops.streams import AttemptStreams, philox_draw
 from .tracing import span
 from .utils.misc import (count_bit_errors, randn_c, random_symbols,
@@ -74,8 +74,6 @@ JAKES_RAYS = 16
 # captured steps a ReplayedStep keeps (one an attempt count and device),
 # the least recently replayed dropped first
 GRAPHS_KEPT = 8
-# the launch counters a capture records and each replay advances
-_COUNTED = (philox_draw, block_fir, mimo_mmse)
 
 
 def _signal_dtype(dtype) -> Optional[torch.dtype]:
@@ -103,7 +101,11 @@ class ReplayedStep:
     ``noise_amplitude(snr_linear)``; on a CUDA device one replay of the
     step's graph at ``n`` attempts (the module docstring). A subclass
     calls ``ReplayedStep.__init__`` and defines ``draw``,
-    ``forward_scaled``, ``noise_amplitude`` and ``forward``."""
+    ``forward_scaled``, ``noise_amplitude`` and ``forward``;
+    ``counted_kernels`` are the kernel wrappers whose ``launch_count`` a
+    replay advances as many times as the captured step launched each."""
+
+    counted_kernels = (philox_draw, block_fir)
 
     def __init__(self) -> None:
         self._graphs: "OrderedDict[tuple, _StepGraph]" = OrderedDict()
@@ -250,9 +252,9 @@ class _StepGraph:
     written before each replay and never baked into the capture: the
     attempts, the key words (the seed, then the data, channel and noise
     salts: each draw reads its seed and salt there, stride 0 over the
-    rows) and the noise amplitude. The launch counters of ``_COUNTED``
-    advance by what the capture counted at each replay. Raises if the
-    capture fails."""
+    rows) and the noise amplitude. The launch counters of the step's
+    ``counted_kernels`` advance by what the capture counted at each
+    replay. Raises if the capture fails."""
 
     def __init__(self, chain: ReplayedStep, n: int, device: torch.device):
         self.attempts = torch.zeros(n, dtype=torch.int64, device=device)
@@ -262,7 +264,8 @@ class _StepGraph:
         streams = [AttemptStreams(self.words[0], self.attempts,
                                   self.words[i]) for i in (1, 2, 3)]
         self.graph = torch.cuda.CUDAGraph()
-        counted = [fn.launch_count for fn in _COUNTED]
+        self.counted = chain.counted_kernels
+        counted = [fn.launch_count for fn in self.counted]
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         try:
@@ -280,9 +283,9 @@ class _StepGraph:
             # the capture launched nothing: what it counted, each replay
             # launches
             self.launches = [fn.launch_count - c
-                             for fn, c in zip(_COUNTED, counted)]
+                             for fn, c in zip(self.counted, counted)]
         finally:
-            for fn, c in zip(_COUNTED, counted):
+            for fn, c in zip(self.counted, counted):
                 fn.launch_count = c
 
     def load(self, chain: ReplayedStep, streams, snr_linear: float) -> None:
@@ -299,5 +302,5 @@ class _StepGraph:
 
     def replay(self) -> None:
         self.graph.replay()
-        for fn, k in zip(_COUNTED, self.launches):
+        for fn, k in zip(self.counted, self.launches):
             fn.launch_count += k

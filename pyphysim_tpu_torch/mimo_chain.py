@@ -82,6 +82,8 @@ class MimoChainStep(ReplayedStep):
     made MIMO with ``set_num_antennas(num_rx, num_tx)``. ``signal_dtype``
     is None (complex64) or bfloat16 (the module docstring)."""
 
+    counted_kernels = ReplayedStep.counted_kernels + (mimo_mmse,)
+
     def __init__(self, num_tx: int, num_rx: int, M: int, num_symbols: int,
                  fft_size: int, cp_size: int, num_used: int,
                  channel: TdlChannel, signal_dtype=None,
@@ -143,25 +145,37 @@ class MimoChainStep(ReplayedStep):
         """:meth:`forward` with the noise amplitude as a float32 0-dim
         tensor on the noise's device, which a captured step reads from its
         buffer."""
-        bf16 = self.signal_dtype is not None
-        rnd = round_bf16 if bf16 else (lambda x: x)
         n, nr, nt = data.shape[0], self.num_rx, self.num_tx
-        tx = rnd(self.qam.modulate(data) * self._split)     # (n, Nt, S)
+        tx = self._round(self.qam.modulate(data) * self._split)  # (n, Nt, S)
+        rx, ir = self._transmit(tx, channel_state, noise, amp)
+        h = ir.get_freq_response(self.ofdm.fft_size, bins=self._bins)
+        h = h.reshape(n, nr, nt, self.num_symbols)
+        errors = mimo_mmse(h, rx, data, amp * amp * self._var_scale,
+                           self.qam.M)
+        return MimoChainOutput(errors, rx, h)
+
+    def _round(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` rounded to bf16 on the bf16 signal path; else ``x``."""
+        return x if self.signal_dtype is None else round_bf16(x)
+
+    def _transmit(self, tx: torch.Tensor, channel_state, noise: torch.Tensor,
+                  amp: torch.Tensor):
+        """``(rx, ir)``: the antennas' frequency-domain symbols ``tx`` (n,
+        Nt, S') OFDM-modulated, through the channel (``ir``, its block
+        responses), with the noise scaled by ``amp``, and demodulated on
+        each receive antenna: ``rx`` (n, Nr, S'). Rounded to bf16 at the
+        module docstring's points on the bf16 path."""
+        rnd = self._round
         sig = rnd(self.ofdm.modulate(tx))                   # (n, Nt, N)
         length = sig.shape[-1]
         ir, _ = self.channel._block_response(channel_state, length,
                                              self.block_size)
         rx = tdl_filter_block_fft_mimo(ir, sig, self.block_size)
-        h = ir.get_freq_response(self.ofdm.fft_size, bins=self._bins)
-        if bf16:
+        if self.signal_dtype is not None:
             rx = rnd(rnd(rx) + rnd(rnd(noise) * amp))
         else:
             rx = rx + noise * amp
-        rx = rnd(self.ofdm.demodulate(rx[..., :length]))    # (n, Nr, S)
-        h = h.reshape(n, nr, nt, self.num_symbols)
-        errors = mimo_mmse(h, rx, data, amp * amp * self._var_scale,
-                           self.qam.M)
-        return MimoChainOutput(errors, rx, h)
+        return rnd(self.ofdm.demodulate(rx[..., :length])), ir
 
     def draw(self, s_data, s_channel, s_noise):
         """The inputs of ``forward`` from the step's three sub-streams:

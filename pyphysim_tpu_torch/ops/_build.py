@@ -83,6 +83,9 @@ _SIGNATURES = {
     "mc_ia_inject": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _f,
                      _f, _ll, _ll, _vp, _vp],
     "mimo_mmse": [_vp, _vp, _vp, _vp, _vp, _i, _ll, _i, _i, _i, _f, _vp],
+    "sc_mmse_eq": [_vp, _vp, _vp, _vp, _vp, _i, _ll, _i, ctypes.c_uint, _i,
+                   _i, _vp],
+    "sc_decide": [_vp, _vp, _vp, _vp, _i, _i, _ll, _i, _vp],
 }
 _RESTYPES = {"mc_bd_scratch_bytes": _ll, "mc_ia_scratch_bytes": _ll}
 

@@ -3,7 +3,8 @@ SRS/DMRS user sequences (host numpy), CAZAC-based channel estimation
 (numpy or tensors)."""
 
 from .channel_estimation import (CazacBasedChannelEstimator,  # noqa: F401
-                                 CazacBasedWithOCCChannelEstimator)
+                                 CazacBasedWithOCCChannelEstimator,
+                                 LayeredOCCChannelEstimator)
 from .dmrs import DmrsUeSequence, get_dmrs_seq  # noqa: F401
 from .root_sequence import RootSequence  # noqa: F401
 from .srs import SrsUeSequence, UeSequence, get_srs_seq  # noqa: F401

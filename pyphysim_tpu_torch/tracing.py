@@ -64,16 +64,22 @@ The spans, each at a layer boundary:
                      counts
 ``chain.replay``     inside ``chain.forward``: one replay of the step's CUDA
                      graph (its ``cudaGraphLaunch``)
+``chain.estimate``   inside an eager ``chain.forward`` of ``PuschChainStep``:
+                     the DMRS channel estimate
+``chain.equalize``   after it: the SC-FDMA equalizer, the de-spreading, the
+                     unbiasing, the decisions and the count
 ===================  =========================================================
 
 ``chain.draw``, ``chain.forward`` and ``chain.replay`` serve every step
 with :class:`~pyphysim_tpu_torch.chain.ReplayedStep`'s ``step``
-(``ChainStep``, ``MimoChainStep``).
+(``ChainStep``, ``MimoChainStep``, ``PuschChainStep``). A replayed step
+records none of the spans inside its ``forward``.
 
 Beside the spans, the program counts its kernels' launches, recorded
 always: ``ops.fir.block_fir.launch_count``,
-``ops.streams.philox_draw.launch_count`` and
-``ops.mimo_detect.mimo_mmse.launch_count``, each advanced by a replay as
+``ops.streams.philox_draw.launch_count``,
+``ops.mimo_detect.mimo_mmse.launch_count`` and
+``ops.mimo_detect.sc_mmse_eq.launch_count``, each advanced by a replay as
 many times as the captured step launched the kernel.
 """
 

@@ -116,6 +116,8 @@ MIMO_MODULES = [
     "apps.ia.simulate_greedy_ia_torch",
     "apps.mimo.mu_mimo_interference_torch",
     "apps.channel_estimation_sweep_torch",
+    "pyphysim_tpu_torch.pusch_chain",
+    "apps.mimo.pusch_etu70_torch",
 ]
 SLICE_MODULES += [m for m in MIMO_MODULES if m not in SLICE_MODULES]
 
@@ -513,6 +515,10 @@ def test_new_apps_ask_for_the_card_by_default(name, monkeypatch, tmp_path):
      ["to_mat_str", "generate_pgfplots_plotline", "ber_plot_options",
       "ser_plot_options"]),
     ("pyphysim_tpu_torch.utils.testing", ["SeedReplay"]),
+    ("pyphysim_tpu_torch.reference_signals", ["LayeredOCCChannelEstimator"]),
+    ("pyphysim_tpu_torch.ops.mimo_detect",
+     ["sc_mmse_eq", "sc_mmse_eq_reference"]),
+    ("pyphysim_tpu_torch.pusch_chain", ["PuschChainStep"]),
 ])
 def test_new_names_are_exported(module, names):
     import importlib

@@ -175,6 +175,33 @@ def test_the_profiler_holds_the_spans_beside_its_own_events(perkey):
         assert events[name] == k, name
 
 
+def test_the_pusch_step_records_its_estimate_and_equalize_spans():
+    """The PUSCH step's eager forward records ``chain.estimate`` and then
+    ``chain.equalize``, each once a step, inside its ``chain.forward``,
+    after its ``chain.draw``."""
+    from apps.mimo.pusch_etu70_torch import etu_channel
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+    from pyphysim_tpu_torch.pusch_chain import PuschChainStep
+    step = PuschChainStep(2, 2, 16, 12 * 72, 128, 9, 72,
+                          etu_channel(2, 2, bandwidth_hz=1.92e6,
+                                      device="cpu"), 25, (0, 6),
+                          ((1, 1), (1, 1)), taps_to_keep=8, device="cpu")
+    streams = AttemptStreams.from_range(5, 0, 2, "cpu")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            step.step(streams, 10.0)
+    recs = tracing.spans()
+    assert [r.name for r in recs] == 2 * ["chain.draw", "chain.forward",
+                                          "chain.estimate", "chain.equalize"]
+    for i in (0, 4):
+        assert recs[i + 2].parent == recs[i + 3].parent == i + 1
+        assert recs[i + 1].start_ns <= recs[i + 2].start_ns <= \
+            recs[i + 2].end_ns <= recs[i + 3].start_ns <= \
+            recs[i + 3].end_ns <= recs[i + 1].end_ns
+    events = collections.Counter(e.name for e in prof.events())
+    assert events["chain.estimate"] == events["chain.equalize"] == 2
+
+
 def test_a_second_profiler_session_is_a_new_session():
     def traced_span(name):
         with profile(activities=[ProfilerActivity.CPU]):
