@@ -2,8 +2,9 @@
 """Where the time goes in the port's per-key chain steps, on one card.
 
 For the flagship block-static time-domain step (256 x 9,600 16-QAM
-symbols, the shape ``bench.py`` times as ``value_time_domain``), the fused
-diag step (512 x 4,800, ``value_xla_fused``), the Alamouti 2x1 chain step
+symbols, the shape ``bench.py`` times as ``value_time_domain``, and 32 x
+9,600, the ``tu.perkey`` cell's sub-chunk), the fused diag step (512 x
+4,800, ``value_xla_fused``), the Alamouti 2x1 chain step
 (1,024 x 2,048 QPSK symbols, ``bench.py``'s ``ala_step``), the BD
 capacity step (4,096 joint 6x6 channels, K = 3, normalized, ``bd_step``)
 and the Max-SINR IA step (4,096 K = 3, 2x2 channels, 'svd' init, 10
@@ -19,6 +20,8 @@ iterations, noise 0.1, ``ia_step``):
     and traces of 3 draws alone and 3 forwards alone: the device kernels
     each issues a step, the draws' Philox fills (``philox_stream_fill``)
     among them, and ``block_fir``'s share of the forward's device time;
+  * the 4x4 MIMO-OFDM step at the ``eva4x4.perkey`` cell's sub-chunk (32
+    subframes of 4 x 14 x 1,200 symbols): the same split and trace;
   * the 4-layer PUSCH step at its benchmark sub-chunk (32 subframes of
     4 x 12 x 1,200 data symbols, ``apps/mimo/pusch_etu70_torch.py``): the
     same split and trace, and its two stages by their spans: the host
@@ -37,7 +40,9 @@ iterations, noise 0.1, ``ia_step``):
     per-sub-chunk host check.
 
 Run from the repository root: ``python3 bin/profile_chain_torch.py
-[--json PATH]``. Needs a CUDA device. It reads only names an older
+[--json PATH] [--only NAME,...]``, the names among ``time_domain``,
+``fused``, ``time_domain_cell``, ``families``, ``mimo``, ``pusch`` and
+``engine`` (all by default). Needs a CUDA device. It reads only names an older
 checkout also has, so a copy of it in that checkout's ``bin/`` measures
 that checkout with the same yardstick.
 """
@@ -53,7 +58,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 SNR = 10 ** 1.5
-ROUTES = {"time_domain": (256, 300 * 32, False), "fused": (512, 300 * 16, True)}
+ROUTES = {"time_domain": (256, 300 * 32, False),
+          "fused": (512, 300 * 16, True),
+          "time_domain_cell": (32, 300 * 32, False)}
+SECTIONS = (*ROUTES, "families", "mimo", "pusch", "engine")
 
 
 def best_ms(fn, repeat=10):
@@ -228,6 +236,28 @@ def profile_families(dev):
     return out
 
 
+def profile_mimo(dev):
+    """The 4x4 MIMO-OFDM step's split and trace at the cell's sub-chunk."""
+    from apps.mimo.mimo_ofdm_tdl_torch import eva_channel
+    from pyphysim_tpu_torch.mimo_chain import MimoChainStep
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+
+    batch = 32
+    step = MimoChainStep(4, 4, 16, 1200 * 14, 2048, 144, 1200,
+                         eva_channel(4, 4, device=dev), device=dev)
+    streams = AttemptStreams.from_range(7, 0, batch, dev)
+    out = profile_step("mimo4x4", batch, batch * step.num_tx *
+                       step.num_symbols, "sym",
+                       lambda: step.draw(*streams.split(3)),
+                       lambda *x: step.forward(*x, SNR))
+    out["step_replayed_ms"] = best_ms(lambda: step.step(streams, SNR))
+    out["step_eager_ms"] = best_ms(lambda: step.step_eager(streams, SNR))
+    print(json.dumps({"route": "mimo4x4", "step_replayed_ms":
+                      out["step_replayed_ms"], "step_eager_ms":
+                      out["step_eager_ms"]}), flush=True)
+    return out
+
+
 def profile_pusch(dev):
     """The PUSCH step's split and trace, its spans' host time and its two
     stages' device time (the module docstring)."""
@@ -313,7 +343,14 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json", default=None,
                         help="also write the results to this file")
+    parser.add_argument("--only", default=",".join(SECTIONS),
+                        help="comma-separated sections to run, of "
+                        + ", ".join(SECTIONS))
     args = parser.parse_args()
+    only = args.only.split(",")
+    unknown = sorted(set(only) - set(SECTIONS))
+    if unknown:
+        parser.error(f"unknown sections {unknown}")
     if not torch.cuda.is_available():
         print("profile_chain_torch: no CUDA device", file=sys.stderr)
         return 1
@@ -325,11 +362,16 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    result = {"card": card,
-              "routes": [profile_route(name, *shape, dev)
-                         for name, shape in ROUTES.items()] +
-              profile_families(dev) + [profile_pusch(dev)],
-              "per_key_engine": engine_stop_cost(dev)}
+    routes = [profile_route(name, *shape, dev)
+              for name, shape in ROUTES.items() if name in only]
+    if "families" in only:
+        routes += profile_families(dev)
+    routes += [fn(dev) for name, fn in (("mimo", profile_mimo),
+                                        ("pusch", profile_pusch))
+               if name in only]
+    result = {"card": card, "routes": routes}
+    if "engine" in only:
+        result["per_key_engine"] = engine_stop_cost(dev)
     if args.json:
         os.makedirs(os.path.dirname(args.json) or ".", exist_ok=True)
         with open(args.json, "w") as f:

@@ -32,6 +32,16 @@ against its plain PyTorch version on the card:
     ``sc_mmse_eq``, 1 ``sc_decide``) and counts against its eager step,
     and the kernels' times beside their byte bounds, registers and
     spills;
+  * the per-key steps' symbol map and decision (phase 12e, ``qam_phase``):
+    ``qam_map`` at the three per-key cells' shapes and ``ChainStep``'s
+    decision (``sc_decide`` with a unit gain) at ``tu.perkey``'s, bit for
+    bit their plain versions over 10 calls on the steps' own draws and
+    equalized values, each replayed step against its eager step in turns
+    (counts equal, one map launch a replay, and one decision launch a
+    ``ChainStep`` replay), and their graph replay times on inputs that
+    outgrow the L2 beside their byte bounds; the map's registers and
+    spills. The runner's sweeps (phases 9, 10) and the MIMO and PUSCH
+    replays (12c, 12d) check one map launch a step call there;
   * the Alamouti 2x1 family through its CUDA kernel on the bulk path and
     through its library chain on the per-key path, and the BD CoMP capacity
     family the same way, at ``bench.py``'s widths (phases 13-19);
@@ -386,6 +396,40 @@ def graph_ms(fn, inner=10):
     return best_ms(graph.replay) / inner
 
 
+def rotated_graph_ms(fn, args, nbytes, inner=10):
+    """:func:`graph_ms` of ``fn(*args)`` on copies of ``args``, one a call
+    and enough that one replay moves three times the card's 50 MB L2
+    (``nbytes`` a call; at least ``inner`` calls): each call reads its
+    inputs from HBM, as a step's call does, and writes an output of its
+    own (kept to the end)."""
+    calls = max(inner, -(-150_000_000 // nbytes))
+    copies = [[a.clone() for a in args] for _ in range(calls)]
+    outputs = []
+
+    def call():
+        outputs.append(fn(*copies[len(outputs) % calls]))
+    return graph_ms(call, inner=calls)
+
+
+def zero_counts(wrappers):
+    for w in wrappers:
+        w.launch_count = 0
+        w.reference_count = 0
+
+
+def check_step_kernels(name, calls, wrappers):
+    """Each kernel of ``wrappers`` launched once a step call of the
+    ``calls`` since its counters were zeroed, and its plain version never.
+    Returns each one's launches."""
+    launches = tuple(w.launch_count for w in wrappers)
+    plain = tuple(w.reference_count for w in wrappers)
+    if calls == 0 or any(n != calls for n in launches) or any(plain):
+        raise AssertionError(f"{name}: launches {launches} and plain calls "
+                             f"{plain} of {[w.__name__ for w in wrappers]} "
+                             f"for {calls} step calls")
+    return launches
+
+
 def bound_ms(nbytes=0, flops=0, issue_ms=0.0):
     """The least time the card could take: bytes over the memory rate, f32
     operations over the f32 rate, or the instructions' time on their
@@ -566,9 +610,10 @@ def main() -> int:
 
     mc_entries = [flagship_phases(dev, smi, dtype) for dtype in MC_DTYPES]
 
-    phases_8_to_12 = chain_phases(dev, smi, fill_err)
-    mimo_entry, mimo_fills, mimo_firs = mimo_ofdm_phase(dev, smi)
-    pusch_entry, pusch_fills, pusch_firs = pusch_phase(dev, smi)
+    phases_8_to_12, chain_maps = chain_phases(dev, smi, fill_err)
+    mimo_entry, mimo_fills, mimo_firs, mimo_maps = mimo_ofdm_phase(dev, smi)
+    pusch_entry, pusch_fills, pusch_firs, pusch_maps = pusch_phase(dev, smi)
+    qam_entry = qam_phase(dev, smi, chain_maps + mimo_maps + pusch_maps)
     phases_13_to_19 = mimo_bd_phases(dev, smi)
     phases_20_to_26 = ia_phases(dev, smi)
     wide_entries = geometry_phases(dev, smi)
@@ -591,7 +636,7 @@ def main() -> int:
     fill_entry["launches"] += app_phases(dev, smi)
     notebooks = notebook_phases(dev, smi)
     entries = [*mc_entries, *phases_8_to_12, mimo_entry, pusch_entry,
-               *phases_13_to_19,
+               qam_entry, *phases_13_to_19,
                phases_20_to_26, *wide_entries, *shape_entries]
     for entry in entries:
         more = parallel.get(entry["name"], {})
@@ -784,12 +829,14 @@ def mimo_ofdm_phase(dev, smi):
     version on the step's own H, y and sent indices at five SNRs and two
     seeds: the same counts bit for bit (the two round the same float32
     operations in the same order), and the step's counts equal them. A
-    replayed step launches the fill 3 times, ``block_fir`` once and the
-    detector once, and counts what its eager step counts. The kernel's
+    replayed step launches the fill 3 times, ``block_fir``, the symbol map
+    (``qam_map``) and the detector once each, and counts what its eager
+    step counts; the map's plain version never runs. The kernel's
     time (a CUDA graph of wrapper calls) beside its byte bound (H, y and
     the indices read once: 192 B an RE), its plain version's and
     Blast's library route's (batched ``torch.linalg.solve``). Returns the
-    detector's ``kernels`` entry and the fill's and block_fir's launches."""
+    detector's ``kernels`` entry, the fill's and block_fir's launches and
+    the map's in the replayed and eager steps."""
     import torch
     from apps.mimo.mimo_ofdm_tdl_torch import eva_channel
     from pyphysim_tpu_torch.mimo_chain import MimoChainStep
@@ -797,6 +844,7 @@ def mimo_ofdm_phase(dev, smi):
     from pyphysim_tpu_torch.ops import fir
     from pyphysim_tpu_torch.ops.mimo_detect import (mimo_mmse,
                                                     mimo_mmse_reference)
+    from pyphysim_tpu_torch.ops.qam import qam_map
     from pyphysim_tpu_torch.ops.streams import AttemptStreams, philox_draw
     from pyphysim_tpu_torch.utils.misc import count_bits
 
@@ -805,9 +853,10 @@ def mimo_ofdm_phase(dev, smi):
     res = used * 14
     step = MimoChainStep(nt, nr, 16, res, fft, cp, used,
                          eva_channel(nr, nt, device=dev), device=dev)
-    counters = (philox_draw, fir.block_fir, mimo_mmse)
+    counters = (philox_draw, fir.block_fir, mimo_mmse, qam_map)
     for c in counters:
         c.launch_count = 0
+    qam_map.reference_count = 0
     gap = step_gap = errors = 0
     for seed in (2 ** 31 + 21, 5):
         streams = AttemptStreams.from_range(seed, 3 * batch, batch, dev)
@@ -824,7 +873,8 @@ def mimo_ofdm_phase(dev, smi):
             gap += int((got - want).abs().sum())
             step_gap += int((out.bit_errors - got).abs().sum())
             errors += int(want.sum())
-    fills, firs, detects = (c.launch_count for c in counters)
+    fills, firs, detects, _ = (c.launch_count for c in counters)
+    maps = 0
     phase("mimo_detect_parity", shape=f"{batch}x{nr}x{nt}x{res}", calls=10,
           bits=10 * batch * res * nt * 4, bit_errors=errors,
           kernel_vs_plain_gap=gap, step_vs_kernel_gap=step_gap)
@@ -846,17 +896,20 @@ def mimo_ofdm_phase(dev, smi):
         fills += launches[route][0]
         firs += launches[route][1]
         detects += launches[route][2]
+        maps += launches[route][3]
         if route == "replay":
             replayed = counts.clone()
     same = bool(torch.equal(replayed, counts))
     phase("mimo_replay", launches_per_replay=compact(launches["replay"]),
           launches_eager=compact(launches["eager"]), replay_eq_eager=same,
-          graphs=len(step._graphs))
-    if launches["replay"] != (3, 1, 1) or launches["eager"] != (3, 1, 1) \
-            or not same:
+          map_plain_calls=qam_map.reference_count, graphs=len(step._graphs))
+    if launches["replay"] != (3, 1, 1, 1) or \
+            launches["eager"] != (3, 1, 1, 1) or not same or \
+            qam_map.reference_count:
         raise AssertionError(f"mimo_replay: launches {launches} (fill, "
-                             f"block_fir, mimo_mmse), replay equal to the "
-                             f"eager step: {same}")
+                             f"block_fir, mimo_mmse, qam_map), "
+                             f"{qam_map.reference_count} plain maps, replay "
+                             f"equal to the eager step: {same}")
 
     # times (CUDA events, best of 3 after a warm-up)
     draws = step.draw(*streams.split(3))
@@ -901,7 +954,7 @@ def mimo_ofdm_phase(dev, smi):
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": library_ms,
-    }, fills, firs
+    }, fills, firs, maps
 
 
 def pusch_phase(dev, smi, seeds=(2 ** 31 + 25, 6)):
@@ -912,9 +965,10 @@ def pusch_phase(dev, smi, seeds=(2 ** 31 + 25, 6)):
     estimate and received symbols at five SNRs and each of ``seeds``: x
     and the gains equal bit for bit (the two round the same float32
     operations in the same order), and the step's own x equal to them. A
-    replayed step launches the fill 3 times, ``block_fir`` once and the
-    equalizer and the decision once each, and counts what its eager step
-    counts. The equalizer's time (a CUDA graph of wrapper calls) beside
+    replayed step launches the fill 3 times, ``block_fir``, the equalizer,
+    the decision and the symbol map (``qam_map``) once each, and counts
+    what its eager step counts; the map's plain version never runs. The
+    equalizer's time (a CUDA graph of wrapper calls) beside
     its bound (H and the data symbols' y read once, x and the gain sums
     written once; the fewest
     float32 operations: the Gram and its LDL^H factors a subcarrier, W's
@@ -923,8 +977,9 @@ def pusch_phase(dev, smi, seeds=(2 ** 31 + 25, 6)):
     the unbiasing, the slicer and the count after the IDFT) against its
     plain version bit for bit and its time beside its byte bound; and the
     time of what follows the equalizer in the step (the IDFT, the mean
-    gains and ``sc_decide``). Returns the equalizer's ``kernels`` entry
-    and the fill's and block_fir's launches."""
+    gains and ``sc_decide``). Returns the equalizer's ``kernels`` entry,
+    the fill's and block_fir's launches and the map's in the replayed and
+    eager steps."""
     import torch
     from apps.mimo.pusch_etu70_torch import pusch_step
     from pyphysim_tpu_torch.ops import fir
@@ -932,6 +987,7 @@ def pusch_phase(dev, smi, seeds=(2 ** 31 + 25, 6)):
                                                     sc_decide_reference,
                                                     sc_mmse_eq,
                                                     sc_mmse_eq_reference)
+    from pyphysim_tpu_torch.ops.qam import qam_map
     from pyphysim_tpu_torch.ops.streams import AttemptStreams, philox_draw
 
     nt = nr = 4
@@ -939,9 +995,10 @@ def pusch_phase(dev, smi, seeds=(2 ** 31 + 25, 6)):
     step = pusch_step(dev)
     ns, data = step.symbols_per_subframe, step.data_symbols
     nd = len(data)
-    counters = (philox_draw, fir.block_fir, sc_mmse_eq, sc_decide)
+    counters = (philox_draw, fir.block_fir, sc_mmse_eq, sc_decide, qam_map)
     for c in counters:
         c.launch_count = 0
+    qam_map.reference_count = 0
     gap = step_gap = count_gap = errors = 0
     for seed in seeds:
         streams = AttemptStreams.from_range(seed, 3 * batch, batch, dev)
@@ -962,7 +1019,8 @@ def pusch_phase(dev, smi, seeds=(2 ** 31 + 25, 6)):
                               sc_decide_reference(out.symbols, mu, draws[0])
                               ).abs().sum())
             errors += int(out.bit_errors.sum())
-    fills, firs, eqs, decides = (c.launch_count for c in counters)
+    fills, firs, eqs, decides, _ = (c.launch_count for c in counters)
+    maps = 0
     phase("pusch_equalize_parity", shape=f"{batch}x{nr}x{nt}x{nd}x{used}",
           calls=5 * len(seeds), bit_errors=errors,
           bits=5 * len(seeds) * batch * step.bits_per_attempt,
@@ -988,16 +1046,19 @@ def pusch_phase(dev, smi, seeds=(2 ** 31 + 25, 6)):
         firs += launches[route][1]
         eqs += launches[route][2]
         decides += launches[route][3]
+        maps += launches[route][4]
         if route == "replay":
             replayed = counts.clone()
     same = bool(torch.equal(replayed, counts))
     phase("pusch_replay", launches_per_replay=compact(launches["replay"]),
           launches_eager=compact(launches["eager"]), replay_eq_eager=same,
-          graphs=len(step._graphs))
-    if launches["replay"] != (3, 1, 1, 1) or \
-            launches["eager"] != (3, 1, 1, 1) or not same:
+          map_plain_calls=qam_map.reference_count, graphs=len(step._graphs))
+    if launches["replay"] != (3, 1, 1, 1, 1) or \
+            launches["eager"] != (3, 1, 1, 1, 1) or not same or \
+            qam_map.reference_count:
         raise AssertionError(f"pusch_replay: launches {launches} (fill, "
-                             f"block_fir, sc_mmse_eq, sc_decide), replay "
+                             f"block_fir, sc_mmse_eq, sc_decide, qam_map), "
+                             f"{qam_map.reference_count} plain maps, replay "
                              f"equal to the eager step: {same}")
 
     # times (CUDA events, best of 3 after a warm-up)
@@ -1048,7 +1109,157 @@ def pusch_phase(dev, smi, seeds=(2 ** 31 + 25, 6)):
         "plain_ms": plain_ms,
         "bound_ms": bound,
         "bound_by": bound_by,
-    }, fills, firs
+    }, fills, firs, maps
+
+
+def qam_steps(dev):
+    """The per-key cells' steps at their sub-chunk's configuration, with
+    the gain each passes ``qam_map`` (``tu.perkey`` in both signal
+    types)."""
+    from apps.mimo.mimo_ofdm_tdl_torch import eva_channel
+    from apps.mimo.pusch_etu70_torch import pusch_step
+    from pyphysim_tpu_torch.chain import ChainStep
+    from pyphysim_tpu_torch.mimo_chain import MimoChainStep
+    mimo = MimoChainStep(4, 4, 16, 1200 * 14, 2048, 144, 1200,
+                         eva_channel(4, 4, device=dev), device=dev)
+    return {
+        "tu.perkey": (ChainStep(TD_SYMBOLS, 512, 52, 300, block_static=True,
+                                device=dev), None),
+        "tu.perkey.bf16": (ChainStep(TD_SYMBOLS, 512, 52, 300,
+                                     block_static=True,
+                                     signal_dtype="bfloat16", device=dev),
+                           None),
+        "eva4x4.perkey": (mimo, mimo._split),
+        "etu4x4.pusch": (pusch_step(dev), None)}
+
+
+def qam_phase(dev, smi, main_launches, batch=32, calls=10):
+    """Phase 12e: the per-key steps' symbol map (``qam_map``,
+    ``ops/csrc/qam.cu``) and the SISO step's decision with its bit count
+    (``sc_decide`` with a unit gain) at the three per-key cells' sub-chunk
+    of ``batch`` attempts. Over ``calls`` calls of each step's own draws
+    (fresh attempts, SNRs from 0 to 40 dB): the map's points equal its
+    plain version's bit for bit, and on ``ChainStep`` the decision's counts
+    on the step's equalized values equal its plain version's and the
+    step's own. Each step replayed against its eager step in turns (eager,
+    replay, replay, eager): counts equal, the map launched once a replay
+    and the decision once a replay of a step that decides with it, as
+    eagerly. Times by graph replay on copies of the inputs that outgrow
+    the L2 (:func:`rotated_graph_ms`): the map at each shape and the
+    decision at ``tu.perkey``'s, beside their byte bounds (16 B an element:
+    an int64 index in and a complex64 point out; a complex64 point and an
+    int64 index in), their wrappers' and plain versions'; the map's
+    registers and spills. Returns the map's ``kernels`` entry, whose
+    launches are ``main_launches``: those of the main path's runs (the
+    runner's sweeps of the time-domain and fused chains, the MIMO and
+    PUSCH steps' replays), each checked there against its step calls."""
+    import torch
+    from pyphysim_tpu_torch.chain import ChainStep
+    from pyphysim_tpu_torch.ops.mimo_detect import (sc_decide,
+                                                    sc_decide_reference)
+    from pyphysim_tpu_torch.ops.qam import qam_map, qam_map_reference
+    from pyphysim_tpu_torch.ops.streams import AttemptStreams
+
+    def bits(t):
+        return torch.view_as_real(t).contiguous().view(torch.int32)
+
+    def decide(eq, data, unit, fn=sc_decide):
+        return fn(eq[:, None], unit, data[:, None], 16)
+
+    counters = (qam_map, sc_decide)
+    times = {}
+    differ = gap = 0
+    for name, (step, gain) in qam_steps(dev).items():
+        siso = isinstance(step, ChainStep)
+        step_differ = step_gap = errors = 0
+        unit = torch.ones(batch, 1, device=dev)
+        for k in range(calls):
+            s = AttemptStreams.from_range(2 ** 31 + 41 + k, 2 ** 32 - 7 +
+                                          k * batch, batch, dev)
+            draws = step.draw(*s.split(3))
+            data = draws[0]
+            step_differ += int((bits(qam_map(data, 16, gain)) != bits(
+                qam_map_reference(data, 16, gain))).sum())
+            if siso:
+                out = step.forward(*draws, 10 ** (4 * k / (calls - 1)))
+                got = decide(out.equalized, data, unit)
+                want = decide(out.equalized, data, unit, sc_decide_reference)
+                step_gap += int((got - want).abs().sum()) + \
+                    int((out.bit_errors - want).abs().sum())
+                errors += int(want.sum())
+        # replay against eager in turns
+        s0 = AttemptStreams.from_range(2 ** 31 + 61, 0, batch, dev)
+        step.step(s0, 10.0)                      # eager, then the capture
+        same, launches = True, {}
+        for k, route in enumerate(("eager", "replay", "replay", "eager")):
+            fn = step.step if route == "replay" else step.step_eager
+            s = AttemptStreams.from_range(2 ** 31 + 62 + k // 2, 0, batch,
+                                          dev)
+            before = [c.launch_count for c in counters]
+            got = fn(s, 10 ** (k / 2))
+            launches[route] = tuple(c.launch_count - b
+                                    for c, b in zip(counters, before))
+            other = step.step_eager if route == "replay" else step.step
+            same = same and bool(torch.equal(got, other(s, 10 ** (k / 2))))
+        want_launches = (1, int(sc_decide in step.counted_kernels))
+        phase("qam_parity", step=name, shape=compact(list(data.shape)),
+              calls=calls, map_differing=step_differ,
+              decide_vs_plain_gap=step_gap, bit_errors=errors,
+              launches_per_replay=compact(launches["replay"]),
+              launches_eager=compact(launches["eager"]), replay_eq_eager=same)
+        if step_differ or step_gap or not same or \
+                launches["replay"] != want_launches or \
+                launches["eager"] != want_launches:
+            raise AssertionError(f"qam {name}: {step_differ} points, "
+                                 f"{step_gap} counts differ from the plain "
+                                 f"versions; replay equal to eager: {same}; "
+                                 f"launches {launches} (qam_map, sc_decide),"
+                                 f" want {want_launches}")
+        differ += step_differ
+        gap += step_gap
+        # times at the step's own shape
+        n = data.numel()
+        entry = {"qam_map_ms": rotated_graph_ms(
+                     lambda d: qam_map(d, 16, gain), (data,), 16 * n),
+                 "qam_map_bound_ms": bound_ms(nbytes=16 * n)[0],
+                 "qam_map_wrapper_ms": best_ms(
+                     lambda: qam_map(data, 16, gain), inner=10),
+                 "qam_map_plain_ms": best_ms(
+                     lambda: qam_map_reference(data, 16, gain))}
+        if siso:
+            eq = out.equalized
+            entry.update({
+                "decide_ms": rotated_graph_ms(
+                    lambda e, d: decide(e, d, unit), (eq, data), 16 * n),
+                "decide_bound_ms": bound_ms(
+                    nbytes=16 * n + 12 * batch)[0],
+                "decide_wrapper_ms": best_ms(
+                    lambda: decide(eq, data, unit), inner=10),
+                "decide_plain_ms": best_ms(
+                    lambda: decide(eq, data, unit, sc_decide_reference))})
+        for kernel in ("qam_map", "decide"):
+            if f"{kernel}_ms" in entry:
+                entry[f"{kernel}_share_of_bound"] = \
+                    entry[f"{kernel}_bound_ms"] / entry[f"{kernel}_ms"]
+        times[name] = entry
+        phase("qam_times", card=repr(smi), step=name,
+              shape=compact(list(data.shape)), **entry)
+    phase("qam_build", ptxas=compact(kernel_ptxas("qam_map_kernel")))
+    cell = times["tu.perkey"]
+    return {
+        "name": "qam_map",
+        "route": "cuda",
+        "source": "pyphysim_tpu_torch/ops/csrc/qam.cu",
+        "replaces": None,
+        "launches": main_launches,
+        "max_abs_err": differ,
+        "ms": cell["qam_map_ms"],
+        "timed_by": "graph_replay",
+        "wrapper_ms": cell["qam_map_wrapper_ms"],
+        "plain_ms": cell["qam_map_plain_ms"],
+        "bound_ms": cell["qam_map_bound_ms"],
+        "bound_by": "bytes",
+    }
 
 
 def fill_draws_parity(name, draws):
@@ -1517,13 +1728,17 @@ def chain_phases(dev, smi, fill_err):
     """Phases 8-12: block_fir against its plain version, the time-domain
     and fused chains and the per-sample app through the per-key runner
     (their draws through the fill kernel, and the fill against its plain
-    version at each of their draws), and their times. Returns the entries
-    of block_fir and of the fill (``fill_err``: its phase-3 parity error,
-    raised by phase 10's) in the ``kernels`` line."""
+    version at each of their draws, their symbol maps and decisions one
+    launch each a chain call), and their times. Returns the entries of
+    block_fir and of the fill (``fill_err``: its phase-3 parity error,
+    raised by phase 10's) in the ``kernels`` line, and the map's launches
+    in the runner's sweeps."""
     import torch
     from pyphysim_tpu_torch.chain import ChainStep
     from pyphysim_tpu_torch.channels import fading
     from pyphysim_tpu_torch.ops import _build, fir, sass
+    from pyphysim_tpu_torch.ops.mimo_detect import sc_decide
+    from pyphysim_tpu_torch.ops.qam import qam_map
     from pyphysim_tpu_torch.ops.streams import (AttemptStreams, philox_draw,
                                                 philox_draw_reference)
 
@@ -1560,6 +1775,8 @@ def chain_phases(dev, smi, fill_err):
         raise AssertionError("the default block convolution is not the "
                              "kernel")
     td, fused, fir_launches, fill_launches = {}, {}, 0, 0
+    # the symbol map and the decision: one launch each a chain call
+    step_kernels, map_launches = (qam_map, sc_decide), 0
 
     def check_fills(name, runner):
         """Three draws a chain call (symbols, channel, noise), each one
@@ -1581,6 +1798,7 @@ def chain_phases(dev, smi, fill_err):
         fir.block_fir.reference_count = 0
         philox_draw.launch_count = 0
         philox_draw.reference_count = 0
+        zero_counts(step_kernels)
         bers, seconds = run_sweep(runner)
         launches = fir.block_fir.launch_count
         fir_plain = fir.block_fir.reference_count
@@ -1589,7 +1807,14 @@ def chain_phases(dev, smi, fill_err):
               chain_calls=runner.chunks_dispatched,
               block_fir_launches=launches, block_fir_plain_calls=fir_plain,
               fill_launches=philox_draw.launch_count,
-              plain_draws=philox_draw.reference_count)
+              plain_draws=philox_draw.reference_count,
+              map_decide_launches=compact([w.launch_count
+                                           for w in step_kernels]),
+              map_decide_plain_calls=compact([w.reference_count
+                                              for w in step_kernels]))
+        map_launches += check_step_kernels(f"time_domain_path {tag}",
+                                           runner.chunks_dispatched,
+                                           step_kernels)[0]
         check_bers(f"time_domain_path {tag}", snrs, bers)
         if launches != runner.chunks_dispatched or launches == 0 or \
                 fir_plain != 0:
@@ -1608,13 +1833,21 @@ def chain_phases(dev, smi, fill_err):
                               FUSED_BATCH)
         philox_draw.launch_count = 0
         philox_draw.reference_count = 0
+        zero_counts(step_kernels)
         bers, seconds = run_sweep(runner)
         phase("fused_path", signal=tag, snr_db=snrs, ber=bers,
               runned_reps=runner.runned_reps, seconds=seconds,
               chain_calls=runner.chunks_dispatched,
               fill_launches=philox_draw.launch_count,
-              plain_draws=philox_draw.reference_count)
+              plain_draws=philox_draw.reference_count,
+              map_decide_launches=compact([w.launch_count
+                                           for w in step_kernels]),
+              map_decide_plain_calls=compact([w.reference_count
+                                              for w in step_kernels]))
         check_bers(f"fused_path {tag}", snrs, bers)
+        map_launches += check_step_kernels(f"fused_path {tag}",
+                                           runner.chunks_dispatched,
+                                           step_kernels)[0]
         fill_launches += check_fills(f"fused_path {tag}", runner)
 
     # the fill at every draw of a time-domain and a fused step, bitwise
@@ -1747,7 +1980,7 @@ def chain_phases(dev, smi, fill_err):
         "bound_ms": fill_bound,
         "bound_by": fill_bound_by,
         "library_ms": None,
-    }]
+    }], map_launches
 
 
 def sweep_runner(runner, name, values, rep_max, batch):

@@ -19,7 +19,7 @@ inputs:
     ``kernel(streams)`` of the runner's per-key path.
 
 On a CUDA device ``step`` replays one captured CUDA graph of the whole
-step (the three draws and ``forward``: ~100 launches, each of which the
+step (the three draws and ``forward``: ~50 launches, each of which the
 host would otherwise issue in turn while the card waits): one graph for
 each number of attempts, captured after the first call at that number
 runs op by op (:meth:`ChainStep.step_eager`, which fills the caches the
@@ -61,10 +61,11 @@ from .channels import COST259_TUx, JakesSampleGenerator, TdlChannel
 from .modulators import OFDM, QAM, OfdmOneTapEqualizer
 from .ops.fir import block_fir
 from .ops.fused_ofdm_tdl import FusedOfdmTdl
+from .ops.mimo_detect import sc_decide
+from .ops.qam import qam_map
 from .ops.streams import AttemptStreams, philox_draw
 from .tracing import span
-from .utils.misc import (count_bit_errors, randn_c, random_symbols,
-                         round_bf16)
+from .utils.misc import randn_c, random_symbols, round_bf16
 
 __all__ = ["ChainOutput", "ChainStep", "ReplayedStep"]
 
@@ -153,7 +154,12 @@ class ChainStep(ReplayedStep):
     ``_make_chain_step`` (``precision`` has no counterpart: the port's
     transforms are ``torch.fft`` in float32); ``signal_dtype`` is None
     (complex64) or bfloat16 (the module docstring says where it rounds),
-    ``fused`` requires ``block_static``."""
+    ``fused`` requires ``block_static``. On the card the symbol map
+    (``ops/qam.py`` ``qam_map``) and the decision with its bit count
+    (``ops/mimo_detect.py`` ``sc_decide``, with a unit gain) are one kernel
+    launch each."""
+
+    counted_kernels = ReplayedStep.counted_kernels + (qam_map, sc_decide)
 
     def __init__(self, num_symbols: int, fft_size: int, cp_size: int,
                  num_used: int, block_static: bool = False,
@@ -175,6 +181,10 @@ class ChainStep(ReplayedStep):
             self.ofdm.samples_per_symbol if block_static else None)
         self.equalizer = OfdmOneTapEqualizer(self.ofdm)
         self.fop = FusedOfdmTdl(self.ofdm, self.channel) if fused else None
+        # (n, 1) float32 ones by (n, device): the decision's gain, by which
+        # it divides exactly; made by the first, eager call at n, so a
+        # capture only reads it
+        self._unit_gain: dict = {}
         ReplayedStep.__init__(self)
 
     @property
@@ -230,8 +240,12 @@ class ChainStep(ReplayedStep):
         if self.fop is None:
             rx = rnd(self.ofdm.demodulate(rx[..., :sig.shape[-1]]))
         eq = self.equalizer.equalize_data(rx, ir)
-        decided = self.qam.demodulate_hard(eq)
-        return ChainOutput(count_bit_errors(data, decided, axis=-1), eq, rx)
+        key = (eq.shape[0], eq.device)
+        if key not in self._unit_gain:
+            self._unit_gain[key] = torch.ones(key[0], 1, device=eq.device)
+        errors = sc_decide(eq[:, None], self._unit_gain[key], data[:, None],
+                           self.qam.M)
+        return ChainOutput(errors, eq, rx)
 
     def draw(self, s_data, s_channel, s_noise):
         """The inputs of ``forward`` from the step's three sub-streams:

@@ -62,6 +62,7 @@ from .channels import TdlChannel
 from .channels.fading import tdl_filter_block_fft_mimo
 from .modulators import OFDM, QAM
 from .ops.mimo_detect import mimo_mmse
+from .ops.qam import qam_map
 from .utils.misc import randn_c, random_symbols, round_bf16
 
 __all__ = ["MimoChainOutput", "MimoChainStep"]
@@ -82,7 +83,7 @@ class MimoChainStep(ReplayedStep):
     made MIMO with ``set_num_antennas(num_rx, num_tx)``. ``signal_dtype``
     is None (complex64) or bfloat16 (the module docstring)."""
 
-    counted_kernels = ReplayedStep.counted_kernels + (mimo_mmse,)
+    counted_kernels = ReplayedStep.counted_kernels + (mimo_mmse, qam_map)
 
     def __init__(self, num_tx: int, num_rx: int, M: int, num_symbols: int,
                  fft_size: int, cp_size: int, num_used: int,
@@ -146,7 +147,8 @@ class MimoChainStep(ReplayedStep):
         tensor on the noise's device, which a captured step reads from its
         buffer."""
         n, nr, nt = data.shape[0], self.num_rx, self.num_tx
-        tx = self._round(self.qam.modulate(data) * self._split)  # (n, Nt, S)
+        # (n, Nt, S): the points times the split, in one launch on the card
+        tx = self._round(qam_map(data, self.qam.M, self._split))
         rx, ir = self._transmit(tx, channel_state, noise, amp)
         h = ir.get_freq_response(self.ofdm.fft_size, bins=self._bins)
         h = h.reshape(n, nr, nt, self.num_symbols)

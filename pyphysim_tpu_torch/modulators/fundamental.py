@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .._device import DeviceLike, require_cuda
+from ..ops.qam import qam_map, qam_slice
 from ..utils.conversion import binary2gray, dB2Linear, gray2binary
 from ..utils.misc import level2bits, qfunc
 
@@ -233,10 +234,8 @@ class QAM(Modulator):
         if power != int(power) or int(power) % 2 != 0:
             raise ValueError("M must be a square power of 2")
         L = int(round(math.sqrt(M)))
-        self._L = L
         symbols = self._createConstellation(M)
         self.setConstellation(symbols[self._calculateGrayMappingIndexQAM(L)])
-        self._scale = math.sqrt((M - 1) * 2.0 / 3.0)
 
     @staticmethod
     def _createConstellation(M: int) -> np.ndarray:
@@ -254,33 +253,19 @@ class QAM(Modulator):
 
     def modulate(self, input_data):
         """Arithmetic QAM mapping for tensors (no table): the I/Q levels
-        come from the Gray codes of the index's column and row bits."""
+        come from the Gray codes of the index's column and row bits
+        (``ops.qam.qam_map``: one kernel launch on the card, the plain
+        version on the CPU)."""
         if isinstance(input_data, (np.ndarray, int)):
             return Modulator.modulate(self, input_data)
-        L = self._L
-        half_bits = level2bits(L * L) // 2
-        col = input_data & (L - 1)
-        row = input_data >> half_bits
-        jj = col ^ (col >> 1)
-        ii = row ^ (row >> 1)
-        inv_scale = 1.0 / self._scale
-        re = (2 * jj - (L - 1)).to(torch.float32) * inv_scale
-        im = ((L - 1) - 2 * ii).to(torch.float32) * inv_scale
-        return torch.complex(re, im)
+        return qam_map(input_data, self._M)
 
     def demodulate_hard(self, received_data: torch.Tensor) -> torch.Tensor:
         """O(1)-per-symbol slicer: round I and Q to the nearest PAM level
         (clipped), then rebuild the Gray-mapped index. The same decisions
-        as the nearest-neighbour search (rectangular regions)."""
-        L = self._L
-        half_bits = level2bits(L * L) // 2
-        col_pos = torch.clamp(torch.round(
-            (received_data.real * self._scale + (L - 1)) / 2.0),
-            0, L - 1).to(torch.int64)
-        row_pos = torch.clamp(torch.round(
-            ((L - 1) - received_data.imag * self._scale) / 2.0),
-            0, L - 1).to(torch.int64)
-        return (_inv_gray(row_pos) << half_bits) | _inv_gray(col_pos)
+        as the nearest-neighbour search (rectangular regions);
+        ``ops.qam.qam_slice``."""
+        return qam_slice(received_data, self._M)
 
     def _calcTheoreticalSingleCarrierErrorRate(self, SNR):
         snr = dB2Linear(SNR)
@@ -296,16 +281,6 @@ class QAM(Modulator):
         """Gray-coding approximation ``2 Psc / K``."""
         return (2.0 * self._calcTheoreticalSingleCarrierErrorRate(SNR) /
                 level2bits(self._M))
-
-
-def _inv_gray(p: torch.Tensor) -> torch.Tensor:
-    """Inverse Gray code by xor-prefix, exact below 8 bits."""
-    out = p
-    sh = 1
-    while sh < 8:
-        out = out ^ (out >> sh)
-        sh *= 2
-    return out
 
 
 def _sqrt(x):

@@ -86,6 +86,7 @@ _SIGNATURES = {
     "sc_mmse_eq": [_vp, _vp, _vp, _vp, _vp, _i, _ll, _i, ctypes.c_uint, _i,
                    _i, _vp],
     "sc_decide": [_vp, _vp, _vp, _vp, _i, _i, _ll, _i, _vp],
+    "qam_map": [_vp, _vp, _ll, _i, _f, _f, _i, _vp],
 }
 _RESTYPES = {"mc_bd_scratch_bytes": _ll, "mc_ia_scratch_bytes": _ll}
 

@@ -42,6 +42,7 @@ import math
 import torch
 
 from ..utils.misc import count_bits
+from .qam import qam_slice
 
 __all__ = ["SC_SHAPES", "SHAPES", "mimo_mmse", "mimo_mmse_reference",
            "sc_decide", "sc_decide_reference", "sc_mmse_eq",
@@ -107,31 +108,14 @@ mimo_mmse.launch_count = 0
 mimo_mmse.reference_count = 0
 
 
-def _level(v: torch.Tensor, scale: torch.Tensor, lq: int) -> torch.Tensor:
-    """``QAM.demodulate_hard`` on one axis: the grid position nearest
-    ``v`` (round half to even, clamped)."""
-    return torch.clamp(torch.round((v * scale + (lq - 1)) / 2.0), 0,
-                       lq - 1).to(torch.int64)
-
-
-def _inv_gray(p: torch.Tensor) -> torch.Tensor:
-    return p ^ (p >> 1) ^ (p >> 2) ^ (p >> 3)
-
-
 def _slice_errors(re: torch.Tensor, im: torch.Tensor, sent: torch.Tensor,
                   M: int) -> torch.Tensor:
     """The bits in which the slicer's decision on ``(re, im)`` differs from
     the ``sent`` indices, element by element (``mmse.cuh``
-    ``bit_errors``): the real part rises with the column, the imaginary
-    part falls with the row, with the kernels' float32 spacing
-    ``sqrtf(2 (M - 1) / 3)``."""
-    lq = int(round(math.sqrt(M)))
-    half = int(round(math.log2(M))) // 2
-    scale = torch.tensor((M - 1) * 2.0 / 3.0, dtype=torch.float32,
-                         device=re.device).sqrt()
-    got = (_inv_gray(_level(-im, scale, lq)) << half) | \
-        _inv_gray(_level(re, scale, lq))
-    return count_bits(got ^ sent.to(torch.int64))
+    ``bit_errors``): ``QAM.demodulate_hard``'s slicer (``ops/qam.py``
+    ``qam_slice``), whose float32 operations the kernels round alike."""
+    return count_bits(qam_slice(torch.complex(re, im), M) ^
+                      sent.to(torch.int64))
 
 
 # complex values as (real, imaginary) pairs of float32 tensors, each
@@ -400,7 +384,9 @@ def sc_decide(symbols: torch.Tensor, mu: torch.Tensor, sent: torch.Tensor,
     de-spread ``symbols`` (n, Nt, ...) complex64, divided by ``mu`` (n, Nt)
     float32, against ``sent`` (n, Nt, ...) indices with as many symbols a
     layer. The CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors. With a unit ``mu`` (ones, by which the division is exact) it
+    is the plain hard decision and bit count: ``chain.ChainStep``'s, with
+    ``Nt`` = 1."""
     n, nt, S = _check_decide(symbols, mu, sent, M)
     dev = symbols.device
     if dev.type == "cpu":

@@ -68,6 +68,7 @@ from .chain import ReplayedStep
 from .channels import TdlChannel
 from .mimo_chain import MimoChainStep
 from .ops.mimo_detect import sc_decide, sc_mmse_eq
+from .ops.qam import qam_map
 from .reference_signals import (DmrsUeSequence, LayeredOCCChannelEstimator,
                                 RootSequence)
 from .tracing import span
@@ -95,7 +96,8 @@ class PuschChainStep(MimoChainStep):
     signs a layer) make the DMRS; the estimator keeps the delays
     ``0..taps_to_keep``. ``signal_dtype`` as ``MimoChainStep``'s."""
 
-    counted_kernels = ReplayedStep.counted_kernels + (sc_mmse_eq, sc_decide)
+    counted_kernels = ReplayedStep.counted_kernels + (sc_mmse_eq, sc_decide,
+                                                      qam_map)
 
     def __init__(self, num_layers: int, num_rx: int, M: int,
                  num_symbols: int, fft_size: int, cp_size: int,

@@ -271,3 +271,116 @@ def test_chain_arguments():
     fused = ChainStep(600, 512, 52, 300, block_static=True, fused=True,
                       device="cpu")
     assert fused.noise_length == 600
+
+
+# -- the symbol map and the decision with its bit count -----------------------
+#
+# On the CPU the step's counts are the op-by-op decision and count on its own
+# equalized values. On the card each per-key step launches the map once
+# (``ops/qam.py`` ``qam_map``) and ``ChainStep`` the decision with its count
+# once (``sc_decide`` with a unit gain); the ``cuda``-marked cases hold every
+# replayed step's counts to ``step_eager``'s, the eager step's map and counts
+# to the plain versions, and each replay's launch counters.
+
+from test_torch_modulators import (_bits, _needs_card,  # noqa: E402
+                                   _op_by_op_bit_errors, _op_by_op_modulate,
+                                   _unit_gain_decide)
+
+SIGNALS = {"complex64": None, "bfloat16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("signal", sorted(SIGNALS))
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_forward_counts_are_the_op_by_op_decision_and_count(variant, signal):
+    block_static, fused = VARIANTS[variant]
+    step = ChainStep(300 * 2, 512, 52, 300, block_static=block_static,
+                     fused=fused, signal_dtype=SIGNALS[signal], device="cpu")
+    streams = AttemptStreams.from_range(2 ** 31 + 9, 2 ** 32 - 3, 6, "cpu")
+    data, state, noise = step.draw(*streams.split(3))
+    total = 0
+    for snr in (1.0, 10 ** 1.5, 1e4):
+        out = step.forward(data, state, noise, snr)
+        want = _op_by_op_bit_errors(out.equalized, data, 16)
+        assert torch.equal(out.bit_errors, want)
+        total += int(want.sum())
+    assert total > 0
+
+
+def _launches(counters, fn):
+    """``fn()``'s result and the launches it added to each counter."""
+    before = [c.launch_count for c in counters]
+    out = fn()
+    return out, tuple(c.launch_count - b for c, b in zip(counters, before))
+
+
+def _replays_equal_eager(step, counters, per_replay, n=32):
+    """Capture at ``n`` attempts, then two seeds x two SNRs in turns:
+    every replay's counts equal ``step_eager``'s on the same streams, and
+    each replay adds ``per_replay`` launches to ``counters``."""
+    step.step(AttemptStreams.from_range(1, 0, n, "cuda"), 10.0)
+    for seed in (2 ** 31 + 17, 18):
+        for snr in (10 ** 0.5, 10 ** 2.5):
+            s = AttemptStreams.from_range(seed, 2 ** 32 - n // 2, n, "cuda")
+            got, launches = _launches(counters, lambda: step.step(s, snr))
+            assert launches == per_replay, launches
+            want, eager = _launches(counters,
+                                    lambda: step.step_eager(s, snr))
+            assert eager == per_replay, eager
+            assert torch.equal(got, want), (seed, snr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("signal", sorted(SIGNALS))
+def test_chain_step_maps_and_counts_in_one_launch_each_on_the_card(signal):
+    """The benchmark's sub-chunk, 32 x 9,600 symbols, block-static."""
+    _needs_card()
+    from pyphysim_tpu_torch.ops.mimo_detect import sc_decide
+    from pyphysim_tpu_torch.ops.qam import qam_map, qam_map_reference
+    step = ChainStep(9600, 512, 52, 300, block_static=True,
+                     signal_dtype=SIGNALS[signal], device="cuda")
+    assert step.counted_kernels[-2:] == (qam_map, sc_decide)
+    s = AttemptStreams.from_range(2 ** 31 + 3, 7, 32, "cuda")
+    data, state, noise = step.draw(*s.split(3))
+    out, launches = _launches((qam_map, sc_decide),
+                              lambda: step.forward(data, state, noise, 10.0))
+    assert launches == (1, 1)
+    assert torch.equal(_bits(qam_map(data, 16)),
+                       _bits(qam_map_reference(data, 16)))
+    assert torch.equal(_bits(qam_map(data, 16)),
+                       _bits(_op_by_op_modulate(data, 16)))
+    assert torch.equal(out.bit_errors, _unit_gain_decide(
+        out.equalized, data, 16, plain=True))
+    assert torch.equal(out.bit_errors, _op_by_op_bit_errors(
+        out.equalized, data, 16))
+    _replays_equal_eager(step, (qam_map, sc_decide), (1, 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nt,nr", [(4, 4), (2, 2)])
+def test_mimo_step_maps_in_one_launch_on_the_card(nt, nr):
+    """The 4x4 step at the benchmark's LTE configuration, and a 2x2 one,
+    whose split 1 / sqrt(2) is no power of two: the map times the split in
+    one launch equals the points times the split bit for bit."""
+    _needs_card()
+    from apps.mimo.mimo_ofdm_tdl_torch import eva_channel
+    from pyphysim_tpu_torch.mimo_chain import MimoChainStep
+    from pyphysim_tpu_torch.ops.mimo_detect import mimo_mmse
+    from pyphysim_tpu_torch.ops.qam import qam_map, qam_map_reference
+    step = MimoChainStep(nt, nr, 16, 1200 * 14, 2048, 144, 1200,
+                         eva_channel(nr, nt, device="cuda"), device="cuda")
+    assert qam_map in step.counted_kernels
+    data = torch.randint(0, 16, (32, nt, 1200 * 14), device="cuda")
+    assert torch.equal(_bits(qam_map(data, 16, step._split)),
+                       _bits(qam_map_reference(data, 16) * step._split))
+    _replays_equal_eager(step, (qam_map, mimo_mmse), (1, 1))
+
+
+@pytest.mark.cuda
+def test_pusch_step_maps_in_one_launch_on_the_card():
+    _needs_card()
+    from apps.mimo.pusch_etu70_torch import pusch_step
+    from pyphysim_tpu_torch.ops.mimo_detect import sc_decide
+    from pyphysim_tpu_torch.ops.qam import qam_map
+    step = pusch_step("cuda")
+    assert qam_map in step.counted_kernels
+    _replays_equal_eager(step, (qam_map, sc_decide), (1, 1))
